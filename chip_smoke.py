@@ -24,7 +24,23 @@ CUDA toolkit's nvcc.  Phases, each printing one JSON line:
    ``torch.Generator``), with launch counts per kernel read around each
    run, and device-busy time per tick from ``torch.profiler``;
 5. parity: a small configuration served on the CPU and on the card —
-   integer records identical, float records within 1e-5.
+   integer records identical, float records within 1e-5;
+6. lm_kernels: flash attention and WKV6 against their plain versions on
+   the card at the LM serving shapes (yi-6b f32 and bf16, h2o-danube's
+   window and head_dim 120, rwkv6-1.6b), timed like phase 3 beside one
+   ``F.scaled_dot_product_attention`` call for attention, with their
+   bound (flops at the data sheet's FP32 or dense BF16 peak, or bytes
+   at 3.35 TB/s, whichever is larger);
+7. lm_serve: ``repro_torch.launch.serve`` at full width — yi-6b and then
+   rwkv6-1.6b, weights from a ``torch.Generator`` on the card, batch 4,
+   prompt 2048, 32 greedy tokens — with launch counts read around each
+   run (one flash launch per attn block, one WKV6 launch per rwkv6 block
+   of the prefill) and the serving invariant: a teacher-forced forward
+   over prompt + generated tokens matches the prefill and decode logits
+   within 1e-3;
+8. lm_parity: the yi, h2o-danube and rwkv6 smoke configs from one seed
+   on the CPU and on the card — logits within 1e-4, greedy tokens
+   identical.
 
 Any failed check raises, so the exit code is non-zero.  Ends with the
 ``nvidia-smi`` line, the kernels' JSON summary and, last,
@@ -54,7 +70,16 @@ SERVE_KW = dict(cells=CELLS, rate=RATE, rounds=ROUNDS, seed=SEED,
                 shared_cloud=True, shared_edge=True)
 ORCH_CU = "src/repro_torch/kernels/csrc/orchestration.cu"
 REPLACES = {"queue_admit": "src/repro/kernels/orchestration.py:114",
-            "group_occupancy": "src/repro/kernels/orchestration.py:55"}
+            "group_occupancy": "src/repro/kernels/orchestration.py:55",
+            "flash_attention": "src/repro/kernels/flash_attention.py:69",
+            "wkv6": "src/repro/kernels/wkv6.py:83"}
+SOURCES = {"flash_attention":
+           "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "wkv6": "src/repro_torch/kernels/csrc/wkv6.cu"}
+# H100 SXM data-sheet peaks: FP32 on the CUDA cores, dense BF16 tensor
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# the LM serving runs: batch, prompt, greedy tokens
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
 
 results: dict = {}
 
@@ -71,6 +96,28 @@ def check(cond: bool, what: str) -> None:
 
 def bound_ms(n_bytes: float) -> float:
     return n_bytes / HBM_BYTES_PER_S * 1e3
+
+
+def roofline(n_bytes: float, flops: float, dtype: str) -> dict:
+    """The least time for the work: bytes at the HBM rate or flops at the
+    data-sheet peak of ``dtype``, whichever is larger."""
+    by_bytes = bound_ms(n_bytes)
+    by_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                bytes=n_bytes, flops=flops)
+
+
+def reset_all_counts() -> None:
+    from repro_torch.kernels import flash_attention, orchestration, wkv6
+    for mod in (orchestration, flash_attention, wkv6):
+        mod.reset_launch_counts()
+
+
+def all_counts() -> dict:
+    from repro_torch.kernels import flash_attention, orchestration, wkv6
+    return {**orchestration.LAUNCHES, **flash_attention.LAUNCHES,
+            **wkv6.LAUNCHES}
 
 
 def cuda_ms(torch, fn, reset=None, iters=10, per=1, warmup=3) -> dict:
@@ -141,7 +188,7 @@ def phase_build() -> None:
                               sources))
     seconds = time.perf_counter() - t0
     ptxas = [ln.strip() for _, log in built for ln in log.splitlines()
-             if "Compiling entry" in ln or "Used" in ln]
+             if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
     emit("build", seconds=seconds, sources=[s.name for s in sources],
          ptxas=ptxas)
 
@@ -278,7 +325,7 @@ def _summary(report: dict) -> dict:
 def serve_counted(orch, serve_fleet, **kw) -> tuple[dict, dict]:
     """One main-path run with the launch counts zeroed just before it
     and read just after."""
-    orch.reset_launch_counts()
+    reset_all_counts()
     report = serve_fleet.serve(device="cuda", verbose=False, **kw)
     launches = dict(orch.LAUNCHES)
     for name, n in launches.items():
@@ -365,6 +412,237 @@ def phase_parity() -> None:
     emit("parity", **worst)
 
 
+# ------------------------------------------------------------- LM phases
+# (name, B, S, H, KV, D, window, dtype): the LM serving shapes
+FLASH_SHAPES = (
+    ("yi-6b", 4, 2048, 32, 4, 128, 0, "float32"),
+    ("yi-6b_bf16", 4, 2048, 32, 4, 128, 0, "bfloat16"),
+    ("h2o-danube-3-4b", 1, 8192, 32, 8, 120, 4096, "float32"),
+)
+WKV_SHAPE = ("rwkv6-1.6b", 4, 2048, 32, 64)  # B, S, H, N
+
+
+def visible_pairs(s: int, window: int) -> int:
+    """Causal (query, key) pairs per head, within the window if any."""
+    if not window:
+        return s * (s + 1) // 2
+    w = min(window, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def phase_lm_kernels(torch, dev) -> dict:
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import wkv6 as wk
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    out = {}
+    for name, b, s, h, kv, d, window, dt in FLASH_SHAPES:
+        dtype = getattr(torch, dt)
+        q, k, v = (torch.randn(b, s, n, d, generator=g, device=dev)
+                   .to(dtype) for n in (h, kv, kv))
+        got = fa.flash_attention(q, k, v, causal=True, window=window)
+        want = fa.flash_attention_plain(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        atol, rtol = (3e-5, 1e-4) if dt == "float32" else (3e-2, 3e-2)
+        excess = float(((got.float() - want.float()).abs()
+                        - (atol + rtol * want.float().abs())).max())
+        check(excess <= 0, f"flash {name} within atol {atol} rtol {rtol} "
+              f"of its plain version (max err {err})")
+        # the yardstick: one SDPA call on (B, H, S, D) views, the window
+        # as an explicit mask built outside the timed call
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        mask = None
+        if window:
+            i = torch.arange(s, device=dev)
+            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None]
+                                                  - window)
+        lib = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+            enable_gqa=True)
+        lib_err = float((lib().transpose(1, 2).float()
+                         - want.float()).abs().max())
+        kern = cuda_ms(torch, lambda: fa.flash_attention(
+            q, k, v, causal=True, window=window), iters=10)
+        plain = cuda_ms(torch, lambda: fa.flash_attention_plain(
+            q, k, v, causal=True, window=window), iters=3, warmup=1)
+        library = cuda_ms(torch, lib, iters=10)
+        pairs = b * h * visible_pairs(s, window)
+        size = q.element_size()
+        out[name] = dict(
+            name="flash_attention", route="cuda",
+            source=SOURCES["flash_attention"],
+            replaces=REPLACES["flash_attention"], max_abs_err=err,
+            ms=kern["ms"], plain_ms=plain["ms"], library_ms=library["ms"],
+            **roofline(size * (2 * b * s * h * d + 2 * b * s * kv * d),
+                       4 * d * pairs, dt),
+            call_ms=kern["call_ms"], plain_call_ms=plain["call_ms"],
+            library_call_ms=library["call_ms"], library_max_abs_err=lib_err,
+            blocker_held=kern["blocker_held"] and library["blocker_held"],
+            shape=dict(B=b, S=s, H=h, KV=kv, D=d, window=window, dtype=dt,
+                       visible_pairs=pairs))
+    name, b, s, h, n = WKV_SHAPE
+    r, k, v = (torch.randn(b, s, h, n, generator=g, device=dev)
+               for _ in range(3))
+    lw = -torch.exp(torch.randn(b, s, h, n, generator=g, device=dev))
+    u = 0.5 * torch.randn(h, n, generator=g, device=dev)
+    o, st = wk.wkv6(r, k, v, lw, u)
+    po, ps = wk.wkv6_plain(r, k, v, lw, u)
+    torch.cuda.synchronize()
+    err = max(float((o - po).abs().max()), float((st - ps).abs().max()))
+    check(err <= 5e-4, f"wkv6 within 5e-4 of its plain version ({err})")
+    check(bool(torch.isfinite(o).all()), "wkv6 output finite")
+    kern = cuda_ms(torch, lambda: wk.wkv6(r, k, v, lw, u), iters=10)
+    plain = cuda_ms(torch, lambda: wk.wkv6_plain(r, k, v, lw, u), iters=3,
+                    warmup=1)
+    # r, k, v, lw read and o written per step; u read and the state
+    # written once; ~5 N^2 flops per (batch, head, step)
+    out[name] = dict(
+        name="wkv6", route="cuda", source=SOURCES["wkv6"],
+        replaces=REPLACES["wkv6"], max_abs_err=err, ms=kern["ms"],
+        plain_ms=plain["ms"], library_ms=None,
+        **roofline(4 * (5 * b * s * h * n + h * n + b * h * n * n),
+                   5 * b * s * h * n * n, "float32"),
+        call_ms=kern["call_ms"], plain_call_ms=plain["call_ms"],
+        blocker_held=kern["blocker_held"],
+        shape=dict(B=b, S=s, H=h, N=n, dtype="float32"))
+    emit("lm_kernels", **out)
+    return out
+
+
+def _device_time(torch, fn, match: str = "") -> tuple[dict, object]:
+    """Run ``fn`` under ``torch.profiler``; device ops, busy ms, the five
+    kernels with the most device time and the time of those whose name
+    holds ``match``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        result = fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name: dict = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return dict(device_ops=len(events),
+                device_busy_ms=sum(by_name.values()) / 1e3,
+                match_ms=sum(us for n, us in by_name.items()
+                             if match and match in n) / 1e3,
+                top_kernels_ms={n[:80]: us / 1e3 for n, us in top}), result
+
+
+def profile_lm(torch, run, rep: dict, steps: int = 2) -> dict:
+    """Device time of one more prefill and ``steps`` decode steps of the
+    run's model and prompt, against the unprofiled run's wall times."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving.engine import make_serve_step
+    cfg, params, tokens = run.cfg, run.params, run.prompt["tokens"]
+    step = make_serve_step(cfg)
+    kernel = "flash_fwd_kernel" if cfg.rwkv6 is None else "wkv6_kernel"
+    with torch.inference_mode():
+        pre, (logits, cache) = _device_time(torch, lambda: tf.prefill(
+            params, cfg, tokens, max_len=LM_PROMPT + steps + 1), kernel)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+
+        def decode():
+            nonlocal tok, cache
+            for _ in range(steps):
+                tok, _, cache = step(params, tok, cache)
+
+        dec, _ = _device_time(torch, decode)
+    del cache, logits
+    return dict(
+        prefill=dict(pre, wall_ms_unprofiled=rep["prefill_ms"],
+                     busy_share=pre["device_busy_ms"] / rep["prefill_ms"]),
+        kernel_share_of_prefill_busy=pre["match_ms"]
+        / pre["device_busy_ms"],
+        decode_per_token=dict(
+            device_ops=dec["device_ops"] / steps,
+            device_busy_ms=dec["device_busy_ms"] / steps,
+            top_kernels_ms={n: ms / steps
+                            for n, ms in dec["top_kernels_ms"].items()},
+            wall_ms_unprofiled=rep["decode_ms_per_token"],
+            busy_share=dec["device_busy_ms"] / steps
+            / rep["decode_ms_per_token"]))
+
+
+def phase_lm_serve(torch) -> dict:
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+    expect = {"yi-6b": "flash_attention", "rwkv6-1.6b": "wkv6"}
+    out = {}
+    for arch, kernel in expect.items():
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_counts()
+        run = serve.serve(arch, batch=LM_BATCH, prompt_len=LM_PROMPT,
+                          gen=LM_GEN, device="cuda", verbose=False)
+        launches = all_counts()
+        n_layers = run.cfg.n_layers
+        check(launches[kernel] == n_layers,
+              f"{arch}: {kernel} launched once per block of the prefill "
+              f"({launches[kernel]} != {n_layers})")
+        other = ({"flash_attention", "wkv6"} - {kernel}).pop()
+        check(launches[other] == 0, f"{arch}: no {other} launch")
+        # the serving invariant: teacher-forced logits over prompt +
+        # generated tokens match the prefill and decode logits
+        res = run.result
+        seq = torch.cat([run.prompt["tokens"], res.tokens[:, :-1]], dim=1)
+        with torch.inference_mode():
+            full, _ = tf.forward(run.params, run.cfg, seq)
+        ref = full[:, LM_PROMPT - 1:]
+        check(ref.shape == res.logits.shape, "logit shapes agree")
+        fwd_err = float((ref - res.logits).abs().max())
+        check(bool(torch.isfinite(res.logits).all()), f"{arch} finite")
+        check(fwd_err <= 1e-3, f"{arch}: forward matches prefill + decode "
+              f"logits within 1e-3 ({fwd_err})")
+        rep = run.report
+        prof = profile_lm(torch, run, rep)
+        out[arch] = dict(
+            params=rep["params"], batch=LM_BATCH, prompt=LM_PROMPT,
+            gen=LM_GEN, prefill_ms=rep["prefill_ms"],
+            decode_ms_per_token=rep["decode_ms_per_token"],
+            tokens_per_s=rep["tokens_per_s"],
+            decode_tokens_per_s=rep["decode_tokens_per_s"],
+            launches={kernel: launches[kernel]},
+            launches_per_prefill={kernel: launches[kernel]},
+            forward_max_abs_err=fwd_err,
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+            profile=prof, sample=rep["tokens"][0][:8])
+        del run, res, full, ref, seq
+        torch.cuda.empty_cache()
+    emit("lm_serve", **out)
+    return out
+
+
+def phase_lm_parity(torch) -> None:
+    import copy
+    from repro_torch import random as rnd
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.shapes import make_batch
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving.engine import generate
+    out = {}
+    for arch in ("yi-6b", "h2o-danube-3-4b", "rwkv6-1.6b"):
+        cfg = get_smoke_config(arch)
+        cpu_params = tf.init_params(cfg, seed=SEED, device="cpu")
+        gpu_params = copy.deepcopy(cpu_params).to("cuda")
+        # 40 tokens: past the danube smoke window (32), so the ring wraps
+        prompt = make_batch(cfg, rnd.PRNGKey(SEED, "cpu"), 2, 40,
+                            with_labels=False)
+        cpu = generate(cpu_params, cfg, prompt, steps=8)
+        gpu = generate(gpu_params, cfg,
+                       {"tokens": prompt["tokens"].to("cuda")}, steps=8)
+        err = float((cpu.logits - gpu.logits.cpu()).abs().max())
+        check(err <= 1e-4, f"{arch}: CPU and card logits within 1e-4 "
+              f"({err})")
+        check(torch.equal(cpu.tokens, gpu.tokens.cpu()),
+              f"{arch}: greedy tokens identical on CPU and card")
+        out[arch] = dict(max_abs_logit_err=err,
+                         tokens=gpu.tokens[0].tolist())
+    emit("lm_parity", **out)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -382,8 +660,18 @@ def main() -> int:
     kernels = phase_kernels(torch, dev)
     serve = phase_serve(torch)
     phase_parity()
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in f32
+    lm_kernels = phase_lm_kernels(torch, dev)
+    lm_serve = phase_lm_serve(torch)
+    phase_lm_parity(torch)
     for name, k in kernels.items():
         k["launches"] = serve["greedy"]["launches"][name]
+    kernels["flash_attention"] = dict(
+        lm_kernels["yi-6b"],
+        launches=lm_serve["yi-6b"]["launches"]["flash_attention"])
+    kernels["wkv6"] = dict(
+        lm_kernels["rwkv6-1.6b"],
+        launches=lm_serve["rwkv6-1.6b"]["launches"]["wkv6"])
     summary = {"kernels": [
         {key: k[key] for key in ("name", "route", "source", "replaces",
                                  "launches", "max_abs_err", "ms",

@@ -1,0 +1,62 @@
+"""Architecture registry of the port: ``--arch <id>`` → ModelConfig.
+
+The same ids as the reference's ``repro.configs``.  The port runs the
+architectures whose blocks it has (``attn`` and ``rwkv6``); the others
+raise ``NotImplementedError`` naming the work in ``ROADMAP.md`` that
+ports them.  Each ported architecture has its own module with
+``config()`` (the published hyper-parameters) and ``smoke_config()`` (a
+reduced same-family variant for CPU tests).
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+
+from repro_torch.models.config import ModelConfig
+
+ARCH_IDS = (
+    "rwkv6-1.6b",
+    "mistral-nemo-12b",
+    "nemotron-4-15b",
+    "zamba2-1.2b",
+    "mixtral-8x7b",
+    "yi-6b",
+    "qwen2-vl-7b",
+    "musicgen-medium",
+    "h2o-danube-3-4b",
+    "deepseek-v2-236b",
+)
+
+# what each architecture not yet ported still needs (ROADMAP.md queue 1
+# item 10 lists these slices in order)
+_LATER = {
+    "mistral-nemo-12b": "the remaining dense configs",
+    "nemotron-4-15b": "the remaining dense configs",
+    "zamba2-1.2b": "the mamba2/zamba2 slice (mamba2 blocks, ssd_pallas, "
+                   "the shared attention block)",
+    "mixtral-8x7b": "the MoE slice",
+    "qwen2-vl-7b": "the M-RoPE and patch-embedding slice",
+    "musicgen-medium": "the multi-codebook slice",
+    "deepseek-v2-236b": "the MLA + MoE slice",
+}
+
+
+def _module(arch_id: str):
+    if arch_id not in ARCH_IDS:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
+    if arch_id in _LATER:
+        raise NotImplementedError(
+            f"{arch_id} is not ported yet: ROADMAP.md queue 1 item 10, "
+            f"{_LATER[arch_id]}")
+    mod = arch_id.replace("-", "_").replace(".", "p")
+    return importlib.import_module(f"repro_torch.configs.{mod}")
+
+
+def get_config(arch_id: str, **overrides) -> ModelConfig:
+    cfg = _module(arch_id).config()
+    return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+
+def get_smoke_config(arch_id: str, **overrides) -> ModelConfig:
+    cfg = _module(arch_id).smoke_config()
+    return dataclasses.replace(cfg, **overrides) if overrides else cfg

@@ -9,6 +9,7 @@ by name, so this module imports nothing of the reference:
     fleet_scenario      FleetScenario fields → port FleetScenario
     request_stream      RequestStream arrays → port RequestStream
     key_from_data       a (2,) uint32 key_data pair → port threefry key
+    lm_params           an LM params pytree → the port's LM module
 """
 from __future__ import annotations
 
@@ -18,6 +19,8 @@ import torch
 from repro_torch.core.networks import MLP
 from repro_torch.device import resolve_device
 from repro_torch.fleet.workload import FleetScenario
+from repro_torch.models import transformer as tf
+from repro_torch.models.config import ModelConfig
 from repro_torch.random import MASK32
 from repro_torch.serve.stream import RequestStream
 
@@ -73,3 +76,28 @@ def key_from_data(key_data, device="cuda") -> torch.Tensor:
     words = np.asarray(key_data, np.uint64).reshape(2) & MASK32
     return torch.as_tensor(words.astype(np.int64),
                            device=resolve_device(device))
+
+
+def _map_tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_tree(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def lm_params(params, cfg: ModelConfig, device="cuda") -> tf.LM:
+    """The reference's LM params pytree (``repro.models.transformer.
+    init_params``: ``embed``, ``final_norm``, ``lm_head`` and the scanned
+    ``segments``, each a dict of arrays with a leading layer axis) as the
+    port's :class:`~repro_torch.models.transformer.LM`: every segment is
+    unstacked into one block module per layer, in order."""
+    tf.check_supported(cfg)
+    dev = resolve_device(device)
+    tensor = lambda a: torch.as_tensor(np.array(a), device=dev)
+    blocks = []
+    for (kind, n), seg in zip(tf.segment_plan(cfg), params["segments"]):
+        for i in range(n):
+            blocks.append(tf.BLOCKS[kind](
+                _map_tree(seg, lambda a, i=i: tensor(np.asarray(a)[i]))))
+    head = None if cfg.tie_embeddings else tensor(params["lm_head"])
+    return tf.LM(cfg, _map_tree(params["embed"], tensor),
+                 _map_tree(params["final_norm"], tensor), blocks, head)

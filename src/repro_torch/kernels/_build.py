@@ -5,7 +5,9 @@ Each ``csrc/*.cu`` file has a plain C interface and is compiled by
 file that includes no PyTorch header builds in seconds.  Libraries go to
 ``_build/`` beside this module (listed in ``.gitignore``), named by a
 hash of the source and flags, so a changed source is rebuilt and an
-unchanged one is loaded as it is.  A missing ``nvcc`` raises.
+unchanged one is loaded as it is.  A missing ``nvcc`` raises.  The
+wrappers' shared checks (``check``, ``route``, ``raise_on``) live here
+too.
 """
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
@@ -77,3 +81,32 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
             getattr(lib, fn).restype = ctypes.c_int
         _loaded[source] = lib
     return lib
+
+
+def check(name: str, t: torch.Tensor, dtype, shape, device,
+          contiguous: bool = True) -> None:
+    """Raise unless ``t`` has this dtype, shape and device (and, when
+    asked, is contiguous)."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if contiguous and not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def route(device: torch.device) -> str:
+    """"cuda" launches the kernel, "cpu" runs its plain version; any
+    other device raises."""
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no route for tensors on {device}")
+    return device.type
+
+
+def raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error "
+                           f"{err}")

@@ -46,30 +46,6 @@ def _lib() -> ctypes.CDLL:
     return _build.load("orchestration", _SIGNATURES)
 
 
-def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _route(device: torch.device) -> str:
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no route for tensors on {device}")
-    return device.type
-
-
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed with CUDA error "
-                           f"{err}")
-
-
 # -------------------------------------------------------------- queue_admit
 def queue_admit(q_ids, q_head, q_len, rid, cell, valid):
     """Admit one tick's burst into the per-cell rings.
@@ -87,13 +63,13 @@ def queue_admit(q_ids, q_head, q_len, rid, cell, valid):
     dev = q_ids.device
     if c == 0 or q == 0:
         raise ValueError(f"queue_admit needs C, Q >= 1, got {(c, q)}")
-    _check("q_ids", q_ids, torch.int32, (c, q), dev)
-    _check("q_head", q_head, torch.int32, (c,), dev)
-    _check("q_len", q_len, torch.int32, (c,), dev)
-    _check("rid", rid, torch.int32, (a,), dev)
-    _check("cell", cell, torch.int32, (a,), dev)
-    _check("valid", valid, torch.bool, (a,), dev)
-    if _route(dev) == "cpu":
+    _build.check("q_ids", q_ids, torch.int32, (c, q), dev)
+    _build.check("q_head", q_head, torch.int32, (c,), dev)
+    _build.check("q_len", q_len, torch.int32, (c,), dev)
+    _build.check("rid", rid, torch.int32, (a,), dev)
+    _build.check("cell", cell, torch.int32, (a,), dev)
+    _build.check("valid", valid, torch.bool, (a,), dev)
+    if _build.route(dev) == "cpu":
         return queue_admit_plain(q_ids, q_head, q_len, rid, cell, valid)
     admitted = torch.empty((a,), dtype=torch.bool, device=dev)
     seen = torch.empty((c,), dtype=torch.int32, device=dev)
@@ -102,7 +78,7 @@ def queue_admit(q_ids, q_head, q_len, rid, cell, valid):
         rid.data_ptr(), cell.data_ptr(), valid.data_ptr(),
         admitted.data_ptr(), seen.data_ptr(), c, q, a, dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "queue_admit")
+    _build.raise_on(err, "queue_admit")
     LAUNCHES["queue_admit"] += 1
     return q_ids, q_len, admitted
 
@@ -139,9 +115,9 @@ def group_occupancy(own, groups):
     dev = own.device
     if own.dtype not in _GROUP_FN:
         raise TypeError(f"own must be int32 or float32, got {own.dtype}")
-    _check("own", own, own.dtype, (n,), dev)
-    _check("groups", groups, torch.int32, (n,), dev)
-    if _route(dev) == "cpu":
+    _build.check("own", own, own.dtype, (n,), dev)
+    _build.check("groups", groups, torch.int32, (n,), dev)
+    if _build.route(dev) == "cpu":
         return group_occupancy_plain(own, groups)
     totals = torch.empty_like(own)
     out = torch.empty_like(own)
@@ -149,7 +125,7 @@ def group_occupancy(own, groups):
         own.data_ptr(), groups.data_ptr(), totals.data_ptr(),
         out.data_ptr(), n, dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "group_occupancy")
+    _build.raise_on(err, "group_occupancy")
     LAUNCHES["group_occupancy"] += 1
     return out
 

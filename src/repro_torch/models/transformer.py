@@ -1,0 +1,328 @@
+"""The LM: attention and RWKV6 blocks composed per config
+(``repro.models.transformer``'s counterpart for the ``attn`` and
+``rwkv6`` block kinds).
+
+Structure: an :class:`LM` module holds the embedding, one block module
+per layer (:class:`AttnBlock` or :class:`RWKV6Block`, parameters in the
+reference's ``(d_in, d_out)`` layout and names) and the final norm and
+head.  The reference stacks identical layers into scanned segments; the
+port keeps a plain list (``segment_plan`` still says how the
+reference's segments unstack, for ``repro_torch.convert.lm_params``).
+
+Entry points, as in the reference:
+  * ``forward``      — teacher-forced logits over a full sequence.
+  * ``prefill``      — the full prompt → (last-token logits, cache).
+  * ``decode_step``  — one token against the cache.
+
+Prefill runs every block's full-sequence path, which reaches the
+hand-written kernels: flash attention in every ``attn`` block, WKV6 in
+every ``rwkv6`` block (on CPU tensors their plain versions).  Decode
+runs plain torch, as the reference does outside any kernel.
+
+Cache: ``{"pos": int, "layers": [per-layer dict]}``; KV caches are ring
+buffers of capacity ``min(max_len, window)``.  ``decode_step`` updates
+the cache **in place** (the KV slot write and the recurrent states) and
+returns it: the reference returns a fresh copy, which at full width
+would copy the whole KV cache every token.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models import layers as L
+from repro_torch.models import rwkv6 as r6
+from repro_torch.models.attention import decode_attention
+from repro_torch.models.config import ModelConfig
+
+PORTED_KINDS = ("attn", "rwkv6")
+_LATER_KINDS = {"moe": "the MoE slice", "mla_dense": "the MLA + MoE slice",
+                "mla_moe": "the MLA + MoE slice",
+                "mamba2": "the mamba2/zamba2 slice"}
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` naming the later slice for anything
+    this port does not run yet."""
+    later = []
+    for kind in dict.fromkeys(cfg.block_kinds()):
+        if kind not in PORTED_KINDS:
+            later.append(f"{kind} blocks ({_LATER_KINDS.get(kind, kind)})")
+    if cfg.shared_attn_every:
+        later.append("the shared attention block (the mamba2/zamba2 slice)")
+    if cfg.num_codebooks:
+        later.append("codebooks (the multi-codebook slice)")
+    if cfg.mrope_sections or cfg.num_patch_positions:
+        later.append("M-RoPE and patch embeddings (the M-RoPE slice)")
+    if later:
+        raise NotImplementedError(
+            f"{cfg.name} needs {', '.join(later)}: not ported yet "
+            f"(ROADMAP.md queue 1 item 10)")
+
+
+def segment_plan(cfg: ModelConfig) -> list[tuple[str, int]]:
+    """[(kind, n_layers)] — the reference's contiguous runs of identical
+    block kinds (its scanned parameter segments; zamba2's shared-block
+    grouping comes with its slice)."""
+    segs: list[tuple[str, int]] = []
+    for kind in cfg.block_kinds():
+        if segs and segs[-1][0] == kind:
+            segs[-1] = (kind, segs[-1][1] + 1)
+        else:
+            segs.append((kind, 1))
+    return segs
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+def _ring_from_prefill(k: torch.Tensor, cap: int) -> torch.Tensor:
+    """The last ``cap`` tokens of k (B, S, KV, hd) at ring slots t % cap."""
+    b, s, n_kv, hd = k.shape
+    out = torch.zeros((b, cap, n_kv, hd), dtype=k.dtype, device=k.device)
+    if s <= cap:
+        out[:, :s] = k
+    else:
+        slots = torch.arange(s - cap, s, device=k.device) % cap
+        out[:, slots] = k[:, -cap:]
+    return out
+
+
+class AttnBlock(L.ParamTree):
+    """Attention + dense MLP: ``ln1``, ``attn`` {wq, wk, wv, wo}, ``ln2``,
+    ``mlp``.  ``seq`` and ``decode`` are the reference's ``block_seq`` and
+    ``block_decode`` for this kind."""
+
+    def _qkv(self, x, cos, sin, cfg: ModelConfig):
+        b, s, _ = x.shape
+        hd = cfg.resolved_head_dim
+        h = L.rmsnorm(self["ln1"], x, cfg.norm_eps)
+        a = self["attn"]
+        q = (h @ a["wq"]).reshape(b, s, cfg.n_heads, hd)
+        k = (h @ a["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
+        v = (h @ a["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+        return L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin), v
+
+    def _ffn(self, x, cfg: ModelConfig):
+        h = L.rmsnorm(self["ln2"], x, cfg.norm_eps)
+        return x + L.apply_mlp(self["mlp"], h, cfg.mlp_kind)
+
+    def seq(self, x, ctx, return_cache: bool):
+        cfg: ModelConfig = ctx["cfg"]
+        b, s, _ = x.shape
+        q, k, v = self._qkv(x, ctx["cos"], ctx["sin"], cfg)
+        o = flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
+        x = x + o.reshape(b, s, cfg.attn_out_dim) @ self["attn"]["wo"]
+        x = self._ffn(x, cfg)
+        cache = None
+        if return_cache:
+            cap = ctx["cache_cap"]
+            cache = {"k": _ring_from_prefill(k, cap),
+                     "v": _ring_from_prefill(v, cap)}
+        return x, cache
+
+    def decode(self, x, cache, ctx):
+        cfg: ModelConfig = ctx["cfg"]
+        b = x.shape[0]
+        pos = ctx["pos"]
+        q, k, v = self._qkv(x, ctx["cos"], ctx["sin"], cfg)
+        cap = cache["k"].shape[1]
+        slot = pos % cap
+        cache["k"][:, slot] = k[:, 0]
+        cache["v"][:, slot] = v[:, 0]
+        valid = (torch.arange(cap, device=x.device)
+                 < min(pos + 1, cap))[None].expand(b, cap)
+        o = decode_attention(q, cache["k"], cache["v"], valid)
+        x = x + o.reshape(b, 1, cfg.attn_out_dim) @ self["attn"]["wo"]
+        return self._ffn(x, cfg), cache
+
+
+class RWKV6Block(L.ParamTree):
+    """RWKV6 time-mix + channel-mix: ``tm``, ``cm``, ``ln1``, ``ln2``;
+    ``seq`` / ``decode`` as :class:`AttnBlock`'s."""
+
+    def seq(self, x, ctx, return_cache: bool):
+        cfg: ModelConfig = ctx["cfg"]
+        h1 = L.rmsnorm(self["ln1"], x, cfg.norm_eps)
+        o, wkv_state = r6.rwkv6_time_mix(self["tm"], h1, r6.token_shift(h1),
+                                         cfg.rwkv6)
+        x = x + o
+        h2 = L.rmsnorm(self["ln2"], x, cfg.norm_eps)
+        x = x + r6.rwkv6_channel_mix(self["cm"], h2, r6.token_shift(h2))
+        cache = None
+        if return_cache:
+            cache = {"x_tm": h1[:, -1], "x_cm": h2[:, -1], "wkv": wkv_state}
+        return x, cache
+
+    def decode(self, x, cache, ctx):
+        cfg: ModelConfig = ctx["cfg"]
+        h1 = L.rmsnorm(self["ln1"], x, cfg.norm_eps)
+        o, cache["wkv"] = r6.rwkv6_time_mix(
+            self["tm"], h1, cache["x_tm"][:, None], cfg.rwkv6,
+            wkv_state=cache["wkv"])
+        x = x + o
+        h2 = L.rmsnorm(self["ln2"], x, cfg.norm_eps)
+        x = x + r6.rwkv6_channel_mix(self["cm"], h2, cache["x_cm"][:, None])
+        cache["x_tm"], cache["x_cm"] = h1[:, 0], h2[:, 0]
+        return x, cache
+
+
+BLOCKS = {"attn": AttnBlock, "rwkv6": RWKV6Block}
+
+
+class LM(nn.Module):
+    """Embedding, blocks, final norm and head of one config."""
+
+    def __init__(self, cfg: ModelConfig, embed: dict, final_norm: dict,
+                 blocks: list, lm_head: Optional[torch.Tensor] = None):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+        self.embed = L.ParamTree(embed)
+        self.final_norm = L.ParamTree(final_norm)
+        self.blocks = nn.ModuleList(blocks)
+        if (lm_head is None) != cfg.tie_embeddings:
+            raise ValueError("lm_head must be given iff embeddings are "
+                             "not tied")
+        self.lm_head = (None if lm_head is None
+                        else nn.Parameter(lm_head, requires_grad=False))
+
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init_layer(gen: torch.Generator, kind: str, cfg: ModelConfig, device
+               ) -> L.ParamTree:
+    dt, d = cfg.param_torch_dtype, cfg.d_model
+    if kind == "attn":
+        hd = cfg.resolved_head_dim
+        dense = lambda shape: L.dense_init(gen, shape, dt, device)
+        return AttnBlock({
+            "ln1": L.init_rmsnorm(d, dt, device),
+            "attn": {"wq": dense((d, cfg.n_heads * hd)),
+                     "wk": dense((d, cfg.n_kv_heads * hd)),
+                     "wv": dense((d, cfg.n_kv_heads * hd)),
+                     "wo": dense((cfg.n_heads * hd, d))},
+            "ln2": L.init_rmsnorm(d, dt, device),
+            "mlp": L.init_mlp(gen, d, cfg.d_ff, cfg.mlp_kind, dt, device)})
+    if kind == "rwkv6":
+        tree = r6.init_rwkv6(gen, d, cfg.d_ff, cfg.rwkv6, dt, device)
+        tree["ln1"] = L.init_rmsnorm(d, dt, device)
+        tree["ln2"] = L.init_rmsnorm(d, dt, device)
+        return RWKV6Block(tree)
+    check_supported(cfg)
+    raise ValueError(kind)
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:
+    """Random weights from ``torch.Generator(device).manual_seed(seed)``,
+    drawn on ``device`` (the reference's distributions, not its numbers)."""
+    check_supported(cfg)
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dt = cfg.param_torch_dtype
+    embed = {"tok": L.embed_init(gen, (cfg.vocab_size, cfg.d_model), dt,
+                                 dev)}
+    head = (None if cfg.tie_embeddings else
+            L.dense_init(gen, (cfg.d_model, cfg.vocab_size), dt, dev))
+    blocks = [init_layer(gen, kind, cfg, dev) for kind in cfg.block_kinds()]
+    return LM(cfg, embed, L.init_rmsnorm(cfg.d_model, dt, dev), blocks, head)
+
+
+# ---------------------------------------------------------------------------
+# embedding / head
+# ---------------------------------------------------------------------------
+
+def embed_inputs(params: LM, cfg: ModelConfig, tokens) -> torch.Tensor:
+    x = params.embed["tok"][tokens.long()]
+    return x.to(cfg.compute_torch_dtype)
+
+
+def lm_logits(params: LM, cfg: ModelConfig, x) -> torch.Tensor:
+    x = L.rmsnorm(params.final_norm, x, cfg.norm_eps)
+    if cfg.tie_embeddings:
+        return x @ params.embed["tok"].T
+    return x @ params.lm_head
+
+
+# ---------------------------------------------------------------------------
+# full model entry points
+# ---------------------------------------------------------------------------
+
+def _ctx(cfg: ModelConfig, positions: torch.Tensor) -> dict:
+    cos, sin = L.rope_cos_sin(positions, cfg.resolved_head_dim,
+                              cfg.rope_theta)
+    return {"cfg": cfg, "cos": cos, "sin": sin}
+
+
+def forward(params: LM, cfg: ModelConfig, tokens):
+    """Teacher-forced logits.  tokens: (B, S) → (logits (B, S, V), aux
+    loss 0.0 — no MoE here)."""
+    x = embed_inputs(params, cfg, tokens)
+    ctx = _ctx(cfg, torch.arange(x.shape[1], device=x.device))
+    for block in params.blocks:
+        x, _ = block.seq(x, ctx, return_cache=False)
+    return lm_logits(params, cfg, x), 0.0
+
+
+def cache_capacity(cfg: ModelConfig, max_len: int) -> int:
+    return min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device="cuda") -> dict:
+    """Zero cache for autoregressive decoding."""
+    check_supported(cfg)
+    dt = cfg.compute_torch_dtype
+    zeros = lambda *shape, dtype=dt: torch.zeros(shape, dtype=dtype,
+                                                 device=device)
+    cap = cache_capacity(cfg, max_len)
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    layers = []
+    for kind in cfg.block_kinds():
+        if kind == "attn":
+            layers.append({"k": zeros(batch, cap, cfg.n_kv_heads, hd),
+                           "v": zeros(batch, cap, cfg.n_kv_heads, hd)})
+        else:
+            n = cfg.rwkv6.head_dim
+            layers.append({"x_tm": zeros(batch, d), "x_cm": zeros(batch, d),
+                           "wkv": zeros(batch, d // n, n, n,
+                                        dtype=torch.float32)})
+    return {"pos": 0, "layers": layers}
+
+
+def prefill(params: LM, cfg: ModelConfig, tokens,
+            max_len: Optional[int] = None):
+    """Run the full prompt (B, S) and build the cache.  Returns
+    (last-token logits (B, V), cache)."""
+    x = embed_inputs(params, cfg, tokens)
+    s = x.shape[1]
+    ctx = _ctx(cfg, torch.arange(s, device=x.device))
+    ctx["cache_cap"] = cache_capacity(cfg, max_len or s)
+    layers = []
+    for block in params.blocks:
+        x, cache = block.seq(x, ctx, return_cache=True)
+        layers.append(cache)
+    logits = lm_logits(params, cfg, x[:, -1:])
+    return logits[:, 0], {"pos": s, "layers": layers}
+
+
+def decode_step(params: LM, cfg: ModelConfig, token, cache: dict):
+    """token: (B,).  Returns (logits (B, V), cache) — the cache updated in
+    place, ``pos`` advanced by one."""
+    x = embed_inputs(params, cfg, token[:, None])
+    b = x.shape[0]
+    pos = cache["pos"]
+    ctx = _ctx(cfg, torch.full((b, 1), pos, dtype=torch.int32,
+                               device=x.device))
+    ctx["pos"] = pos
+    for block, layer_cache in zip(params.blocks, cache["layers"]):
+        x, _ = block.decode(x, layer_cache, ctx)
+    cache["pos"] = pos + 1
+    return lm_logits(params, cfg, x)[:, 0], cache

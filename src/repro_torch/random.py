@@ -13,6 +13,17 @@ threefry2x32 implementation under ``jax_threefry_partitionable=True``
     bits(key, s)   = y0 ^ y1 where (y0, y1) = threefry(key, (hi(i), lo(i)))
                      for every flat index i of shape s
     uniform        = bitcast((bits >> 9) | 0x3f800000) - 1.0   (float32)
+    randint        = lo + ((bits(k1) % span) * mult
+                           + bits(k2) % span) % span,  (k1, k2) = split(key),
+                     mult = (2**16 % span)**2 % span in wrapping uint32
+    gumbel         = -log(-log(max(uniform, tiny)))
+    categorical    = argmax(logits + gumbel(key, logits.shape))
+
+``randint`` is bit-equal; ``gumbel`` draws bit-equal uniforms, and its two
+logarithms are PyTorch's, which round differently from XLA's in the last
+bit of about one value in seven, so its values agree to a few float32
+ulps (and ``categorical`` picks the same index unless two perturbed
+logits tie to within that).
 
 Keys are int64 tensors of shape ``(..., 2)`` holding 32-bit words (every
 intermediate is masked to 32 bits), so leading axes batch independent
@@ -85,9 +96,7 @@ def uniform_at(keys: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     """float32 U[0, 1) draw number ``index`` (flat, row-major, < 2**32) of
     ``jax.random.uniform(key, shape)``, broadcast over (..., 2) ``keys``
     and ``index``.  Lets one threefry call serve draws of many keys."""
-    y0, y1 = threefry2x32(keys[..., 0], keys[..., 1],
-                          torch.zeros_like(index), index)
-    bits = ((y0 ^ y1) >> 9) | 0x3F800000
+    bits = (bits_at(keys, index) >> 9) | 0x3F800000
     return bits.to(torch.int32).view(torch.float32) - 1.0
 
 
@@ -99,3 +108,50 @@ def uniform(key: torch.Tensor, shape=()) -> torch.Tensor:
                        device=key.device)
     u = uniform_at(key[..., None, :], idx)
     return u.reshape(key.shape[:-1] + shape)
+
+
+def bits_at(keys: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """The 32 random bits number ``index`` of ``jax.random.bits(key,
+    shape)`` (flat, row-major, < 2**32), as int64, broadcast over (..., 2)
+    ``keys`` and ``index``."""
+    y0, y1 = threefry2x32(keys[..., 0], keys[..., 1],
+                          torch.zeros_like(index), index)
+    return y0 ^ y1
+
+
+def _bits(key: torch.Tensor, shape) -> torch.Tensor:
+    idx = torch.arange(math.prod(shape), dtype=torch.int64,
+                       device=key.device)
+    return bits_at(key[..., None, :], idx).reshape(key.shape[:-1] + shape)
+
+
+def randint(key: torch.Tensor, shape, minval: int, maxval: int
+            ) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32) for one
+    (2,) key and int32-range bounds."""
+    shape = tuple(shape)
+    k1, k2 = split(key, 2)
+    span = maxval - minval if maxval > minval else 1
+    if not 0 < span < 2 ** 32:
+        raise ValueError(f"randint span {span} outside uint32")
+    # the reference's 2**32 % span, squared in wrapping uint32
+    mult = ((2 ** 16 % span) ** 2 & MASK32) % span
+    # every product and sum wraps at 32 bits, as the reference's uint32
+    off = ((_bits(k1, shape) % span) * mult) & MASK32
+    off = ((off + _bits(k2, shape) % span) & MASK32) % span
+    return (off + minval).to(torch.int32)
+
+
+def gumbel(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape)`` (float32, the default "low"
+    mode): uniforms in [tiny, 1) mapped through ``-log(-log(u))``."""
+    tiny = torch.finfo(torch.float32).tiny
+    u = uniform(key, shape).clamp_min(tiny)
+    return -torch.log(-torch.log(u))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis=-1)``: the Gumbel-max
+    draw over the last axis (int64 indices)."""
+    g = gumbel(key, tuple(logits.shape))
+    return torch.argmax(g + logits, dim=-1)

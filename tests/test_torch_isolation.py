@@ -37,8 +37,12 @@ def test_imports_nothing_of_jax_or_the_reference(path):
 
 
 def test_port_files_found():
-    assert (PORT / "serve" / "engine.py") in FILES
-    assert (PORT / "kernels" / "orchestration.py") in FILES
+    for rel in ("serve/engine.py", "kernels/orchestration.py",
+                "kernels/flash_attention.py", "kernels/wkv6.py",
+                "models/attention.py", "models/rwkv6.py",
+                "models/transformer.py", "serving/engine.py",
+                "launch/serve.py", "configs/shapes.py"):
+        assert (PORT / rel) in FILES, rel
 
 
 def test_port_passes_the_repo_lint():

@@ -1,4 +1,5 @@
-"""The CUDA kernels against their plain versions, on the card.
+"""The CUDA kernels against their plain versions, on the card: the
+orchestration kernels, flash attention and WKV6.
 
 Imports only torch, numpy and the port, so it runs on a machine with a
 card and no JAX (the tests skip without a card):
@@ -14,7 +15,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import orchestration as orch
+from repro_torch.kernels import wkv6 as wk
+from repro_torch.models.rwkv6 import wkv6_recurrent
 
 
 def admit_case(seed, c, q, a, order="random", fill="random"):
@@ -92,3 +96,101 @@ def test_group_occupancy_kernel_matches_plain(cuda, c, n_groups):
     # float32: atomic order varies, so equal only to f32 rounding
     got_f = orch.group_occupancy(own.float().to(cuda), groups.to(cuda))
     torch.testing.assert_close(got_f.cpu(), want.float())
+
+
+# ------------------------------------------------------------ LM kernels
+# (b, sq, sk, h, kv, d, dv, causal, window): MHA/GQA/MQA, ragged S, the
+# zoo's head dims (32, 60, 64, 120, 128), Dk != Dv, a continuation
+# (Sq < Sk), full attention
+FLASH_CASES = [
+    (1, 128, 128, 4, 4, 32, 32, True, 0),
+    (2, 256, 256, 8, 2, 64, 64, True, 64),
+    (1, 100, 100, 4, 1, 64, 64, True, 0),
+    (2, 200, 200, 4, 2, 60, 60, True, 32),
+    (1, 300, 300, 4, 2, 120, 120, True, 128),
+    (2, 64, 64, 2, 2, 128, 128, True, 0),
+    (2, 130, 130, 4, 4, 48, 32, True, 0),
+    (1, 37, 165, 4, 2, 64, 64, True, 0),
+    (1, 128, 128, 2, 2, 32, 32, False, 0),
+    (1, 1, 77, 8, 2, 128, 128, True, 0),
+]
+
+
+def _flash_inputs(seed, b, sq, sk, h, kv, d, dv, dtype):
+    rng = np.random.default_rng(seed)
+    mk = lambda *s: torch.as_tensor(
+        rng.standard_normal(s).astype(np.float32)).to(dtype)
+    return mk(b, sq, h, d), mk(b, sk, kv, d), mk(b, sk, kv, dv)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,dv,causal,window", FLASH_CASES)
+def test_flash_kernel_matches_plain(cuda, b, sq, sk, h, kv, d, dv, causal,
+                                    window):
+    q, k, v = _flash_inputs(sq + d, b, sq, sk, h, kv, d, dv, torch.float32)
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q.to(cuda), k.to(cuda), v.to(cuda),
+                             causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    assert got.shape == (b, sq, h, dv) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=3e-5,
+                               rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_flash_kernel_bf16_and_strided(cuda):
+    q, k, v = _flash_inputs(3, 2, 192, 192, 8, 2, 128, 128, torch.float32)
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    got = fa.flash_attention(*(t.to(cuda, torch.bfloat16)
+                               for t in (q, k, v)), causal=True)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.numpy(),
+                               atol=3e-2, rtol=3e-2)
+    # (B, H, S, D) storage read through strides, no copy
+    qs, ks, vs = (t.to(cuda).transpose(1, 2).contiguous().transpose(1, 2)
+                  for t in (q, k, v))
+    assert not qs.is_contiguous()
+    got = fa.flash_attention(qs, ks, vs, causal=True)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=3e-5,
+                               rtol=1e-4)
+
+
+def _wkv_inputs(seed, b, s, h, n, decay_scale=1.0):
+    rng = np.random.default_rng(seed)
+    mk = lambda *sh: rng.standard_normal(sh).astype(np.float32)
+    r, k, v = mk(b, s, h, n), mk(b, s, h, n), mk(b, s, h, n)
+    lw = -decay_scale * np.exp(mk(b, s, h, n))
+    u = 0.5 * mk(h, n)
+    return tuple(torch.as_tensor(a) for a in (r, k, v, lw, u))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,n,decay_scale", [
+    (1, 64, 2, 16, 1.0), (2, 128, 3, 32, 1.0), (1, 200, 2, 64, 1.0),
+    (2, 77, 4, 64, 0.05), (2, 128, 2, 64, 5.0), (1, 1, 2, 64, 1.0),
+])
+def test_wkv6_kernel_matches_plain(cuda, b, s, h, n, decay_scale):
+    r, k, v, lw, u = _wkv_inputs(s + n, b, s, h, n, decay_scale)
+    want_o, want_s = wkv6_recurrent(r, k, v, lw, u)
+    plain_o, _ = wk.wkv6_plain(r, k, v, lw, u)
+    before = wk.LAUNCHES["wkv6"]
+    got_o, got_s = wk.wkv6(*(t.to(cuda) for t in (r, k, v, lw, u)))
+    torch.cuda.synchronize()
+    assert wk.LAUNCHES["wkv6"] == before + 1
+    assert bool(torch.isfinite(got_o).all())
+    for got, want in ((got_o, want_o), (got_s, want_s), (got_o, plain_o)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   atol=5e-4, rtol=1e-3)
+
+
+@pytest.mark.gpu
+def test_wkv6_kernel_bf16(cuda):
+    r, k, v, lw, u = _wkv_inputs(9, 1, 96, 2, 64)
+    rb, kb, vb = (t.to(torch.bfloat16) for t in (r, k, v))
+    want, _ = wkv6_recurrent(rb.float(), kb.float(), vb.float(), lw, u)
+    got, _ = wk.wkv6(*(t.to(cuda) for t in (rb, kb, vb, lw, u)))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.numpy(),
+                               atol=5e-2, rtol=5e-2)

@@ -1,7 +1,10 @@
 """The port's threefry keys are bit-equal to ``jax.random`` (default
 ``jax_threefry_partitionable=True``) at the env's call-site shapes:
 ``fold_in`` per global cell id, ``split(·, 6)``, and ``uniform`` of
-shapes () and (n_max,) (``repro/fleet/env.py`` ``sample_background``)."""
+shapes () and (n_max,) (``repro/fleet/env.py`` ``sample_background``);
+``randint`` at ``make_batch``'s shapes; and ``gumbel`` / ``categorical``
+at ``generate``'s (the Gumbel draws' uniforms bit-equal, their values to
+a few float32 ulps, since PyTorch's and XLA's ``log`` round apart)."""
 import jax
 import numpy as np
 import pytest
@@ -86,3 +89,34 @@ def test_default_device_needs_a_card():
         pytest.skip("a card is visible: the default device is valid")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         rnd.PRNGKey(0)
+
+
+@pytest.mark.parametrize("shape,lo,hi", [
+    ((2, 33), 0, 512), ((4, 2048), 0, 64000), ((3, 7), 0, 65536),
+    ((5,), -3, 100_000), ((2, 5), 0, 2**31 - 1), ((9,), 4, 4),
+    ((3,), 5, 2)])
+def test_randint_matches(shape, lo, hi):
+    for seed in (0, 5):
+        k = jax.random.PRNGKey(seed)
+        np.testing.assert_array_equal(
+            rnd.randint(_port_key(k), shape, lo, hi).numpy(),
+            np.asarray(jax.random.randint(k, shape, lo, hi)))
+
+
+@pytest.mark.parametrize("shape", [(4, 512), (2, 65536)])
+def test_gumbel_and_categorical_match(shape):
+    """``generate``'s draws: one key per step, logits (B, V) / T."""
+    tiny = np.finfo(np.float32).tiny
+    for seed in range(3):
+        k = jax.random.split(jax.random.PRNGKey(seed))[1]
+        u = rnd.uniform(_port_key(k), shape).clamp_min(tiny).numpy()
+        want_u = jax.random.uniform(k, shape, minval=tiny, maxval=1.0)
+        np.testing.assert_array_equal(_bits(u), _bits(want_u))
+        g = rnd.gumbel(_port_key(k), shape).numpy()
+        want_g = np.asarray(jax.random.gumbel(k, shape))
+        np.testing.assert_allclose(g, want_g, rtol=4e-7, atol=4e-7)
+        logits = np.random.default_rng(seed).standard_normal(shape).astype(
+            np.float32) / 0.8
+        np.testing.assert_array_equal(
+            rnd.categorical(_port_key(k), torch.as_tensor(logits)).numpy(),
+            np.asarray(jax.random.categorical(k, logits, axis=-1)))
