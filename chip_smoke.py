@@ -25,22 +25,26 @@ CUDA toolkit's nvcc.  Phases, each printing one JSON line:
    run, and device-busy time per tick from ``torch.profiler``;
 5. parity: a small configuration served on the CPU and on the card —
    integer records identical, float records within 1e-5;
-6. lm_kernels: flash attention and WKV6 against their plain versions on
-   the card at the LM serving shapes (yi-6b f32 and bf16, h2o-danube's
-   window and head_dim 120, rwkv6-1.6b), timed like phase 3 beside one
+6. lm_kernels: flash attention, WKV6 and the SSD scan against their
+   plain versions on the card at the LM serving shapes (yi-6b f32 and
+   bf16, h2o-danube's window and head_dim 120, zamba2-1.2b's shared
+   block, rwkv6-1.6b, zamba2-1.2b's Mamba2 scan, also at a ragged S and
+   at G = 2), timed like phase 3 beside one
    ``F.scaled_dot_product_attention`` call for attention, with their
    bound (flops at the data sheet's FP32 or dense BF16 peak, or bytes
    at 3.35 TB/s, whichever is larger);
-7. lm_serve: ``repro_torch.launch.serve`` at full width — yi-6b and then
-   rwkv6-1.6b, weights from a ``torch.Generator`` on the card, batch 4,
-   prompt 2048, 32 greedy tokens — with launch counts read around each
-   run (one flash launch per attn block, one WKV6 launch per rwkv6 block
-   of the prefill) and the serving invariant: a teacher-forced forward
-   over prompt + generated tokens matches the prefill and decode logits
-   within 1e-3;
-8. lm_parity: the yi, h2o-danube and rwkv6 smoke configs from one seed
-   on the CPU and on the card — logits within 1e-4, greedy tokens
-   identical.
+7. lm_serve: ``repro_torch.launch.serve`` at full width — yi-6b,
+   rwkv6-1.6b and zamba2-1.2b, weights from a ``torch.Generator`` on the
+   card, batch 4, prompt 2048, 32 greedy tokens — with launch counts read
+   around each run (each kernel launched as often as the config's blocks
+   call it in one prefill: flash once per attn block and per application
+   of zamba2's shared block, WKV6 once per rwkv6 block, SSD once per
+   mamba2 block, the others not at all) and the serving invariant: a
+   teacher-forced forward over prompt + generated tokens matches the
+   prefill and decode logits within 1e-3;
+8. lm_parity: the yi, h2o-danube, rwkv6 and zamba2 smoke configs from
+   one seed on the CPU and on the card — logits within 1e-4, greedy
+   tokens identical.
 
 Any failed check raises, so the exit code is non-zero.  Ends with the
 ``nvidia-smi`` line, the kernels' JSON summary and, last,
@@ -72,10 +76,15 @@ ORCH_CU = "src/repro_torch/kernels/csrc/orchestration.cu"
 REPLACES = {"queue_admit": "src/repro/kernels/orchestration.py:114",
             "group_occupancy": "src/repro/kernels/orchestration.py:55",
             "flash_attention": "src/repro/kernels/flash_attention.py:69",
-            "wkv6": "src/repro/kernels/wkv6.py:83"}
+            "wkv6": "src/repro/kernels/wkv6.py:83",
+            "ssd": "src/repro/kernels/ssd.py:66"}
 SOURCES = {"flash_attention":
            "src/repro_torch/kernels/csrc/flash_attention.cu",
-           "wkv6": "src/repro_torch/kernels/csrc/wkv6.cu"}
+           "wkv6": "src/repro_torch/kernels/csrc/wkv6.cu",
+           "ssd": "src/repro_torch/kernels/csrc/ssd.cu"}
+# each LM kernel's name in the profiler's device events
+DEVICE_NAMES = {"flash_attention": "flash_fwd_kernel",
+                "wkv6": "wkv6_kernel", "ssd": "ssd_kernel"}
 # H100 SXM data-sheet peaks: FP32 on the CUDA cores, dense BF16 tensor
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 # the LM serving runs: batch, prompt, greedy tokens
@@ -109,15 +118,15 @@ def roofline(n_bytes: float, flops: float, dtype: str) -> dict:
 
 
 def reset_all_counts() -> None:
-    from repro_torch.kernels import flash_attention, orchestration, wkv6
-    for mod in (orchestration, flash_attention, wkv6):
+    from repro_torch.kernels import flash_attention, orchestration, ssd, wkv6
+    for mod in (orchestration, flash_attention, wkv6, ssd):
         mod.reset_launch_counts()
 
 
 def all_counts() -> dict:
-    from repro_torch.kernels import flash_attention, orchestration, wkv6
+    from repro_torch.kernels import flash_attention, orchestration, ssd, wkv6
     return {**orchestration.LAUNCHES, **flash_attention.LAUNCHES,
-            **wkv6.LAUNCHES}
+            **wkv6.LAUNCHES, **ssd.LAUNCHES}
 
 
 def cuda_ms(torch, fn, reset=None, iters=10, per=1, warmup=3) -> dict:
@@ -418,8 +427,16 @@ FLASH_SHAPES = (
     ("yi-6b", 4, 2048, 32, 4, 128, 0, "float32"),
     ("yi-6b_bf16", 4, 2048, 32, 4, 128, 0, "bfloat16"),
     ("h2o-danube-3-4b", 1, 8192, 32, 8, 120, 4096, "float32"),
+    ("zamba2-1.2b_shared", 4, 2048, 32, 32, 64, 4096, "float32"),
 )
 WKV_SHAPE = ("rwkv6-1.6b", 4, 2048, 32, 64)  # B, S, H, N
+# (name, B, S, H, P, G, N): zamba2-1.2b's Mamba2 scan, a ragged S, G = 2
+SSD_SHAPES = (
+    ("zamba2-1.2b", 4, 2048, 64, 64, 1, 64),
+    ("ragged_S2000", 4, 2000, 64, 64, 1, 64),
+    ("groups_2", 4, 2048, 64, 64, 2, 64),
+)
+SSD_CHUNK = 256  # the config's chunk, which the plain version uses
 
 
 def visible_pairs(s: int, window: int) -> int:
@@ -506,14 +523,68 @@ def phase_lm_kernels(torch, dev) -> dict:
         call_ms=kern["call_ms"], plain_call_ms=plain["call_ms"],
         blocker_held=kern["blocker_held"],
         shape=dict(B=b, S=s, H=h, N=n, dtype="float32"))
+    for name, b, s, h, p, g, n in SSD_SHAPES:
+        out[name] = ssd_entry(torch, dev, g_=g, b=b, s=s, h=h, p=p, n=n)
     emit("lm_kernels", **out)
     return out
 
 
-def _device_time(torch, fn, match: str = "") -> tuple[dict, object]:
+def ssd_entry(torch, dev, *, g_, b, s, h, p, n) -> dict:
+    """The SSD kernel against its plain version on the same inputs, timed.
+
+    The check holds the kernel to the plain version evaluated in float64
+    on those inputs (atol 3e-4, rtol 1e-3, the reference test's bar): at
+    S = 2048 the float32 plain version's own summation error is of the
+    same order as the bar, so its distance to the kernel is recorded
+    beside, with both versions' distance to the float64 one."""
+    from repro_torch.kernels import ssd as sk
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rn = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
+    x, bm, cm = rn(b, s, h, p), rn(b, s, g_, n), rn(b, s, g_, n)
+    dt = torch.nn.functional.softplus(rn(b, s, h))
+    a = -torch.exp(rn(h))
+    d = torch.linspace(0.5, 1.5, h, device=dev)
+    args = (x, dt, a, bm, cm, d)
+    y, st = sk.ssd(*args, chunk=SSD_CHUNK)
+    py, ps = sk.ssd_plain(*args, chunk=SSD_CHUNK)
+    wy, ws = sk.ssd_plain(*(t.double() for t in args), chunk=SSD_CHUNK)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(y).all() and torch.isfinite(st).all()),
+          "ssd output finite")
+    excess = max(float(((got.double() - want).abs()
+                        - (3e-4 + 1e-3 * want.abs())).max())
+                 for got, want in ((y, wy), (st, ws)))
+    err = max(float((y.double() - wy).abs().max()),
+              float((st.double() - ws).abs().max()))
+    check(excess <= 0, f"ssd (S {s}, G {g_}) within atol 3e-4 rtol 1e-3 "
+          f"of its plain version (max err {err})")
+    plain_err = max(float((py.double() - wy).abs().max()),
+                    float((ps.double() - ws).abs().max()))
+    f32_err = max(float((y - py).abs().max()), float((st - ps).abs().max()))
+    del py, ps, wy, ws
+    kern = cuda_ms(torch, lambda: sk.ssd(*args, chunk=SSD_CHUNK), iters=10)
+    plain = cuda_ms(torch, lambda: sk.ssd_plain(*args, chunk=SSD_CHUNK),
+                    iters=3, warmup=1)
+    # x, dt, B, C, a, d read once, y and the final state written once;
+    # the exact recurrence's 4 P N flops per (batch, step, head)
+    n_bytes = 4 * (2 * b * s * h * p + b * s * h + 2 * b * s * g_ * n
+                   + 2 * h + b * h * p * n)
+    return dict(
+        name="ssd", route="cuda", source=SOURCES["ssd"],
+        replaces=REPLACES["ssd"], max_abs_err=err, ms=kern["ms"],
+        plain_ms=plain["ms"], library_ms=None,
+        **roofline(n_bytes, 4 * b * s * h * p * n, "float32"),
+        f32_plain_max_abs_err=f32_err, plain_f32_vs_f64_max_abs_err=plain_err,
+        call_ms=kern["call_ms"], plain_call_ms=plain["call_ms"],
+        blocker_held=kern["blocker_held"],
+        shape=dict(B=b, S=s, H=h, P=p, G=g_, N=n, dtype="float32",
+                   plain_chunk=SSD_CHUNK))
+
+
+def _device_time(torch, fn, matches=()) -> tuple[dict, object]:
     """Run ``fn`` under ``torch.profiler``; device ops, busy ms, the five
-    kernels with the most device time and the time of those whose name
-    holds ``match``."""
+    kernels with the most device time and, for each name in ``matches``,
+    the time of the kernels whose name holds it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -527,8 +598,8 @@ def _device_time(torch, fn, match: str = "") -> tuple[dict, object]:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     return dict(device_ops=len(events),
                 device_busy_ms=sum(by_name.values()) / 1e3,
-                match_ms=sum(us for n, us in by_name.items()
-                             if match and match in n) / 1e3,
+                match_ms={m: sum(us for n, us in by_name.items()
+                                 if m in n) / 1e3 for m in matches},
                 top_kernels_ms={n[:80]: us / 1e3 for n, us in top}), result
 
 
@@ -539,10 +610,11 @@ def profile_lm(torch, run, rep: dict, steps: int = 2) -> dict:
     from repro_torch.serving.engine import make_serve_step
     cfg, params, tokens = run.cfg, run.params, run.prompt["tokens"]
     step = make_serve_step(cfg)
-    kernel = "flash_fwd_kernel" if cfg.rwkv6 is None else "wkv6_kernel"
+    kernels = [k for k, n in expected_launches(cfg).items() if n]
     with torch.inference_mode():
         pre, (logits, cache) = _device_time(torch, lambda: tf.prefill(
-            params, cfg, tokens, max_len=LM_PROMPT + steps + 1), kernel)
+            params, cfg, tokens, max_len=LM_PROMPT + steps + 1),
+            [DEVICE_NAMES[k] for k in kernels])
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
 
         def decode():
@@ -555,8 +627,9 @@ def profile_lm(torch, run, rep: dict, steps: int = 2) -> dict:
     return dict(
         prefill=dict(pre, wall_ms_unprofiled=rep["prefill_ms"],
                      busy_share=pre["device_busy_ms"] / rep["prefill_ms"]),
-        kernel_share_of_prefill_busy=pre["match_ms"]
-        / pre["device_busy_ms"],
+        kernel_share_of_prefill_busy={
+            k: pre["match_ms"][DEVICE_NAMES[k]] / pre["device_busy_ms"]
+            for k in kernels},
         decode_per_token=dict(
             device_ops=dec["device_ops"] / steps,
             device_busy_ms=dec["device_busy_ms"] / steps,
@@ -567,23 +640,32 @@ def profile_lm(torch, run, rep: dict, steps: int = 2) -> dict:
             / rep["decode_ms_per_token"]))
 
 
+def expected_launches(cfg) -> dict:
+    """LM kernel launches of one prefill of ``cfg``: flash per attn block
+    and per application of the shared block, WKV6 per rwkv6 block, SSD
+    per mamba2 block."""
+    from repro_torch.models import transformer as tf
+    kinds = cfg.block_kinds()
+    return {"flash_attention": kinds.count("attn")
+            + tf.n_shared_applications(cfg),
+            "wkv6": kinds.count("rwkv6"), "ssd": kinds.count("mamba2")}
+
+
 def phase_lm_serve(torch) -> dict:
     from repro_torch.launch import serve
     from repro_torch.models import transformer as tf
-    expect = {"yi-6b": "flash_attention", "rwkv6-1.6b": "wkv6"}
     out = {}
-    for arch, kernel in expect.items():
+    for arch in ("yi-6b", "rwkv6-1.6b", "zamba2-1.2b"):
         torch.cuda.reset_peak_memory_stats()
         reset_all_counts()
         run = serve.serve(arch, batch=LM_BATCH, prompt_len=LM_PROMPT,
                           gen=LM_GEN, device="cuda", verbose=False)
-        launches = all_counts()
-        n_layers = run.cfg.n_layers
-        check(launches[kernel] == n_layers,
-              f"{arch}: {kernel} launched once per block of the prefill "
-              f"({launches[kernel]} != {n_layers})")
-        other = ({"flash_attention", "wkv6"} - {kernel}).pop()
-        check(launches[other] == 0, f"{arch}: no {other} launch")
+        counts = all_counts()
+        expect = expected_launches(run.cfg)
+        for kernel, n in expect.items():
+            check(counts[kernel] == n, f"{arch}: {kernel} launched {n} "
+                  f"times in the prefill (counted {counts[kernel]})")
+        launches = {k: counts[k] for k, n in expect.items() if n}
         # the serving invariant: teacher-forced logits over prompt +
         # generated tokens match the prefill and decode logits
         res = run.result
@@ -593,6 +675,9 @@ def phase_lm_serve(torch) -> dict:
         ref = full[:, LM_PROMPT - 1:]
         check(ref.shape == res.logits.shape, "logit shapes agree")
         fwd_err = float((ref - res.logits).abs().max())
+        # the first token's logits come from the prefill, the rest from
+        # decode steps: where the two paths part, and on what scale
+        prefill_err = float((ref[:, 0] - res.logits[:, 0]).abs().max())
         check(bool(torch.isfinite(res.logits).all()), f"{arch} finite")
         check(fwd_err <= 1e-3, f"{arch}: forward matches prefill + decode "
               f"logits within 1e-3 ({fwd_err})")
@@ -604,9 +689,10 @@ def phase_lm_serve(torch) -> dict:
             decode_ms_per_token=rep["decode_ms_per_token"],
             tokens_per_s=rep["tokens_per_s"],
             decode_tokens_per_s=rep["decode_tokens_per_s"],
-            launches={kernel: launches[kernel]},
-            launches_per_prefill={kernel: launches[kernel]},
+            launches=launches, launches_per_prefill=launches,
             forward_max_abs_err=fwd_err,
+            forward_max_abs_err_prefill_token=prefill_err,
+            max_abs_logit=float(res.logits.abs().max()),
             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
             profile=prof, sample=rep["tokens"][0][:8])
         del run, res, full, ref, seq
@@ -623,11 +709,12 @@ def phase_lm_parity(torch) -> None:
     from repro_torch.models import transformer as tf
     from repro_torch.serving.engine import generate
     out = {}
-    for arch in ("yi-6b", "h2o-danube-3-4b", "rwkv6-1.6b"):
+    for arch in ("yi-6b", "h2o-danube-3-4b", "rwkv6-1.6b", "zamba2-1.2b"):
         cfg = get_smoke_config(arch)
         cpu_params = tf.init_params(cfg, seed=SEED, device="cpu")
         gpu_params = copy.deepcopy(cpu_params).to("cuda")
-        # 40 tokens: past the danube smoke window (32), so the ring wraps
+        # 40 tokens: past the danube and zamba2 smoke windows (32), so
+        # the rings wrap
         prompt = make_batch(cfg, rnd.PRNGKey(SEED, "cpu"), 2, 40,
                             with_labels=False)
         cpu = generate(cpu_params, cfg, prompt, steps=8)
@@ -672,6 +759,9 @@ def main() -> int:
     kernels["wkv6"] = dict(
         lm_kernels["rwkv6-1.6b"],
         launches=lm_serve["rwkv6-1.6b"]["launches"]["wkv6"])
+    kernels["ssd"] = dict(
+        lm_kernels["zamba2-1.2b"],
+        launches=lm_serve["zamba2-1.2b"]["launches"]["ssd"])
     summary = {"kernels": [
         {key: k[key] for key in ("name", "route", "source", "replaces",
                                  "launches", "max_abs_err", "ms",

@@ -1,7 +1,8 @@
 """Architecture registry of the port: ``--arch <id>`` → ModelConfig.
 
 The same ids as the reference's ``repro.configs``.  The port runs the
-architectures whose blocks it has (``attn`` and ``rwkv6``); the others
+architectures whose blocks it has (``attn``, ``rwkv6`` and ``mamba2``
+with zamba2's shared attention block); the others
 raise ``NotImplementedError`` naming the work in ``ROADMAP.md`` that
 ports them.  Each ported architecture has its own module with
 ``config()`` (the published hyper-parameters) and ``smoke_config()`` (a
@@ -32,8 +33,6 @@ ARCH_IDS = (
 _LATER = {
     "mistral-nemo-12b": "the remaining dense configs",
     "nemotron-4-15b": "the remaining dense configs",
-    "zamba2-1.2b": "the mamba2/zamba2 slice (mamba2 blocks, ssd_pallas, "
-                   "the shared attention block)",
     "mixtral-8x7b": "the MoE slice",
     "qwen2-vl-7b": "the M-RoPE and patch-embedding slice",
     "musicgen-medium": "the multi-codebook slice",

@@ -86,9 +86,10 @@ def _map_tree(tree, fn):
 
 def lm_params(params, cfg: ModelConfig, device="cuda") -> tf.LM:
     """The reference's LM params pytree (``repro.models.transformer.
-    init_params``: ``embed``, ``final_norm``, ``lm_head`` and the scanned
-    ``segments``, each a dict of arrays with a leading layer axis) as the
-    port's :class:`~repro_torch.models.transformer.LM`: every segment is
+    init_params``: ``embed``, ``final_norm``, ``lm_head``, the scanned
+    ``segments``, each a dict of arrays with a leading layer axis, and
+    zamba2's ``shared_block``) as the port's
+    :class:`~repro_torch.models.transformer.LM`: every segment is
     unstacked into one block module per layer, in order."""
     tf.check_supported(cfg)
     dev = resolve_device(device)
@@ -99,5 +100,8 @@ def lm_params(params, cfg: ModelConfig, device="cuda") -> tf.LM:
             blocks.append(tf.BLOCKS[kind](
                 _map_tree(seg, lambda a, i=i: tensor(np.asarray(a)[i]))))
     head = None if cfg.tie_embeddings else tensor(params["lm_head"])
+    shared = (tf.AttnBlock(_map_tree(params["shared_block"], tensor))
+              if cfg.shared_attn_every else None)
     return tf.LM(cfg, _map_tree(params["embed"], tensor),
-                 _map_tree(params["final_norm"], tensor), blocks, head)
+                 _map_tree(params["final_norm"], tensor), blocks, head,
+                 shared)

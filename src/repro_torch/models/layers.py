@@ -77,6 +77,18 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (xf * params["scale"].float()).to(x.dtype)
 
 
+def init_gated_rmsnorm(dim: int, dtype, device) -> dict:
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device)}
+
+
+def gated_rmsnorm(params, x: torch.Tensor, gate: torch.Tensor,
+                  eps: float = 1e-5) -> torch.Tensor:
+    """Mamba2's norm: RMSNorm(x * silu(gate)) — applied before out_proj;
+    the gate goes through silu in float32 and is cast to x's dtype."""
+    x = x * F.silu(gate.float()).to(x.dtype)
+    return rmsnorm(params, x, eps)
+
+
 # ---------------------------------------------------------------------------
 # Rotary position embeddings (standard; M-RoPE comes with qwen2-vl)
 # ---------------------------------------------------------------------------

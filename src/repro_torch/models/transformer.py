@@ -1,13 +1,16 @@
-"""The LM: attention and RWKV6 blocks composed per config
-(``repro.models.transformer``'s counterpart for the ``attn`` and
-``rwkv6`` block kinds).
+"""The LM: attention, RWKV6 and Mamba2 blocks composed per config
+(``repro.models.transformer``'s counterpart for the ``attn``, ``rwkv6``
+and ``mamba2`` block kinds and zamba2's shared attention block).
 
 Structure: an :class:`LM` module holds the embedding, one block module
-per layer (:class:`AttnBlock` or :class:`RWKV6Block`, parameters in the
-reference's ``(d_in, d_out)`` layout and names) and the final norm and
-head.  The reference stacks identical layers into scanned segments; the
-port keeps a plain list (``segment_plan`` still says how the
-reference's segments unstack, for ``repro_torch.convert.lm_params``).
+per layer (:class:`AttnBlock`, :class:`RWKV6Block` or
+:class:`Mamba2Block`, parameters in the reference's ``(d_in, d_out)``
+layout and names), zamba2's one weight-shared ``shared_block`` (an
+:class:`AttnBlock` applied after every ``shared_attn_every`` layers,
+each application with its own KV ring) and the final norm and head.
+The reference stacks identical layers into scanned segments; the port
+keeps a plain list (``segment_plan`` still says how the reference's
+segments unstack, for ``repro_torch.convert.lm_params``).
 
 Entry points, as in the reference:
   * ``forward``      — teacher-forced logits over a full sequence.
@@ -15,11 +18,13 @@ Entry points, as in the reference:
   * ``decode_step``  — one token against the cache.
 
 Prefill runs every block's full-sequence path, which reaches the
-hand-written kernels: flash attention in every ``attn`` block, WKV6 in
-every ``rwkv6`` block (on CPU tensors their plain versions).  Decode
-runs plain torch, as the reference does outside any kernel.
+hand-written kernels: flash attention in every ``attn`` block and every
+application of the shared block, WKV6 in every ``rwkv6`` block, the SSD
+scan in every ``mamba2`` block (on CPU tensors their plain versions).
+Decode runs plain torch, as the reference does outside any kernel.
 
-Cache: ``{"pos": int, "layers": [per-layer dict]}``; KV caches are ring
+Cache: ``{"pos": int, "layers": [per-layer dict]}`` plus, with a shared
+block, ``"shared": [per-application {"k", "v"}]``; KV caches are ring
 buffers of capacity ``min(max_len, window)``.  ``decode_step`` updates
 the cache **in place** (the KV slot write and the recurrent states) and
 returns it: the reference returns a fresh copy, which at full width
@@ -34,14 +39,14 @@ from torch import nn
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as m2
 from repro_torch.models import rwkv6 as r6
 from repro_torch.models.attention import decode_attention
 from repro_torch.models.config import ModelConfig
 
-PORTED_KINDS = ("attn", "rwkv6")
+PORTED_KINDS = ("attn", "rwkv6", "mamba2")
 _LATER_KINDS = {"moe": "the MoE slice", "mla_dense": "the MLA + MoE slice",
-                "mla_moe": "the MLA + MoE slice",
-                "mamba2": "the mamba2/zamba2 slice"}
+                "mla_moe": "the MLA + MoE slice"}
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -51,8 +56,6 @@ def check_supported(cfg: ModelConfig) -> None:
     for kind in dict.fromkeys(cfg.block_kinds()):
         if kind not in PORTED_KINDS:
             later.append(f"{kind} blocks ({_LATER_KINDS.get(kind, kind)})")
-    if cfg.shared_attn_every:
-        later.append("the shared attention block (the mamba2/zamba2 slice)")
     if cfg.num_codebooks:
         later.append("codebooks (the multi-codebook slice)")
     if cfg.mrope_sections or cfg.num_patch_positions:
@@ -64,16 +67,41 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def segment_plan(cfg: ModelConfig) -> list[tuple[str, int]]:
-    """[(kind, n_layers)] — the reference's contiguous runs of identical
-    block kinds (its scanned parameter segments; zamba2's shared-block
-    grouping comes with its slice)."""
+    """[(kind, n_layers)] — the reference's scanned parameter segments:
+    contiguous runs of identical block kinds, or, with a shared block,
+    groups of ``shared_attn_every`` layers."""
+    kinds = cfg.block_kinds()
+    if cfg.shared_attn_every:
+        every = cfg.shared_attn_every
+        return [(kinds[0], min(every, cfg.n_layers - i))
+                for i in range(0, cfg.n_layers, every)]
     segs: list[tuple[str, int]] = []
-    for kind in cfg.block_kinds():
+    for kind in kinds:
         if segs and segs[-1][0] == kind:
             segs[-1] = (kind, segs[-1][1] + 1)
         else:
             segs.append((kind, 1))
     return segs
+
+
+def n_shared_applications(cfg: ModelConfig) -> int:
+    """Applications of the shared block: one after every *full* group of
+    ``shared_attn_every`` layers."""
+    if not cfg.shared_attn_every:
+        return 0
+    return cfg.n_layers // cfg.shared_attn_every
+
+
+def layer_schedule(cfg: ModelConfig) -> list[tuple[str, int]]:
+    """The order blocks run in: ``("layer", i)`` for layer i and
+    ``("shared", j)`` for the j-th application of the shared block."""
+    every = cfg.shared_attn_every
+    order = []
+    for i in range(cfg.n_layers):
+        order.append(("layer", i))
+        if every and (i + 1) % every == 0:
+            order.append(("shared", (i + 1) // every - 1))
+    return order
 
 
 # ---------------------------------------------------------------------------
@@ -171,14 +199,36 @@ class RWKV6Block(L.ParamTree):
         return x, cache
 
 
-BLOCKS = {"attn": AttnBlock, "rwkv6": RWKV6Block}
+class Mamba2Block(L.ParamTree):
+    """Pre-norm Mamba2 mixer: ``ln``, ``mamba``; ``seq`` / ``decode`` as
+    :class:`AttnBlock`'s."""
+
+    def seq(self, x, ctx, return_cache: bool):
+        cfg: ModelConfig = ctx["cfg"]
+        h = L.rmsnorm(self["ln"], x, cfg.norm_eps)
+        y, (conv_tail, ssm) = m2.mamba2_forward(self["mamba"], h, cfg.mamba2,
+                                                cfg.norm_eps)
+        cache = {"conv": conv_tail, "ssm": ssm} if return_cache else None
+        return x + y, cache
+
+    def decode(self, x, cache, ctx):
+        cfg: ModelConfig = ctx["cfg"]
+        h = L.rmsnorm(self["ln"], x, cfg.norm_eps)
+        y, _ = m2.mamba2_decode(self["mamba"], h, (cache["conv"],
+                                                    cache["ssm"]),
+                                cfg.mamba2, cfg.norm_eps)
+        return x + y, cache
+
+
+BLOCKS = {"attn": AttnBlock, "rwkv6": RWKV6Block, "mamba2": Mamba2Block}
 
 
 class LM(nn.Module):
     """Embedding, blocks, final norm and head of one config."""
 
     def __init__(self, cfg: ModelConfig, embed: dict, final_norm: dict,
-                 blocks: list, lm_head: Optional[torch.Tensor] = None):
+                 blocks: list, lm_head: Optional[torch.Tensor] = None,
+                 shared_block: Optional[AttnBlock] = None):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
@@ -190,6 +240,16 @@ class LM(nn.Module):
                              "not tied")
         self.lm_head = (None if lm_head is None
                         else nn.Parameter(lm_head, requires_grad=False))
+        if (shared_block is None) != (not cfg.shared_attn_every):
+            raise ValueError("shared_block must be given iff "
+                             "cfg.shared_attn_every is set")
+        self.shared_block = shared_block
+
+    def scheduled(self):
+        """(kind, index, block) in the order they run (``layer_schedule``)."""
+        for kind, i in layer_schedule(self.cfg):
+            yield kind, i, (self.blocks[i] if kind == "layer"
+                            else self.shared_block)
 
 
 
@@ -216,6 +276,10 @@ def init_layer(gen: torch.Generator, kind: str, cfg: ModelConfig, device
         tree["ln1"] = L.init_rmsnorm(d, dt, device)
         tree["ln2"] = L.init_rmsnorm(d, dt, device)
         return RWKV6Block(tree)
+    if kind == "mamba2":
+        return Mamba2Block({
+            "ln": L.init_rmsnorm(d, dt, device),
+            "mamba": m2.init_mamba2(gen, d, cfg.mamba2, dt, device)})
     check_supported(cfg)
     raise ValueError(kind)
 
@@ -232,7 +296,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:
     head = (None if cfg.tie_embeddings else
             L.dense_init(gen, (cfg.d_model, cfg.vocab_size), dt, dev))
     blocks = [init_layer(gen, kind, cfg, dev) for kind in cfg.block_kinds()]
-    return LM(cfg, embed, L.init_rmsnorm(cfg.d_model, dt, dev), blocks, head)
+    shared = (init_layer(gen, "attn", cfg, dev) if cfg.shared_attn_every
+              else None)
+    return LM(cfg, embed, L.init_rmsnorm(cfg.d_model, dt, dev), blocks, head,
+              shared)
 
 
 # ---------------------------------------------------------------------------
@@ -266,7 +333,7 @@ def forward(params: LM, cfg: ModelConfig, tokens):
     loss 0.0 — no MoE here)."""
     x = embed_inputs(params, cfg, tokens)
     ctx = _ctx(cfg, torch.arange(x.shape[1], device=x.device))
-    for block in params.blocks:
+    for _, _, block in params.scheduled():
         x, _ = block.seq(x, ctx, return_cache=False)
     return lm_logits(params, cfg, x), 0.0
 
@@ -284,17 +351,27 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                                                  device=device)
     cap = cache_capacity(cfg, max_len)
     d, hd = cfg.d_model, cfg.resolved_head_dim
+    ring = lambda: {"k": zeros(batch, cap, cfg.n_kv_heads, hd),
+                    "v": zeros(batch, cap, cfg.n_kv_heads, hd)}
     layers = []
     for kind in cfg.block_kinds():
         if kind == "attn":
-            layers.append({"k": zeros(batch, cap, cfg.n_kv_heads, hd),
-                           "v": zeros(batch, cap, cfg.n_kv_heads, hd)})
+            layers.append(ring())
+        elif kind == "mamba2":
+            mc = cfg.mamba2
+            conv_dim = mc.d_inner(d) + 2 * mc.n_groups * mc.d_state
+            layers.append({"conv": zeros(batch, mc.d_conv - 1, conv_dim),
+                           "ssm": zeros(batch, mc.n_heads(d), mc.head_dim,
+                                        mc.d_state)})
         else:
             n = cfg.rwkv6.head_dim
             layers.append({"x_tm": zeros(batch, d), "x_cm": zeros(batch, d),
                            "wkv": zeros(batch, d // n, n, n,
                                         dtype=torch.float32)})
-    return {"pos": 0, "layers": layers}
+    cache = {"pos": 0, "layers": layers}
+    if cfg.shared_attn_every:
+        cache["shared"] = [ring() for _ in range(n_shared_applications(cfg))]
+    return cache
 
 
 def prefill(params: LM, cfg: ModelConfig, tokens,
@@ -305,12 +382,15 @@ def prefill(params: LM, cfg: ModelConfig, tokens,
     s = x.shape[1]
     ctx = _ctx(cfg, torch.arange(s, device=x.device))
     ctx["cache_cap"] = cache_capacity(cfg, max_len or s)
-    layers = []
-    for block in params.blocks:
+    caches = {"layer": [], "shared": []}
+    for kind, _, block in params.scheduled():
         x, cache = block.seq(x, ctx, return_cache=True)
-        layers.append(cache)
+        caches[kind].append(cache)
     logits = lm_logits(params, cfg, x[:, -1:])
-    return logits[:, 0], {"pos": s, "layers": layers}
+    out = {"pos": s, "layers": caches["layer"]}
+    if cfg.shared_attn_every:
+        out["shared"] = caches["shared"]
+    return logits[:, 0], out
 
 
 def decode_step(params: LM, cfg: ModelConfig, token, cache: dict):
@@ -322,7 +402,8 @@ def decode_step(params: LM, cfg: ModelConfig, token, cache: dict):
     ctx = _ctx(cfg, torch.full((b, 1), pos, dtype=torch.int32,
                                device=x.device))
     ctx["pos"] = pos
-    for block, layer_cache in zip(params.blocks, cache["layers"]):
-        x, _ = block.decode(x, layer_cache, ctx)
+    for kind, i, block in params.scheduled():
+        x, _ = block.decode(
+            x, cache["layers" if kind == "layer" else "shared"][i], ctx)
     cache["pos"] = pos + 1
     return lm_logits(params, cfg, x)[:, 0], cache

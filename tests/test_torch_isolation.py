@@ -41,7 +41,8 @@ def test_port_files_found():
                 "kernels/flash_attention.py", "kernels/wkv6.py",
                 "models/attention.py", "models/rwkv6.py",
                 "models/transformer.py", "serving/engine.py",
-                "launch/serve.py", "configs/shapes.py"):
+                "launch/serve.py", "configs/shapes.py", "kernels/ssd.py",
+                "models/mamba2.py", "configs/zamba2_1p2b.py"):
         assert (PORT / rel) in FILES, rel
 
 

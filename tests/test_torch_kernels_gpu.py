@@ -1,5 +1,5 @@
 """The CUDA kernels against their plain versions, on the card: the
-orchestration kernels, flash attention and WKV6.
+orchestration kernels, flash attention, WKV6 and the SSD scan.
 
 Imports only torch, numpy and the port, so it runs on a machine with a
 card and no JAX (the tests skip without a card):
@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import orchestration as orch
+from repro_torch.kernels import ssd as sk
 from repro_torch.kernels import wkv6 as wk
 from repro_torch.models.rwkv6 import wkv6_recurrent
 
@@ -191,6 +192,112 @@ def test_wkv6_kernel_bf16(cuda):
     rb, kb, vb = (t.to(torch.bfloat16) for t in (r, k, v))
     want, _ = wkv6_recurrent(rb.float(), kb.float(), vb.float(), lw, u)
     got, _ = wk.wkv6(*(t.to(cuda) for t in (rb, kb, vb, lw, u)))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.numpy(),
+                               atol=5e-2, rtol=5e-2)
+
+
+def _ssd_inputs(seed, b, s, h, p, g, n, decay_scale=1.0):
+    rng = np.random.default_rng(seed)
+    mk = lambda *sh: rng.standard_normal(sh).astype(np.float32)
+    x = mk(b, s, h, p)
+    dt = decay_scale * np.log1p(np.exp(mk(b, s, h)))  # softplus
+    a = -np.exp(mk(h))
+    bm, cm = mk(b, s, g, n), mk(b, s, g, n)
+    d = np.linspace(0.5, 1.5, h).astype(np.float32)
+    return tuple(torch.as_tensor(np.asarray(v, np.float32))
+                 for v in (x, dt, a, bm, cm, d))
+
+
+def ssd_recurrence(x, dt, a, bm, cm, d, init_state=None):
+    """The exact per-step recurrence, float32 (the JAX test's oracle)."""
+    b, s, h, p = x.shape
+    hg = h // bm.shape[2]
+    bh, ch = (t.repeat_interleave(hg, dim=2) for t in (bm, cm))
+    state = (torch.zeros((b, h, p, bm.shape[3])) if init_state is None
+             else init_state.clone())
+    ys = []
+    for t in range(s):
+        state = (state * torch.exp(dt[:, t] * a)[..., None, None]
+                 + torch.einsum("bhp,bhn->bhpn", x[:, t] * dt[:, t, :, None],
+                                bh[:, t]))
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, ch[:, t]))
+    return torch.stack(ys, dim=1) + x * d[None, None, :, None], state
+
+
+# (b, s, h, p, g, n): the JAX test's shapes, ragged S, G = 2, P != N, the
+# zamba2 smoke width, the largest tile
+SSD_CASES = [
+    (1, 64, 2, 8, 1, 8), (2, 96, 4, 16, 2, 8), (1, 100, 2, 8, 1, 8),
+    (2, 200, 4, 32, 1, 16), (1, 130, 4, 64, 2, 32), (1, 70, 2, 128, 1, 128),
+    (2, 1, 2, 16, 1, 16),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,p,g,n", SSD_CASES)
+def test_ssd_kernel_matches_plain(cuda, b, s, h, p, g, n):
+    args = _ssd_inputs(s + p, b, s, h, p, g, n)
+    want_y, want_s = ssd_recurrence(*args)
+    plain_y, plain_s = sk.ssd_plain(*args, chunk=32)
+    before = sk.LAUNCHES["ssd"]
+    got_y, got_s = sk.ssd(*(t.to(cuda) for t in args), chunk=32)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES["ssd"] == before + 1
+    assert bool(torch.isfinite(got_y).all())
+    for got, want in ((got_y, want_y), (got_s, want_s), (got_y, plain_y),
+                      (got_s, plain_s)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   atol=3e-4, rtol=1e-3)
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_initial_state_strides_and_decay(cuda):
+    """A non-zero initial state; x, B and C as strided slices of one
+    buffer (as the model hands them over); no skip term; a strongly
+    decaying case that stays finite."""
+    b, s, h, p, g, n = 2, 150, 4, 32, 2, 16
+    x, dt, a, bm, cm, _ = _ssd_inputs(5, b, s, h, p, g, n)
+    init = torch.as_tensor(np.random.default_rng(6).standard_normal(
+        (b, h, p, n)).astype(np.float32))
+    want_y, want_s = ssd_recurrence(x, dt, a, bm, cm, torch.zeros(h), init)
+    packed = torch.cat([x.reshape(b, s, h * p), bm.reshape(b, s, g * n),
+                        cm.reshape(b, s, g * n)], dim=-1).to(cuda)
+    xs = packed[..., :h * p].reshape(b, s, h, p)
+    bs = packed[..., h * p:h * p + g * n].reshape(b, s, g, n)
+    cs = packed[..., h * p + g * n:].reshape(b, s, g, n)
+    assert not xs.is_contiguous()
+    got_y, got_s = sk.ssd(xs, dt.to(cuda), a.to(cuda), bs, cs, None,
+                          init_state=init.to(cuda))
+    np.testing.assert_allclose(got_y.cpu().numpy(), want_y.numpy(),
+                               atol=3e-4, rtol=1e-3)
+    np.testing.assert_allclose(got_s.cpu().numpy(), want_s.numpy(),
+                               atol=3e-4, rtol=1e-3)
+    args = _ssd_inputs(7, 1, 128, 2, 16, 1, 16, decay_scale=50.0)
+    want_y, want_s = ssd_recurrence(*args)
+    got_y, got_s = sk.ssd(*(t.to(cuda) for t in args))
+    assert bool(torch.isfinite(got_y).all() and torch.isfinite(got_s).all())
+    np.testing.assert_allclose(got_y.cpu().numpy(), want_y.numpy(),
+                               atol=3e-4, rtol=1e-3)
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_zamba2_width_and_bf16(cuda):
+    """zamba2-1.2b's head shape at B = 1 against the plain version on the
+    card (chunk 256, the config's), evaluated in float64 on the same
+    inputs: at S = 2048 the float32 plain version's own rounding comes
+    near the bar; bf16 against float32 inputs."""
+    args = tuple(t.to(cuda) for t in _ssd_inputs(8, 1, 2048, 64, 64, 1,
+                                                  64))
+    want_y, want_s = sk.ssd_plain(*(t.double() for t in args), chunk=256)
+    got_y, got_s = sk.ssd(*args, chunk=256)
+    torch.testing.assert_close(got_y.double(), want_y, atol=3e-4, rtol=1e-3)
+    torch.testing.assert_close(got_s.double(), want_s, atol=3e-4, rtol=1e-3)
+    x, dt, a, bm, cm, d = _ssd_inputs(9, 1, 96, 2, 64, 1, 64)
+    xb, dtb, bb, cb = (t.to(torch.bfloat16) for t in (x, dt, bm, cm))
+    want, _ = ssd_recurrence(xb.float(), dtb.float(), a, bb.float(),
+                             cb.float(), d)
+    got, _ = sk.ssd(*(t.to(cuda) for t in (xb, dtb, a, bb, cb, d)))
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().cpu().numpy(), want.numpy(),
                                atol=5e-2, rtol=5e-2)

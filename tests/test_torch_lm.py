@@ -1,8 +1,8 @@
 """The port's LM serving path against the JAX reference on the CPU.
 
-At the yi, h2o-danube and rwkv6 smoke configs, with the reference's
-weights carried across by ``convert.lm_params``: prefill and decode
-logits within 1e-4 of the reference's (the bar of
+At the yi, h2o-danube, rwkv6 and zamba2 smoke configs, with the
+reference's weights carried across by ``convert.lm_params``: prefill and
+decode logits within 1e-4 of the reference's (the bar of
 ``tests/test_models_consistency.py``), the ring cache past the window,
 several decode steps against the teacher-forced forward, greedy and
 categorical generation token for token, ``make_batch`` prompts, the
@@ -33,7 +33,7 @@ from repro_torch.models.config import ModelConfig, MoEConfig
 from repro_torch.serving.engine import generate
 
 CPU = torch.device("cpu")
-PORTED = ("yi-6b", "h2o-danube-3-4b", "rwkv6-1.6b")
+PORTED = ("yi-6b", "h2o-danube-3-4b", "rwkv6-1.6b", "zamba2-1.2b")
 TOL = 1e-4
 
 
