@@ -27,12 +27,16 @@ CUDA toolkit's nvcc.  Phases, each printing one JSON line:
    integer records identical, float records within 1e-5;
 6. lm_kernels: flash attention, WKV6 and the SSD scan against their
    plain versions on the card at the LM serving shapes (yi-6b f32 and
-   bf16, h2o-danube's window and head_dim 120, zamba2-1.2b's shared
-   block, rwkv6-1.6b, zamba2-1.2b's Mamba2 scan, also at a ragged S and
-   at G = 2), timed like phase 3 beside one
+   bf16, h2o-danube's window and head_dim 120 in f32 and bf16,
+   zamba2-1.2b's shared block, rwkv6-1.6b, zamba2-1.2b's Mamba2 scan,
+   also at a ragged S and at G = 2), timed like phase 3 beside one
    ``F.scaled_dot_product_attention`` call for attention, with their
-   bound (flops at the data sheet's FP32 or dense BF16 peak, or bytes
-   at 3.35 TB/s, whichever is larger);
+   bound (operations at the data-sheet peak of what runs them, or bytes
+   at 3.35 TB/s, whichever is larger: the f32 flash kernel's three TF32
+   products at the TF32 peak, with its FP32 CUDA-core bound beside; bf16
+   flash at the dense BF16 peak; WKV6 and SSD at the FP32 peak) and the
+   flash kernels' tensor-core instruction counts from ``cuobjdump
+   -sass`` of the built library;
 7. lm_serve: ``repro_torch.launch.serve`` at full width — yi-6b,
    rwkv6-1.6b and zamba2-1.2b, weights from a ``torch.Generator`` on the
    card, batch 4, prompt 2048, 32 greedy tokens — with launch counts read
@@ -85,8 +89,9 @@ SOURCES = {"flash_attention":
 # each LM kernel's name in the profiler's device events
 DEVICE_NAMES = {"flash_attention": "flash_fwd_kernel",
                 "wkv6": "wkv6_kernel", "ssd": "ssd_kernel"}
-# H100 SXM data-sheet peaks: FP32 on the CUDA cores, dense BF16 tensor
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# H100 SXM data-sheet peaks: FP32 on the CUDA cores, dense TF32 and BF16
+# on the tensor cores
+PEAK_FP32, PEAK_TF32, PEAK_BF16 = 67e12, 495e12, 989e12
 # the LM serving runs: batch, prompt, greedy tokens
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
 
@@ -107,11 +112,12 @@ def bound_ms(n_bytes: float) -> float:
     return n_bytes / HBM_BYTES_PER_S * 1e3
 
 
-def roofline(n_bytes: float, flops: float, dtype: str) -> dict:
+def roofline(n_bytes: float, flops: float, peak: float) -> dict:
     """The least time for the work: bytes at the HBM rate or flops at the
-    data-sheet peak of ``dtype``, whichever is larger."""
+    data-sheet ``peak`` of the units that run them, whichever is
+    larger."""
     by_bytes = bound_ms(n_bytes)
-    by_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    by_ops = flops / peak * 1e3
     return dict(bound_ms=max(by_bytes, by_ops),
                 bound_by="bytes" if by_bytes >= by_ops else "operations",
                 bytes=n_bytes, flops=flops)
@@ -191,14 +197,20 @@ def phase_card(torch) -> str:
 def phase_build() -> None:
     from repro_torch.kernels import _build
     sources = sorted(_build.CSRC.glob("*.cu"))
+
+    def timed(source):
+        t = time.perf_counter()
+        _, log = _build.build(source, force=True)
+        return log, time.perf_counter() - t
+
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
-        built = list(pool.map(lambda s: _build.build(s, force=True),
-                              sources))
+        built = list(pool.map(timed, sources))
     seconds = time.perf_counter() - t0
-    ptxas = [ln.strip() for _, log in built for ln in log.splitlines()
+    ptxas = [ln.strip() for log, _ in built for ln in log.splitlines()
              if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
     emit("build", seconds=seconds, sources=[s.name for s in sources],
+         seconds_by_source={s.name: t for s, (_, t) in zip(sources, built)},
          ptxas=ptxas)
 
 
@@ -428,6 +440,7 @@ FLASH_SHAPES = (
     ("yi-6b_bf16", 4, 2048, 32, 4, 128, 0, "bfloat16"),
     ("h2o-danube-3-4b", 1, 8192, 32, 8, 120, 4096, "float32"),
     ("zamba2-1.2b_shared", 4, 2048, 32, 32, 64, 4096, "float32"),
+    ("h2o-danube-3-4b_bf16", 1, 8192, 32, 8, 120, 4096, "bfloat16"),
 )
 WKV_SHAPE = ("rwkv6-1.6b", 4, 2048, 32, 64)  # B, S, H, N
 # (name, B, S, H, P, G, N): zamba2-1.2b's Mamba2 scan, a ragged S, G = 2
@@ -447,12 +460,47 @@ def visible_pairs(s: int, window: int) -> int:
     return w * (w + 1) // 2 + (s - w) * w
 
 
+def sass_tensor_ops(lib: Path) -> dict | None:
+    """Tensor-core instructions (``HMMA...TF32``, ``HGMMA...BF16``) in
+    each flash kernel instance of the built library, from ``cuobjdump
+    -sass``; None where the toolkit has no ``cuobjdump``."""
+    import re
+    import shutil
+    from repro_torch.kernels import _build
+    tool = Path(_build.nvcc_path()).with_name("cuobjdump")
+    tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
+    if tool is None:
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"(flash_fwd_kernel_\w+?)I((?:Li\d+E)+)E", line)
+            args = ",".join(re.findall(r"Li(\d+)E", m[2])) if m else ""
+            fn = f"{m[1]}<{args}>" if m else None
+            if fn:
+                counts[fn] = {"HMMA.TF32": 0, "HGMMA.BF16": 0}
+        elif fn and re.search(r"\bHMMA\.\S*TF32", line):
+            counts[fn]["HMMA.TF32"] += 1
+        elif fn and re.search(r"\bHGMMA\.\S*BF16", line):
+            counts[fn]["HGMMA.BF16"] += 1
+    return counts
+
+
 def phase_lm_kernels(torch, dev) -> dict:
     import torch.nn.functional as F
+    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import wkv6 as wk
     g = torch.Generator(device=dev).manual_seed(SEED)
     out = {}
+    sass = sass_tensor_ops(_build.library_path(
+        _build.CSRC / "flash_attention.cu"))
+    if sass is not None:
+        for inst, ops in sass.items():
+            key = "HMMA.TF32" if "tf32" in inst else "HGMMA.BF16"
+            check(ops[key] > 0, f"{inst} runs {key} on the tensor cores")
     for name, b, s, h, kv, d, window, dt in FLASH_SHAPES:
         dtype = getattr(torch, dt)
         q, k, v = (torch.randn(b, s, n, d, generator=g, device=dev)
@@ -486,13 +534,25 @@ def phase_lm_kernels(torch, dev) -> dict:
         library = cuda_ms(torch, lib, iters=10)
         pairs = b * h * visible_pairs(s, window)
         size = q.element_size()
+        n_bytes = size * (2 * b * s * h * d + 2 * b * s * kv * d)
+        flops = 4 * d * pairs
+        # f32: three TF32 products per product (3xTF32) at the TF32 peak,
+        # the FP32 CUDA-core bound of the same function beside
+        bound = (roofline(n_bytes, 3 * flops, PEAK_TF32)
+                 if dt == "float32" else roofline(n_bytes, flops, PEAK_BF16))
+        extra = (dict(fp32_bound_ms=roofline(n_bytes, flops,
+                                             PEAK_FP32)["bound_ms"])
+                 if dt == "float32" else {})
+        inst = ("flash_fwd_kernel_tf32" if dt == "float32"
+                else "flash_fwd_kernel_wgmma")
         out[name] = dict(
             name="flash_attention", route="cuda",
             source=SOURCES["flash_attention"],
             replaces=REPLACES["flash_attention"], max_abs_err=err,
             ms=kern["ms"], plain_ms=plain["ms"], library_ms=library["ms"],
-            **roofline(size * (2 * b * s * h * d + 2 * b * s * kv * d),
-                       4 * d * pairs, dt),
+            **bound, **extra,
+            sass_tensor_ops=None if sass is None else {
+                k: v for k, v in sass.items() if inst in k},
             call_ms=kern["call_ms"], plain_call_ms=plain["call_ms"],
             library_call_ms=library["call_ms"], library_max_abs_err=lib_err,
             blocker_held=kern["blocker_held"] and library["blocker_held"],
@@ -519,7 +579,7 @@ def phase_lm_kernels(torch, dev) -> dict:
         replaces=REPLACES["wkv6"], max_abs_err=err, ms=kern["ms"],
         plain_ms=plain["ms"], library_ms=None,
         **roofline(4 * (5 * b * s * h * n + h * n + b * h * n * n),
-                   5 * b * s * h * n * n, "float32"),
+                   5 * b * s * h * n * n, PEAK_FP32),
         call_ms=kern["call_ms"], plain_call_ms=plain["call_ms"],
         blocker_held=kern["blocker_held"],
         shape=dict(B=b, S=s, H=h, N=n, dtype="float32"))
@@ -573,7 +633,7 @@ def ssd_entry(torch, dev, *, g_, b, s, h, p, n) -> dict:
         name="ssd", route="cuda", source=SOURCES["ssd"],
         replaces=REPLACES["ssd"], max_abs_err=err, ms=kern["ms"],
         plain_ms=plain["ms"], library_ms=None,
-        **roofline(n_bytes, 4 * b * s * h * p * n, "float32"),
+        **roofline(n_bytes, 4 * b * s * h * p * n, PEAK_FP32),
         f32_plain_max_abs_err=f32_err, plain_f32_vs_f64_max_abs_err=plain_err,
         call_ms=kern["call_ms"], plain_call_ms=plain["call_ms"],
         blocker_held=kern["blocker_held"],

@@ -1,253 +1,985 @@
-// Hand-written Hopper (sm_90a) forward flash attention, with a plain C
-// interface bound from Python through ctypes
+// Hand-written Hopper (sm_90a) forward flash attention on the tensor
+// cores, with a plain C interface bound from Python through ctypes
 // (repro_torch/kernels/flash_attention.py).  Every entry point launches
 // on the caller's stream, allocates nothing, does not synchronise, and
-// returns cudaGetLastError() so the wrapper can raise on a refused launch.
+// returns cudaGetLastError() (or the tensor-map encoder's refusal as
+// cudaErrorInvalidValue) so the wrapper can raise on a refused launch.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py
 // flash_attention_pallas (body _flash_kernel): causal or full attention
 // with GQA (query head h reads kv head h / (H / KV), no KV replication),
 // an optional sliding window (key c is visible to query row r iff
 // c > r - window), keys aligned to the end (q_off = Sk - Sq), Dk != Dv
-// allowed, float32 running max / sum / accumulator, output in q's type.
+// allowed, masked scores at -1e30, float32 running max / sum /
+// accumulator, out = acc / max(l, 1e-30) in q's type.
 //
-// What bounds it here: operations.  At the serving shapes (S = 2048,
-// D = 128) it does ~4 D flops per visible (query, key) pair against
-// ~(2 D + 2 Dv) bytes per query row and key row, far above the card's
-// flops-per-byte balance point.  This first version keeps the f32
-// products on the CUDA cores (no wgmma / TMA / warp specialisation yet),
-// so its ceiling is the card's FP32 rate, not the tensor cores'.
+// What bounds it: operations.  At the serving shapes (S = 2048, D = 128)
+// it does 4 D flops per visible (query, key) pair against ~(2 D + 2 Dv)
+// bytes per query row and key row, far above the card's flops-per-byte
+// balance point.  Both instances therefore run both products, S = Q K^T
+// and O += P V, on the tensor cores, and skip key tiles that the causal
+// mask or the window empties (the reference visits them and adds exact
+// zeros; before a row's first visible key it rescales its sums by
+// exp(-1e30 - m) = 0, so skipping changes nothing).  Heavy (late,
+// causal) query tiles launch first.  Rows and keys past the ragged ends
+// are masked and their tiles zero-filled, so any S works.
 //
-// Design: one CTA of 256 threads per (batch * query head, 64-row query
-// tile); heavy (late, causal) tiles are launched first.  The query tile
-// is staged once in shared memory (pre-scaled, f32); K and V tiles of 64
-// rows take turns in one shared buffer.  Thread (ty, tx) of a 16 x 16
-// grid owns query rows ty + 16 i and key columns tx + 16 j (i, j < 4) of
-// the score tile, and output columns 4 tx + 64 jj (+0..3) of its rows:
-// every shared read is a 16-byte vector, the query/P reads broadcast, the
-// K/V reads conflict-free (row pitch of 4 * odd floats).  Row max and sum
-// reduce over the 16 lanes of a half warp with shuffles.  Key tiles that
-// the causal mask or the window empties for the whole query tile are
-// skipped (the reference visits them and adds exact zeros); rows and keys
-// past the ragged end are masked, their tiles zero-filled, so any S
-// works.  Shared memory: (64 pitch(D) + 64 max(pitch(D), pitch(Dv)) +
-// 64 * 68) floats, 84,992 bytes at D = Dv = 128 — two CTAs per SM,
-// above the 48 KB default, so the launcher raises the kernel's
-// dynamic shared-memory limit.
+// float32 (flash_fwd_kernel_tf32): 3xTF32 on mma.sync.m16n8k8.  Each
+// operand a splits into hi = rna_tf32(a) and lo = rna_tf32(a - hi), with
+// cvt.rna.tf32.f32's rounding done as two integer operations; a.b ~
+// hi.lo + lo.hi + hi.hi with f32 accumulation keeps float32-level
+// accuracy (the dropped lo.lo term is ~2^-22 relative; one TF32 product
+// alone keeps about three digits and misses the f32 bar, see
+// tests/test_torch_flash_tf32.py).  Its bound is three TF32 products at
+// 495 TFLOP/s; it may beat the FP32 CUDA-core bound (67 TFLOP/s).
+// mma.sync and not wgmma: TF32 wgmma takes B only from shared memory and
+// only K-major, so V would need a transposed copy and the lo halves of K
+// and V would double the tiles; mma.sync takes both operands from
+// registers, so the split costs instructions, not shared memory.  A CTA
+// of 8 warps owns 128 query rows (16 per warp); the query tile sits in
+// shared memory pre-scaled in f32 and is split as it is read.  K and V
+// tiles of 64 keys stream through a two-stage cp.async ring, the next
+// tile loading while the current one computes.  S's C fragment (columns
+// 2t, 2t+1 of each 8-key step, t = lane % 4) is reused as P's A fragment
+// without shuffles by relabelling the keys of the step: A column t holds
+// key 2t and column t + 4 key 2t + 1; V's B fragment is read with the
+// same permutation.  Every shared tile has a row pitch of 4 mod 8 floats,
+// which makes the Q/K (row g, column t) and the V (row 2t, column g)
+// fragment reads conflict-free.  A warp skips the products of a key tile
+// its 16 rows cannot see and masks only tiles that cut the mask.  Shared
+// memory: (256 pitch(D) + 128 pitch(64 or 128)) floats, 202,752 bytes at
+// D = Dv = 128; at Dv <= 64 two CTAs share an SM.
+//
+// bfloat16 (flash_fwd_kernel_wgmma): TMA + wgmma, warp-specialised.  A
+// CTA of three warpgroups owns 128 query rows: two consumer warpgroups
+// of 64 rows each and one producer warpgroup, of which one thread starts
+// the TMA loads (setmaxnreg gives the producer 24 registers and each
+// consumer 240).  The producer loads Q once and K / V tiles of 128 keys
+// into a three-stage ring guarded by full / empty mbarriers, through
+// tensor maps with the 128-byte swizzle that the wgmma descriptors name;
+// head dims are cut into 64-column panels, and the tensor maps' bounds
+// zero-fill the columns past D (D = 120, 60, ...) and the rows past S.
+// Each consumer walks a tile in two halves of 64 keys (so S takes 32
+// registers, not 64, and S, P and O stay in registers without spills):
+// S = Q K^T as wgmma m64n64k16 from shared memory (both K-major), the
+// scale applied to S in f32 (the reference scales after its cast to
+// f32), the online softmax in registers on the accumulator fragment (in
+// the log2 domain, masking only halves that cut the mask), P rounded to
+// bf16 in registers and fed as the register A operand of O += P V, with
+// V read MN-major through the descriptor's transpose bit.  The two
+// consumers take turns issuing (named barriers), so one's softmax runs
+// while the other's products run.  A consumer frees a stage once its
+// P V has retired (wgmma.wait_group).  The one difference from the
+// reference: the reference multiplies an f32 P by V; here P is rounded
+// to bf16 first, which the bf16 bar (3e-2 against the plain version)
+// covers.  Shared memory: 32 KB (Q) + 3 x (32 + 32) KB (K, V) = 224 KB
+// at D = Dv = 128, one CTA per SM.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows per CTA
-constexpr int kBK = 64;        // key rows per tile
-constexpr int kThreads = 256;  // 16 x 16
-constexpr int kMaxD = 128;
-constexpr int kLdP = kBK + 4;  // P tile pitch (68 = 4 * 17)
 constexpr float kNegInf = -1e30f;  // the reference's NEG_INF
+constexpr int kMaxD = 128;
 
 struct Strides {  // element strides of the (B, S, H, D) operands
   long long q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, o_b, o_s, o_h;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// shared-memory row pitch: D rounded to 4 floats, padded so that pitch/4
-// is odd — 16-byte reads of 8 consecutive rows then hit distinct banks
+// The key-tile range [first, end) a query tile [q0, q0 + rows) can see.
+__device__ __forceinline__ void key_range(int q0, int rows, int Sq, int Sk,
+                                          int causal, int window, int bk,
+                                          int* first, int* end) {
+  const int q_off = Sk - Sq;
+  const int q_last = min(q0 + rows, Sq) - 1 + q_off;  // in key positions
+  *end = causal ? min(Sk, q_last + 1) : Sk;
+  *first = (window ? max(0, q0 + q_off - window + 1) : 0) / bk * bk;
+}
+
+// exp(x) as one multiply and the SFU's exp2 (~2 ulp; expf's range
+// reduction costs several instructions more per score)
+__device__ __forceinline__ float exp_f32(float x) {
+  return exp2f(x * 1.4426950408889634f);
+}
+
+__device__ __forceinline__ bool visible(int col, int row, int Sk, int causal,
+                                        int window) {
+  bool ok = col < Sk;
+  if (causal) ok = ok && col <= row;
+  if (window) ok = ok && col > row - window;
+  return ok;
+}
+
+// ------------------------------------------------------- float32: 3xTF32
+constexpr int kBQ = 128;  // query rows per CTA (8 warps x 16)
+constexpr int kBK = 64;   // keys per tile
+constexpr int kThreads = 256;
+
+// shared-memory row pitch in floats: D rounded up to 8, plus 4, so the
+// pitch is 4 mod 8 (conflict-free fragment reads, 16-byte rows)
 __host__ __device__ __forceinline__ int pitch(int d) {
-  const int p = (d + 3) / 4 * 4 + 4;
-  return ((p / 4) % 2 == 1) ? p : p + 4;
+  return (d + 7) / 8 * 8 + 4;
 }
 
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
-                                          long long row_stride, int row0,
-                                          int n_rows, int d, float mul) {
-  for (int idx = threadIdx.x; idx < kBK * d; idx += kThreads) {
-    const int r = idx / d, c = idx - r * d;
-    const int s = row0 + r;
-    dst[r * ld + c] =
-        s < n_rows ? to_f32(src[static_cast<long long>(s) * row_stride + c]) *
-                         mul
-                   : 0.f;
+// cvt.rna.tf32.f32 on a finite value: round the magnitude to 10 mantissa
+// bits, ties away from zero.  Two integer operations: the instruction
+// itself also screens for inf / NaN, which costs three more per value
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a.b in split precision: the two small terms first
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           float b0, float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split(b0, bh0, bl0);
+  split(b1, bh1, bl1);
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// rows [k0, k0 + 64) of a (S, d) operand into a shared tile of pitch ld;
+// rows past S are zero-filled
+__device__ __forceinline__ void load_kv_tile(float* dst, int ld,
+                                             const float* src,
+                                             long long row_stride, int k0,
+                                             int Sk, int d) {
+  const int d4 = d / 4;
+  for (int idx = threadIdx.x; idx < kBK * d4; idx += kThreads) {
+    const int r = idx / d4, c = (idx - r * d4) * 4;
+    const bool ok = k0 + r < Sk;
+    cp_async16(dst + r * ld + c,
+               src + (ok ? static_cast<long long>(k0 + r) * row_stride + c
+                         : 0),
+               ok);
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int H, int KV,
-                 int Sq, int Sk, int D, int Dv, Strides st, float scale,
-                 int causal, int window) {
+template <int kNT>  // 8-column tiles of the output: 8 (Dv <= 64) or 16
+__global__ void __launch_bounds__(kThreads, kNT == 8 ? 2 : 1)
+flash_fwd_kernel_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o,
+                      int H, int KV, int Sq, int Sk, int D, int Dv,
+                      Strides st, float scale, int causal, int window) {
   extern __shared__ float4 smem4[];
-  const int ldk = pitch(D), ldv = pitch(Dv);
-  float* sQ = reinterpret_cast<float*>(smem4);
-  float* sKV = sQ + kBQ * ldk;
-  float* sP = sKV + kBK * (ldk > ldv ? ldk : ldv);
+  const int ldk = pitch(D), ldv = pitch(8 * kNT);  // V: every output tile
+  float* sQ = reinterpret_cast<float*>(smem4);  // kBQ x ldk
+  float* sK = sQ + kBQ * ldk;                   // 2 x kBK x ldk
+  float* sV = sK + 2 * kBK * ldk;               // 2 x kBK x ldv
 
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh - b * H;
   const int kvh = h / (H / KV);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heavy tiles first
   const int q_off = Sk - Sq;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
 
-  const T* qb = q + b * st.q_b + h * st.q_h;
-  const T* kb = k + b * st.k_b + kvh * st.k_h;
-  const T* vb = v + b * st.v_b + kvh * st.v_h;
-  T* ob = o + b * st.o_b + h * st.o_h;
+  const float* qb = q + b * st.q_b + h * st.q_h;
+  const float* kb = k + b * st.k_b + kvh * st.k_h;
+  const float* vb = v + b * st.v_b + kvh * st.v_h;
+  float* ob = o + b * st.o_b + h * st.o_h;
 
-  load_tile(sQ, ldk, qb, st.q_s, q0, Sq, D, scale);
-
-  // key range that can be visible to some row of this tile
-  const int q_last = min(q0 + kBQ, Sq) - 1 + q_off;  // in key positions
-  const int k_end = causal ? min(Sk, q_last + 1) : Sk;
-  const int k_begin = window ? max(0, q0 + q_off - window + 1) : 0;
-
-  float acc[4][8];
-  float m_run[4], l_run[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_run[i] = kNegInf;
-    l_run[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
+  // pad columns of the K / V stages: K's [D, round8(D)), which the last
+  // 8-wide step reads, and V's [Dv, 8 kNT), which the output tiles past
+  // Dv read (their columns are never stored); cp.async writes neither
+  const int dk8 = (D + 7) / 8 * 8;
+  for (int idx = threadIdx.x; idx < 2 * kBK * 4; idx += kThreads) {
+    const int r = idx >> 2, c = idx & 3;
+    if (D + c < dk8) sK[r * ldk + D + c] = 0.f;
+  }
+  for (int idx = threadIdx.x; idx < 2 * kBK * 8 * kNT; idx += kThreads) {
+    const int r = idx / (8 * kNT), c = idx - r * 8 * kNT;
+    if (c >= Dv) sV[r * ldv + c] = 0.f;
+  }
+  // the query tile, pre-scaled in f32, zero past Sq and past D
+  for (int idx = threadIdx.x; idx < kBQ * (dk8 / 4); idx += kThreads) {
+    const int r = idx / (dk8 / 4), c = (idx - r * (dk8 / 4)) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + r < Sq && c < D) {
+      x = *reinterpret_cast<const float4*>(
+          qb + static_cast<long long>(q0 + r) * st.q_s + c);
+      x.x *= scale;
+      x.y *= scale;
+      x.z *= scale;
+      x.w *= scale;
+    }
+    *reinterpret_cast<float4*>(sQ + r * ldk + c) = x;
   }
 
-  for (int k0 = k_begin / kBK * kBK; k0 < k_end; k0 += kBK) {
-    __syncthreads();  // the previous tile's P.V is done with sKV and sP
-    load_tile(sKV, ldk, kb, st.k_s, k0, Sk, D, 1.f);
+  int k_first, k_end;
+  key_range(q0, kBQ, Sq, Sk, causal, window, kBK, &k_first, &k_end);
+  const int n_tiles = k_end > k_first ? (k_end - k_first + kBK - 1) / kBK : 0;
+
+  // this warp's rows, in key positions
+  const int wr0 = q0 + 16 * warp;
+  const int w_last = min(wr0 + 15, Sq - 1) + q_off;
+  const int row0 = wr0 + g + q_off, row1 = row0 + 8;
+
+  float acc[kNT][4];
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+#pragma unroll
+  for (int n = 0; n < kNT; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
+
+  if (n_tiles > 0) {
+    load_kv_tile(sK, ldk, kb, st.k_s, k_first, Sk, D);
+    load_kv_tile(sV, ldv, vb, st.v_s, k_first, Sk, Dv);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = k_first + it * kBK;
+    if (it + 1 < n_tiles) {  // the next tile into the other stage
+      const int nx = (it + 1) & 1;
+      load_kv_tile(sK + nx * kBK * ldk, ldk, kb, st.k_s, k0 + kBK, Sk, D);
+      load_kv_tile(sV + nx * kBK * ldv, ldv, vb, st.v_s, k0 + kBK, Sk, Dv);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
     __syncthreads();
 
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < D; d += 4) {
-      float4 qa[4], ka[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qa[i] = *reinterpret_cast<const float4*>(sQ + (ty + 16 * i) * ldk + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        ka[j] = *reinterpret_cast<const float4*>(sKV + (tx + 16 * j) * ldk + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qa[i].x, ka[j].x, s[i][j]);
-          s[i][j] = fmaf(qa[i].y, ka[j].y, s[i][j]);
-          s[i][j] = fmaf(qa[i].z, ka[j].z, s[i][j]);
-          s[i][j] = fmaf(qa[i].w, ka[j].w, s[i][j]);
-        }
-    }
+    const bool skip = wr0 >= Sq || (causal && k0 > w_last) ||
+                      (window && k0 + kBK - 1 <= wr0 + q_off - window);
+    // some key of the tile is hidden from some row of the warp
+    const bool masked = k0 + kBK > Sk ||
+                        (causal && k0 + kBK - 1 > wr0 + q_off) ||
+                        (window && k0 <= w_last - window);
+    if (!skip) {
+      const float* tK = sK + (it & 1) * kBK * ldk;
+      const float* tV = sV + (it & 1) * kBK * ldv;
 
+      // S = Q K^T over 8-wide steps of D
+      float s[8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i + q_off;
-      float mx = kNegInf;
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        bool ok = col < Sk;
-        if (causal) ok = ok && col <= row;
-        if (window) ok = ok && col > row - window;
-        if (!ok) s[i][j] = kNegInf;
-        mx = fmaxf(mx, s[i][j]);
+        for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
+      const float* qr = sQ + (16 * warp + g) * ldk + t;
+      const float* kr = tK + g * ldk + t;
+      for (int kk = 0; kk < dk8; kk += 8) {
+        uint32_t ah[4], al[4];
+        split(qr[kk], ah[0], al[0]);
+        split(qr[8 * ldk + kk], ah[1], al[1]);
+        split(qr[kk + 4], ah[2], al[2]);
+        split(qr[8 * ldk + kk + 4], ah[3], al[3]);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          mma_3xtf32(s[j], ah, al, kr[8 * j * ldk + kk],
+                     kr[8 * j * ldk + kk + 4]);
       }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_run[i], mx);
-      const float alpha = expf(m_run[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        sP[(ty + 16 * i) * kLdP + tx + 16 * j] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l_run[i] = l_run[i] * alpha + sum;
-      m_run[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();  // scores done with K; P written
-    load_tile(sKV, ldv, vb, st.v_s, k0, Sk, Dv, 1.f);
-    __syncthreads();
 
-    for (int kk = 0; kk < kBK; kk += 4) {
-      float4 pa[4];
+      // mask, online softmax; rows g and g + 8 of the warp's 16
+      float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pa[i] = *reinterpret_cast<const float4*>(sP + (ty + 16 * i) * kLdP + kk);
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int col = 4 * tx + 64 * jj;
-        if (col < Dv) {
-          const float4 v0 = *reinterpret_cast<const float4*>(sKV + (kk + 0) * ldv + col);
-          const float4 v1 = *reinterpret_cast<const float4*>(sKV + (kk + 1) * ldv + col);
-          const float4 v2 = *reinterpret_cast<const float4*>(sKV + (kk + 2) * ldv + col);
-          const float4 v3 = *reinterpret_cast<const float4*>(sKV + (kk + 3) * ldv + col);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            float* a = acc[i] + 4 * jj;
-            a[0] = fmaf(pa[i].x, v0.x, a[0]);
-            a[1] = fmaf(pa[i].x, v0.y, a[1]);
-            a[2] = fmaf(pa[i].x, v0.z, a[2]);
-            a[3] = fmaf(pa[i].x, v0.w, a[3]);
-            a[0] = fmaf(pa[i].y, v1.x, a[0]);
-            a[1] = fmaf(pa[i].y, v1.y, a[1]);
-            a[2] = fmaf(pa[i].y, v1.z, a[2]);
-            a[3] = fmaf(pa[i].y, v1.w, a[3]);
-            a[0] = fmaf(pa[i].z, v2.x, a[0]);
-            a[1] = fmaf(pa[i].z, v2.y, a[1]);
-            a[2] = fmaf(pa[i].z, v2.z, a[2]);
-            a[3] = fmaf(pa[i].z, v2.w, a[3]);
-            a[0] = fmaf(pa[i].w, v3.x, a[0]);
-            a[1] = fmaf(pa[i].w, v3.y, a[1]);
-            a[2] = fmaf(pa[i].w, v3.z, a[2]);
-            a[3] = fmaf(pa[i].w, v3.w, a[3]);
-          }
+        for (int c = 0; c < 4; ++c) {
+          const int col = k0 + 8 * j + 2 * t + (c & 1);
+          if (masked &&
+              !visible(col, c < 2 ? row0 : row1, Sk, causal, window))
+            s[j][c] = kNegInf;
+          if (c < 2)
+            mx0 = fmaxf(mx0, s[j][c]);
+          else
+            mx1 = fmaxf(mx1, s[j][c]);
         }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float al0 = exp_f32(m0 - mn0), al1 = exp_f32(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[j][0] = exp_f32(s[j][0] - mn0);
+        s[j][1] = exp_f32(s[j][1] - mn0);
+        s[j][2] = exp_f32(s[j][2] - mn1);
+        s[j][3] = exp_f32(s[j][3] - mn1);
+        sum0 += s[j][0] + s[j][1];
+        sum1 += s[j][2] + s[j][3];
+      }
+      l0 = l0 * al0 + sum0;  // this thread's share; summed over the quad
+      l1 = l1 * al1 + sum1;  // at the end
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+        acc[n][0] *= al0;
+        acc[n][1] *= al0;
+        acc[n][2] *= al1;
+        acc[n][3] *= al1;
+      }
+
+      // O += P V over 8-key steps: S's C fragment is P's A fragment with
+      // A column t = key 2t and column t + 4 = key 2t + 1
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        uint32_t ah[4], al[4];
+        split(s[j][0], ah[0], al[0]);
+        split(s[j][2], ah[1], al[1]);
+        split(s[j][1], ah[2], al[2]);
+        split(s[j][3], ah[3], al[3]);
+        const float* vr = tV + (8 * j + 2 * t) * ldv + g;
+#pragma unroll
+        for (int n = 0; n < kNT; ++n)
+          mma_3xtf32(acc[n], ah, al, vr[8 * n], vr[ldv + 8 * n]);
       }
     }
+    __syncthreads();  // the stage is free for the tile after next
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= Sq) continue;
-    const float denom = fmaxf(l_run[i], 1e-30f);
-    T* orow = ob + static_cast<long long>(row) * st.o_s;
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  const int r0 = wr0 + g, r1 = r0 + 8;
 #pragma unroll
-    for (int jj = 0; jj < 2; ++jj) {
-      const int col = 4 * tx + 64 * jj;
+  for (int n = 0; n < kNT; ++n) {
+    const int col = 8 * n + 2 * t;
+    if (col >= Dv) continue;
+    if (r0 < Sq)
+      *reinterpret_cast<float2*>(ob + static_cast<long long>(r0) * st.o_s +
+                                 col) =
+          make_float2(acc[n][0] * inv0, acc[n][1] * inv0);
+    if (r1 < Sq)
+      *reinterpret_cast<float2*>(ob + static_cast<long long>(r1) * st.o_s +
+                                 col) =
+          make_float2(acc[n][2] * inv1, acc[n][3] * inv1);
+  }
+}
+
+// ----------------------------------------------- bfloat16: TMA + wgmma
+constexpr int kWgRows = 128;   // query rows per CTA (two consumers x 64)
+constexpr int kWgKeys = 128;   // keys per tile
+constexpr int kPanel = 16384;  // one 64-column panel of 128 rows, bytes
+constexpr int kWgThreads = 384;  // two consumer + one producer warpgroup
+constexpr int kStages = 3;      // the K / V ring
+
+// D (64 x 64, f32) += A (64 x 16) . B (16 x 64), both bf16 in shared memory,
+// K-major; scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 128, f32) += A (64 x 16, bf16 in registers) . B (16 x 128, bf16
+// in shared memory, MN-major: the transpose bit is set).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 64, f32) += A (64 x 16, bf16 in registers) . B (16 x 64, bf16
+// in shared memory, MN-major: the transpose bit is set).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most n committed wgmma groups are still in flight
+template <int n>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(n) : "memory");
+}
+
+// keeps the compiler from moving reads or writes of registers that an
+// in-flight wgmma owns across this point
+template <int n>
+__device__ __forceinline__ void fence_regs(float (&r)[n]) {
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
-        if (col + c < Dv) store(orow + col + c, acc[i][4 * jj + c] / denom);
+  for (int i = 0; i < n; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// named barriers 1 and 2, shared by the two consumer warpgroups
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {  // 2^x, flushed to 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// shared-memory matrix descriptor, 128-byte swizzle; offsets in bytes
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one (64 columns x 128 rows) box of a 4-d tensor map whose outer axes
+// are head, row and batch in the order of their strides: perm holds the
+// map axis (1..3) of head in bits 0-1, of row in 2-3, of batch in 4-5
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int perm, uint32_t bar, int col,
+                                         int head, int row, int batch) {
+  const int ph = perm & 3, ps = (perm >> 2) & 3;
+  const int c1 = ph == 1 ? head : ps == 1 ? row : batch;
+  const int c2 = ph == 2 ? head : ps == 2 ? row : batch;
+  const int c3 = ph == 3 ? head : ps == 3 ? row : batch;
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+template <int kNPK, int kNPV>  // 64-column panels of D and Dv: 1 or 2
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       int perm_q, int perm_k, int perm_v,
+                       __nv_bfloat16* __restrict__ o, int H, int KV, int Sq,
+                       int Sk, int D, int Dv, long long o_b, long long o_s,
+                       long long o_h, float scale, int causal, int window) {
+  extern __shared__ uint8_t smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
+  const uint32_t sQ = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t sK = sQ + kNPK * kPanel;               // kStages tiles
+  const uint32_t sV = sK + kStages * kNPK * kPanel;     // kStages tiles
+  const uint32_t bars = sV + kStages * kNPV * kPanel;   // the mbarriers
+  const uint32_t barQ = bars, fullK = bars + 8,
+                 fullV = fullK + 8 * kStages, empty = fullV + 8 * kStages;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh - b * H;
+  const int kvh = h / (H / KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kWgRows;  // heavy first
+  int k_first, k_end;
+  key_range(q0, kWgRows, Sq, Sk, causal, window, kWgKeys, &k_first, &k_end);
+  const int n_tiles =
+      k_end > k_first ? (k_end - k_first + kWgKeys - 1) / kWgKeys : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(barQ, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(fullK + 8 * s, 1);
+      mbar_init(fullV + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // warp-uniform (lane 0's value), as setmaxnreg's warpgroups need
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 2) {
+    // ---------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(barQ, kNPK * kPanel);
+      for (int p = 0; p < kNPK; ++p)
+        tma_load(sQ + p * kPanel, &tq, perm_q, barQ, 64 * p, h, q0, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kStages;
+        const int k0 = k_first + it * kWgKeys;
+        // a stage's first use passes at once (parity of the phase
+        // before the barrier's first)
+        mbar_wait(empty + 8 * s, ((it / kStages) & 1) ^ 1);
+        mbar_expect_tx(fullK + 8 * s, kNPK * kPanel);
+        for (int p = 0; p < kNPK; ++p)
+          tma_load(sK + (s * kNPK + p) * kPanel, &tk, perm_k, fullK + 8 * s,
+                   64 * p, kvh, k0, b);
+        mbar_expect_tx(fullV + 8 * s, kNPV * kPanel);
+        for (int p = 0; p < kNPV; ++p)
+          tma_load(sV + (s * kNPV + p) * kPanel, &tv, perm_v, fullV + 8 * s,
+                   64 * p, kvh, k0, b);
+      }
+    }
+  } else {
+    // ---------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int q_off = Sk - Sq;
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int wr0 = q0 + 64 * wg;  // this warpgroup's first row
+    const int row0 = wr0 + 16 * warp + g + q_off, row1 = row0 + 8;
+    const int w_last = min(wr0 + 63, Sq - 1) + q_off;
+    const float sl2 = scale * 1.4426950408889634f;  // scale log2(e)
+
+    float acc[kNPV * 32];
+#pragma unroll
+    for (int i = 0; i < kNPV * 32; ++i) acc[i] = 0.f;
+    float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+    // S = Q K^T for one 64-key half of a stage: 16-column steps, four per
+    // 64-column panel (started, not waited for)
+    auto start_scores = [&](float(&sc)[32], int s, int half) {
+      fence_regs(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4 * kNPK; ++kk) {
+        const uint32_t off = (kk >> 2) * kPanel + (kk & 3) * 32;
+        wgmma_ss_n64(
+            sc, desc_sw128(sQ + 64 * wg * 128 + off, 16, 1024),
+            desc_sw128(sK + s * kNPK * kPanel + half * 8192 + off, 16, 1024),
+            kk > 0);
+      }
+      wgmma_commit();
+    };
+    // O += P V for one half: V MN-major, 16 keys (2048 bytes) per step
+    auto start_pv = [&](const uint32_t(&pa)[4][4], int s, int half) {
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t dv = desc_sw128(
+            sV + s * kNPV * kPanel + half * 8192 + kk * 2048, kPanel, 1024);
+        if constexpr (kNPV == 2)
+          wgmma_rs_n128(acc, pa[kk], dv);
+        else
+          wgmma_rs_n64(acc, pa[kk], dv);
+      }
+      wgmma_commit();
+    };
+    // the online softmax of one half (keys k0 ..): fragment i is column
+    // 8 (i / 4) + 2 t + (i & 1), row g (i & 2 == 0) or g + 8 of the warp's
+    // 16.  Scores go to the log2 domain (x = s scale log2 e), p = exp2(x -
+    // m).  Where the half is masked, a masked score is set to -1e30 after
+    // scaling and x - m is taken exactly, so a row that has seen no
+    // visible key yet gets p = 1 where the reference gets exp(0) = 1, and
+    // 0 once it has; elsewhere every row has a visible key and p = exp2(
+    // fma(s, scale log2 e, -m)).  P goes to bf16 pairs, the A operand of
+    // P V; al0 / al1 are the rescale factors of the two rows.
+    auto softmax = [&](auto masked_tag, float(&sc)[32], uint32_t(&pa)[4][4],
+                       int k0, float& al0, float& al1) {
+      constexpr bool kMasked = decltype(masked_tag)::value;
+      float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        float x = sc[i];
+        if constexpr (kMasked) {
+          const int col = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+          x = visible(col, (i & 2) ? row1 : row0, Sk, causal, window)
+                  ? x * sl2
+                  : kNegInf;
+          sc[i] = x;
+        }
+        if (i & 2)
+          mx1 = fmaxf(mx1, x);
+        else
+          mx0 = fmaxf(mx0, x);
+      }
+      if constexpr (!kMasked) {  // scale > 0: the max commutes with it
+        mx0 *= sl2;
+        mx1 *= sl2;
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      al0 = ex2(m0 - mn0);
+      al1 = ex2(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const float mn = (i & 2) ? mn1 : mn0;
+        float p0, p1;
+        if constexpr (kMasked) {
+          p0 = ex2(sc[i] - mn);
+          p1 = ex2(sc[i + 1] - mn);
+        } else {
+          p0 = ex2(fmaf(sc[i], sl2, -mn));
+          p1 = ex2(fmaf(sc[i + 1], sl2, -mn));
+        }
+        if (i & 2)
+          sum1 += p0 + p1;
+        else
+          sum0 += p0 + p1;
+        // keys 16 kk + (0..7) fill registers 0, 1; 16 kk + (8..15) 2, 3
+        pa[i >> 3][((i >> 2) & 1) * 2 + ((i >> 1) & 1)] = pack_bf16(p0, p1);
+      }
+      l0 = l0 * al0 + sum0;
+      l1 = l1 * al1 + sum1;
+    };
+    auto rescale = [&](float al0, float al1) {
+#pragma unroll
+      for (int i = 0; i < kNPV * 32; ++i) acc[i] *= (i & 2) ? al1 : al0;
+    };
+    // the tiles the warpgroup computes are one run [it_lo, it_hi): the
+    // window hides leading tiles, the causal mask trailing ones
+    auto hidden = [&](int it) {
+      const int k0 = k_first + it * kWgKeys;
+      return wr0 >= Sq || (causal && k0 > w_last) ||
+             (window && k0 + kWgKeys - 1 <= wr0 + q_off - window);
+    };
+    int it_lo = 0, it_hi = n_tiles;
+    while (it_lo < it_hi && hidden(it_lo)) ++it_lo;
+    while (it_hi > it_lo && hidden(it_hi - 1)) --it_hi;
+
+    // The two consumers take turns on the tensor cores: named barrier 1 + w
+    // says "warpgroup w may start its scores", and each warpgroup hands
+    // the turn over right after issuing, so one warpgroup's softmax runs
+    // while the other's products run.  Every half step syncs and arrives
+    // once in each warpgroup, computed or not, so the counts always match.
+    const int me = 1 + wg, other = 2 - wg;
+    if (wg == 1) named_arrive(1);  // warpgroup 0 goes first
+    mbar_wait(barQ, 0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % kStages;
+      const uint32_t parity = (it / kStages) & 1;
+      const bool compute = it >= it_lo && it < it_hi;
+      const int k0 = k_first + it * kWgKeys;
+      mbar_wait(fullK + 8 * s, parity);
+      mbar_wait(fullV + 8 * s, parity);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float sc[32];
+        uint32_t pa[4][4];
+        named_sync(me);
+        if (compute) start_scores(sc, s, half);
+        named_arrive(other);
+        if (compute) {
+          wgmma_wait<0>();
+          fence_regs(sc);
+          float al0, al1;
+          const int kh = k0 + 64 * half;
+          if (kh + 64 > Sk || (causal && kh + 63 > wr0 + q_off) ||
+              (window && kh <= w_last - window))
+            softmax(std::true_type(), sc, pa, kh, al0, al1);
+          else
+            softmax(std::false_type(), sc, pa, kh, al0, al1);
+          rescale(al0, al1);
+          start_pv(pa, s, half);
+          wgmma_wait<0>();
+          fence_regs(acc);
+        }
+      }
+      if (lane == 0) mbar_arrive(empty + 8 * s);
+    }
+    if (wg == 0) named_sync(1);  // the other warpgroup's last hand-over
+
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    const float inv0 = 1.f / fmaxf(l0, 1e-30f);
+    const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+    const int r0 = wr0 + 16 * warp + g, r1 = r0 + 8;
+    __nv_bfloat16* orow = o + b * o_b + h * o_h;
+#pragma unroll
+    for (int i = 0; i < kNPV * 32; i += 4) {
+      const int col = 8 * (i >> 2) + 2 * t;
+      if (col >= Dv) continue;
+      if (r0 < Sq)
+        *reinterpret_cast<__nv_bfloat162*>(
+            orow + static_cast<long long>(r0) * o_s + col) =
+            __floats2bfloat162_rn(acc[i] * inv0, acc[i + 1] * inv0);
+      if (r1 < Sq)
+        *reinterpret_cast<__nv_bfloat162*>(
+            orow + static_cast<long long>(r1) * o_s + col) =
+            __floats2bfloat162_rn(acc[i + 2] * inv1, acc[i + 3] * inv1);
     }
   }
 }
 
-template <typename T>
-int flash_launch(const void* q, const void* k, const void* v, void* o,
-                 const long long* strides, int B, int H, int KV, int Sq,
-                 int Sk, int D, int Dv, float scale, int causal, int window,
-                 int device, void* stream) {
+// ------------------------------------------------------------ launchers
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, which the process has loaded
+// (the runtime API has no tensor-map encoder, and nothing links libcuda)
+EncodeTiled encoder() {
+  static EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib ? reinterpret_cast<EncodeTiled>(
+                     dlsym(lib, "cuTensorMapEncodeTiled"))
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a bf16 tensor map of a (B, S, H, d) operand: axis 0 is d, axes 1-3
+// are head, row and batch sorted by stride (*perm says where each went);
+// (64, 128-row) boxes with the 128-byte swizzle; reads past d or S are
+// zero-filled
+bool make_map(CUtensorMap* map, int* perm, const void* ptr, int d, int heads,
+              int s, int batch, long long st_h, long long st_s,
+              long long st_b) {
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const long long size[3] = {heads, s, batch}, stride[3] = {st_h, st_s, st_b};
+  int order[3] = {0, 1, 2};  // logical axes (head, row, batch) by stride
+  for (int i = 1; i < 3; ++i)
+    for (int j = i; j > 0 && stride[order[j]] < stride[order[j - 1]]; --j) {
+      const int x = order[j];
+      order[j] = order[j - 1];
+      order[j - 1] = x;
+    }
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(d)}, strides[3];
+  cuuint32_t box[4] = {64};
+  *perm = 0;
+  for (int i = 0; i < 3; ++i) {
+    const int ax = order[i];
+    dims[i + 1] = static_cast<cuuint64_t>(size[ax]);
+    strides[i] = static_cast<cuuint64_t>(stride[ax]) * 2;
+    box[i + 1] = ax == 1 ? 128 : 1;
+    *perm |= (i + 1) << (2 * ax);
+  }
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+            const_cast<void*>(ptr), dims, strides, box, estr,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+int flash_launch_f32(const void* q, const void* k, const void* v, void* o,
+                     const Strides& st, int B, int H, int KV, int Sq, int Sk,
+                     int D, int Dv, float scale, int causal, int window,
+                     cudaStream_t stream) {
+  // cp.async moves 16-byte chunks: 16-byte bases and strides
+  const long long strides[9] = {st.q_b, st.q_s, st.q_h, st.k_b, st.k_s,
+                                st.k_h, st.v_b, st.v_s, st.v_h};
+  for (long long s : strides)
+    if (s % 4) return static_cast<int>(cudaErrorInvalidValue);
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || o == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int ldk = pitch(D), ldv = pitch(Dv <= 64 ? 64 : 128);
+  const size_t smem = sizeof(float) *
+                      static_cast<size_t>(2 * kBQ * ldk + kBQ * ldv);
+  const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
+  cudaError_t err;
+  if (Dv <= 64) {
+    err = cudaFuncSetAttribute(flash_fwd_kernel_tf32<8>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_fwd_kernel_tf32<8><<<grid, kThreads, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o), H, KV, Sq, Sk,
+        D, Dv, st, scale, causal, window);
+  } else {
+    err = cudaFuncSetAttribute(flash_fwd_kernel_tf32<16>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_fwd_kernel_tf32<16><<<grid, kThreads, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o), H, KV, Sq, Sk,
+        D, Dv, st, scale, causal, window);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kNPK, int kNPV>
+int launch_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
+                 const CUtensorMap& tv, int pq, int pk, int pv,
+                 __nv_bfloat16* out, dim3 grid, size_t smem, int H, int KV,
+                 int Sq, int Sk, int D, int Dv, const Strides& st,
+                 float scale, int causal, int window, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel_wgmma<kNPK, kNPV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_fwd_kernel_wgmma<kNPK, kNPV><<<grid, kWgThreads, smem, stream>>>(
+      tq, tk, tv, pq, pk, pv, out, H, KV, Sq, Sk, D, Dv, st.o_b, st.o_s,
+      st.o_h, scale, causal, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int flash_launch_bf16(const void* q, const void* k, const void* v, void* o,
+                      const Strides& st, int B, int H, int KV, int Sq,
+                      int Sk, int D, int Dv, float scale, int causal,
+                      int window, cudaStream_t stream) {
+  // TMA: 16-byte bases and byte strides (the wrapper copies any other
+  // view into an aligned buffer first)
+  const long long strides[9] = {st.q_b, st.q_s, st.q_h, st.k_b, st.k_s,
+                                st.k_h, st.v_b, st.v_s, st.v_h};
+  for (long long s : strides)
+    if (s % 8) return static_cast<int>(cudaErrorInvalidValue);
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tq, tk, tv;
+  int pq, pk, pv;
+  if (!make_map(&tq, &pq, q, D, H, Sq, B, st.q_h, st.q_s, st.q_b) ||
+      !make_map(&tk, &pk, k, D, KV, Sk, B, st.k_h, st.k_s, st.k_b) ||
+      !make_map(&tv, &pv, v, Dv, KV, Sk, B, st.v_h, st.v_s, st.v_b))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int npk = (D + 63) / 64, npv = (Dv + 63) / 64;
+  const size_t smem =
+      1024 + static_cast<size_t>(npk + kStages * (npk + npv)) * kPanel +
+      8 * (1 + 3 * kStages);
+  const dim3 grid(B * H, (Sq + kWgRows - 1) / kWgRows);
+  auto* out = static_cast<__nv_bfloat16*>(o);
+  if (npk == 1 && npv == 1)
+    return launch_wgmma<1, 1>(tq, tk, tv, pq, pk, pv, out, grid, smem, H, KV,
+                              Sq, Sk, D, Dv, st, scale, causal, window,
+                              stream);
+  if (npk == 1)
+    return launch_wgmma<1, 2>(tq, tk, tv, pq, pk, pv, out, grid, smem, H, KV,
+                              Sq, Sk, D, Dv, st, scale, causal, window,
+                              stream);
+  if (npv == 1)
+    return launch_wgmma<2, 1>(tq, tk, tv, pq, pk, pv, out, grid, smem, H, KV,
+                              Sq, Sk, D, Dv, st, scale, causal, window,
+                              stream);
+  return launch_wgmma<2, 2>(tq, tk, tv, pq, pk, pv, out, grid, smem, H, KV,
+                            Sq, Sk, D, Dv, st, scale, causal, window, stream);
+}
+
+int flash_launch(bool bf16, const void* q, const void* k, const void* v,
+                 void* o, const long long* strides, int B, int H, int KV,
+                 int Sq, int Sk, int D, int Dv, float scale, int causal,
+                 int window, int device, void* stream) {
   if (D > kMaxD || Dv > kMaxD || D % 4 || Dv % 4 || H % KV)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
@@ -255,21 +987,11 @@ int flash_launch(const void* q, const void* k, const void* v, void* o,
   Strides st;
   long long* f = &st.q_b;
   for (int i = 0; i < 12; ++i) f[i] = strides[i];
-  const int ldk = pitch(D), ldv = pitch(Dv);
-  const size_t smem = sizeof(float) *
-      static_cast<size_t>(kBQ * ldk + kBK * (ldk > ldv ? ldk : ldv) +
-                          kBQ * kLdP);
-  err = cudaFuncSetAttribute(flash_fwd_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
-  flash_fwd_kernel<T><<<grid, kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, KV, Sq, Sk, D, Dv, st,
-      scale, causal, window);
-  return static_cast<int>(cudaGetLastError());
+  auto s = static_cast<cudaStream_t>(stream);
+  return bf16 ? flash_launch_bf16(q, k, v, o, st, B, H, KV, Sq, Sk, D, Dv,
+                                  scale, causal, window, s)
+              : flash_launch_f32(q, k, v, o, st, B, H, KV, Sq, Sk, D, Dv,
+                                 scale, causal, window, s);
 }
 
 }  // namespace
@@ -277,22 +999,22 @@ int flash_launch(const void* q, const void* k, const void* v, void* o,
 extern "C" {
 
 // strides: 12 element strides (batch, seq, head) of q, k, v, o in turn;
-// the last axis of every operand is contiguous.
+// the last axis of every operand is contiguous, q / k / v start on 16
+// bytes and their strides are multiples of 16 bytes.
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                         const long long* strides, int B, int H, int KV,
                         int Sq, int Sk, int D, int Dv, float scale,
                         int causal, int window, int device, void* stream) {
-  return flash_launch<float>(q, k, v, o, strides, B, H, KV, Sq, Sk, D, Dv,
-                             scale, causal, window, device, stream);
+  return flash_launch(false, q, k, v, o, strides, B, H, KV, Sq, Sk, D, Dv,
+                      scale, causal, window, device, stream);
 }
 
 int flash_attention_bf16(const void* q, const void* k, const void* v,
                          void* o, const long long* strides, int B, int H,
                          int KV, int Sq, int Sk, int D, int Dv, float scale,
                          int causal, int window, int device, void* stream) {
-  return flash_launch<__nv_bfloat16>(q, k, v, o, strides, B, H, KV, Sq, Sk,
-                                     D, Dv, scale, causal, window, device,
-                                     stream);
+  return flash_launch(true, q, k, v, o, strides, B, H, KV, Sq, Sk, D, Dv,
+                      scale, causal, window, device, stream);
 }
 
 }  // extern "C"

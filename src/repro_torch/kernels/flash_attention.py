@@ -14,6 +14,16 @@ multiple of KV, all float32 or all bfloat16; the output is a new
 strides (the last axis must be contiguous).  The kernel takes any S, and
 D, Dv up to 128 in multiples of 4; causal attention needs Sq <= Sk (every
 query row then sees at least one key).
+
+Both instances run on the tensor cores: float32 as 3xTF32 ``mma.sync``
+fed by ``cp.async`` (float32-level accuracy), bfloat16 as ``wgmma`` fed
+by TMA, with P rounded to bfloat16 before P V.  Their copies move 16-byte
+chunks, so an operand must start on 16 bytes and have strides that are
+multiples of 16 bytes; one that does not (an odd view, or bfloat16 with
+D or Dv not a multiple of 8) is first copied into an aligned buffer whose
+last axis is padded to a multiple of 16 bytes.  Operands from a
+contiguous float32 allocation, and bfloat16 ones with D and Dv multiples
+of 8, are never copied.
 """
 from __future__ import annotations
 
@@ -45,6 +55,30 @@ def _lib() -> ctypes.CDLL:
     return _build.load("flash_attention", _SIGNATURES)
 
 
+def _strides(t: torch.Tensor) -> tuple[int, int, int]:
+    """Element strides of the (batch, seq, head) axes; an axis of length 1
+    gets one past the whole tensor (its index is always 0), so it never
+    breaks the 16-byte rule."""
+    unit = 16 // t.element_size()
+    beyond = max(t.stride(i) * t.shape[i] for i in range(4))
+    beyond = -(-beyond // unit) * unit
+    return tuple(t.stride(i) if t.shape[i] > 1 else beyond for i in range(3))
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when it starts on 16 bytes and its strides are
+    multiples of 16 bytes, else a copy in a buffer whose last axis is
+    padded to a multiple of 16 bytes (a view of it, cut back to ``t``'s
+    shape)."""
+    unit = 16 // t.element_size()
+    if t.data_ptr() % 16 == 0 and all(s % unit == 0 for s in _strides(t)):
+        return t
+    d = t.shape[-1]
+    buf = torch.empty((*t.shape[:-1], -(-d // unit) * unit), dtype=t.dtype,
+                      device=t.device)
+    return buf[..., :d].copy_(t)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     scale: float | None = None):
     """Fused forward attention.  q: (B, Sq, H, D); k/v: (B, Sk, KV, D|Dv)
@@ -71,16 +105,17 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"the flash kernel takes head dims up to "
                          f"{MAX_HEAD_DIM} in multiples of 4, got D={d}, "
                          f"Dv={dv}")
-    if (sq + 63) // 64 > 65535:
-        raise ValueError(f"the flash kernel takes Sq up to {64 * 65535}, "
+    if (sq + 127) // 128 > 65535:
+        raise ValueError(f"the flash kernel takes Sq up to {128 * 65535}, "
                          f"got {sq}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("the last axis of q, k and v must be contiguous")
     o = torch.empty((b, sq, h, dv), dtype=q.dtype, device=dev)
     if o.numel() == 0:
         return o
+    q, k, v = (_aligned(t) for t in (q, k, v))
     strides = (ctypes.c_longlong * 12)(
-        *(t.stride(i) for t in (q, k, v, o) for i in (0, 1, 2)))
+        *(s for t in (q, k, v, o) for s in _strides(t)))
     err = getattr(_lib(), _FN[q.dtype])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), strides,
         b, h, n_kv, sq, sk, d, dv, float(scale), int(causal), int(window),

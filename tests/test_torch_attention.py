@@ -146,3 +146,25 @@ def test_decode_attention_on_a_wrapped_ring():
             torch.as_tensor(valid.copy()))
         np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                    **F32_TOL)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.float32, 60),
+                                     (torch.bfloat16, 128),
+                                     (torch.bfloat16, 60)])
+def test_wrapper_hands_the_kernel_aligned_operands(dtype, d):
+    """What the wrapper passes the kernel's 16-byte copies: an aligned
+    operand as it is; a view that starts off 16 bytes, or bf16 rows of 60
+    columns, as a copy whose strides are multiples of 16 bytes; an axis
+    of length 1 with a stride past the tensor."""
+    unit = 16 // torch.empty((), dtype=dtype).element_size()
+    q = torch.as_tensor(_inputs(9, 2, 5, 5, 3, 1, d)[0]).to(dtype)
+    for t in (q, q.transpose(1, 2).contiguous().transpose(1, 2),
+              torch.nn.functional.pad(q, (2, 6))[..., 2:2 + d], q[:, :1]):
+        a = fa._aligned(t)
+        assert torch.equal(a, t)
+        assert a.data_ptr() % 16 == 0
+        assert all(s % unit == 0 for s in fa._strides(a))
+        aligned = t.data_ptr() % 16 == 0 and all(
+            t.stride(i) % unit == 0 for i in range(3) if t.shape[i] > 1)
+        assert (a is t) == aligned
+    assert fa._strides(q[:, :1])[1] >= q[:, :1].numel()

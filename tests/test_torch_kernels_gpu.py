@@ -102,7 +102,10 @@ def test_group_occupancy_kernel_matches_plain(cuda, c, n_groups):
 # ------------------------------------------------------------ LM kernels
 # (b, sq, sk, h, kv, d, dv, causal, window): MHA/GQA/MQA, ragged S, the
 # zoo's head dims (32, 60, 64, 120, 128), Dk != Dv, a continuation
-# (Sq < Sk), full attention
+# (Sq < Sk), full attention; then the pipelines' edges: one key past a
+# 128-key stage (129, 257), one query row against 4097 keys, a window
+# smaller than a key tile (16) and a window of 1 (each row sees only its
+# own key)
 FLASH_CASES = [
     (1, 128, 128, 4, 4, 32, 32, True, 0),
     (2, 256, 256, 8, 2, 64, 64, True, 64),
@@ -114,7 +117,14 @@ FLASH_CASES = [
     (1, 37, 165, 4, 2, 64, 64, True, 0),
     (1, 128, 128, 2, 2, 32, 32, False, 0),
     (1, 1, 77, 8, 2, 128, 128, True, 0),
+    (1, 129, 129, 4, 2, 128, 128, True, 0),
+    (2, 257, 257, 4, 1, 64, 64, True, 0),
+    (1, 1, 4097, 8, 2, 128, 128, True, 0),
+    (1, 300, 300, 4, 2, 128, 128, True, 16),
+    (2, 150, 150, 4, 4, 64, 64, True, 1),
 ]
+TOL = {torch.float32: dict(atol=3e-5, rtol=1e-4),
+       torch.bfloat16: dict(atol=3e-2, rtol=3e-2)}
 
 
 def _flash_inputs(seed, b, sq, sk, h, kv, d, dv, dtype):
@@ -124,20 +134,26 @@ def _flash_inputs(seed, b, sq, sk, h, kv, d, dv, dtype):
     return mk(b, sq, h, d), mk(b, sk, kv, d), mk(b, sk, kv, dv)
 
 
+def _assert_flash_close(got, want):
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().numpy(), **TOL[want.dtype])
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
 @pytest.mark.parametrize("b,sq,sk,h,kv,d,dv,causal,window", FLASH_CASES)
 def test_flash_kernel_matches_plain(cuda, b, sq, sk, h, kv, d, dv, causal,
-                                    window):
-    q, k, v = _flash_inputs(sq + d, b, sq, sk, h, kv, d, dv, torch.float32)
+                                    window, dtype):
+    q, k, v = _flash_inputs(sq + d, b, sq, sk, h, kv, d, dv, dtype)
     want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
     before = fa.LAUNCHES["flash_attention"]
     got = fa.flash_attention(q.to(cuda), k.to(cuda), v.to(cuda),
                              causal=causal, window=window)
     torch.cuda.synchronize()
     assert fa.LAUNCHES["flash_attention"] == before + 1
-    assert got.shape == (b, sq, h, dv) and got.dtype == torch.float32
-    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=3e-5,
-                               rtol=1e-4)
+    assert got.shape == (b, sq, h, dv) and got.dtype == dtype
+    _assert_flash_close(got, want)
 
 
 @pytest.mark.gpu
@@ -149,13 +165,22 @@ def test_flash_kernel_bf16_and_strided(cuda):
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().cpu().numpy(), want.numpy(),
                                atol=3e-2, rtol=3e-2)
-    # (B, H, S, D) storage read through strides, no copy
-    qs, ks, vs = (t.to(cuda).transpose(1, 2).contiguous().transpose(1, 2)
-                  for t in (q, k, v))
-    assert not qs.is_contiguous()
-    got = fa.flash_attention(qs, ks, vs, causal=True)
-    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=3e-5,
-                               rtol=1e-4)
+    for dtype in (torch.float32, torch.bfloat16):
+        want = fa.flash_attention_plain(*(t.to(dtype) for t in (q, k, v)),
+                                        causal=True)
+        # (B, H, S, D) storage read through strides, no copy
+        qs, ks, vs = (t.to(cuda, dtype).transpose(1, 2).contiguous()
+                      .transpose(1, 2) for t in (q, k, v))
+        assert not qs.is_contiguous()
+        _assert_flash_close(fa.flash_attention(qs, ks, vs, causal=True),
+                            want)
+        # views that start 2 elements into a wider buffer: not 16-byte
+        # aligned, so the wrapper copies them into an aligned buffer
+        qo, ko, vo = (torch.nn.functional.pad(t.to(cuda, dtype), (2, 6))
+                      [..., 2:2 + t.shape[-1]] for t in (q, k, v))
+        assert qo.data_ptr() % 16
+        _assert_flash_close(fa.flash_attention(qo, ko, vo, causal=True),
+                            want)
 
 
 def _wkv_inputs(seed, b, s, h, n, decay_scale=1.0):
