@@ -29,8 +29,10 @@ CUDA toolkit's nvcc.  Phases, each printing one JSON line:
    plain versions on the card at the LM serving shapes (yi-6b f32 and
    bf16, h2o-danube's window and head_dim 120 in f32 and bf16,
    zamba2-1.2b's shared block, rwkv6-1.6b, zamba2-1.2b's Mamba2 scan,
-   also at a ragged S and at G = 2), timed like phase 3 beside one
-   ``F.scaled_dot_product_attention`` call for attention, with their
+   also at a ragged S and at G = 2; bf16 flash also row by row, each
+   (query, head) row within 1e-2 of the plain row's norm), timed like
+   phase 3 beside one ``F.scaled_dot_product_attention`` call for
+   attention, with their
    bound (operations at the data-sheet peak of what runs them, or bytes
    at 3.35 TB/s, whichever is larger: the f32 flash kernel's three TF32
    products at the TF32 peak, with its FP32 CUDA-core bound beside; bf16
@@ -450,6 +452,9 @@ SSD_SHAPES = (
     ("groups_2", 4, 2048, 64, 64, 2, 64),
 )
 SSD_CHUNK = 256  # the config's chunk, which the plain version uses
+# bf16 flash: largest |kernel row - plain row| / |plain row| over the
+# (query, head) rows, beside the element-wise 3e-2 / 3e-2
+BF16_ROW_BAR = 1e-2
 
 
 def visible_pairs(s: int, window: int) -> int:
@@ -498,9 +503,12 @@ def phase_lm_kernels(torch, dev) -> dict:
     sass = sass_tensor_ops(_build.library_path(
         _build.CSRC / "flash_attention.cu"))
     if sass is not None:
-        for inst, ops in sass.items():
-            key = "HMMA.TF32" if "tf32" in inst else "HGMMA.BF16"
-            check(ops[key] > 0, f"{inst} runs {key} on the tensor cores")
+        for inst, key in (("flash_fwd_kernel_tf32", "HMMA.TF32"),
+                          ("flash_fwd_kernel_wgmma", "HGMMA.BF16")):
+            found = {k: v for k, v in sass.items() if k.startswith(inst)}
+            check(bool(found), f"cuobjdump lists an instance of {inst}")
+            for fn, ops in found.items():
+                check(ops[key] > 0, f"{fn} runs {key} on the tensor cores")
     for name, b, s, h, kv, d, window, dt in FLASH_SHAPES:
         dtype = getattr(torch, dt)
         q, k, v = (torch.randn(b, s, n, d, generator=g, device=dev)
@@ -514,6 +522,15 @@ def phase_lm_kernels(torch, dev) -> dict:
                         - (atol + rtol * want.float().abs())).max())
         check(excess <= 0, f"flash {name} within atol {atol} rtol {rtol} "
               f"of its plain version (max err {err})")
+        # bf16 also by rows, sized to its rounding: one bf16 step is at
+        # most 2^-7 of a value, so a row off by a step in every element
+        # is off by 7.8e-3 of its norm; a row that lost a key tile is off
+        # by far more, even where each element stays inside 3e-2
+        row_err = float(((got.float() - want.float()).norm(dim=-1)
+                         / want.float().norm(dim=-1).clamp_min(1e-30)).max())
+        if dt == "bfloat16":
+            check(row_err <= BF16_ROW_BAR, f"flash {name} rows within "
+                  f"{BF16_ROW_BAR} of the plain rows' norm ({row_err})")
         # the yardstick: one SDPA call on (B, H, S, D) views, the window
         # as an explicit mask built outside the timed call
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -549,7 +566,8 @@ def phase_lm_kernels(torch, dev) -> dict:
             name="flash_attention", route="cuda",
             source=SOURCES["flash_attention"],
             replaces=REPLACES["flash_attention"], max_abs_err=err,
-            ms=kern["ms"], plain_ms=plain["ms"], library_ms=library["ms"],
+            max_row_rel_err=row_err, ms=kern["ms"], plain_ms=plain["ms"],
+            library_ms=library["ms"],
             **bound, **extra,
             sass_tensor_ops=None if sass is None else {
                 k: v for k, v in sass.items() if inst in k},

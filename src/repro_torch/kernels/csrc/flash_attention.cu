@@ -30,8 +30,9 @@
 // hi.lo + lo.hi + hi.hi with f32 accumulation keeps float32-level
 // accuracy (the dropped lo.lo term is ~2^-22 relative; one TF32 product
 // alone keeps about three digits and misses the f32 bar, see
-// tests/test_torch_flash_tf32.py).  Its bound is three TF32 products at
-// 495 TFLOP/s; it may beat the FP32 CUDA-core bound (67 TFLOP/s).
+// tests/test_torch_flash_tf32.py).  The softmax stays in f32 with expf.
+// Its bound is three TF32 products at 495 TFLOP/s; it may beat the FP32
+// CUDA-core bound (67 TFLOP/s).
 // mma.sync and not wgmma: TF32 wgmma takes B only from shared memory and
 // only K-major, so V would need a transposed copy and the lo halves of K
 // and V would double the tiles; mma.sync takes both operands from
@@ -71,9 +72,9 @@
 // while the other's products run.  A consumer frees a stage once its
 // P V has retired (wgmma.wait_group).  The one difference from the
 // reference: the reference multiplies an f32 P by V; here P is rounded
-// to bf16 first, which the bf16 bar (3e-2 against the plain version)
-// covers.  Shared memory: 32 KB (Q) + 3 x (32 + 32) KB (K, V) = 224 KB
-// at D = Dv = 128, one CTA per SM.
+// to bf16 first, which the bf16 bars against the plain version (3e-2 per
+// element, 1e-2 of each output row's norm) cover.  Shared memory: 32 KB
+// (Q) + 3 x (32 + 32) KB (K, V) = 224 KB at D = Dv = 128, one CTA per SM.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -106,10 +107,11 @@ __device__ __forceinline__ void key_range(int q0, int rows, int Sq, int Sk,
   *first = (window ? max(0, q0 + q_off - window + 1) : 0) / bk * bk;
 }
 
-// exp(x) as one multiply and the SFU's exp2 (~2 ulp; expf's range
-// reduction costs several instructions more per score)
+// the float32 instance's exp: expf, as the reference's f32 exp (exp2f(x
+// log2 e) would add a relative error of about |x| 6e-8 in the rounding of
+// x log2 e; tools/flash_exp_ab.py measures both forms)
 __device__ __forceinline__ float exp_f32(float x) {
-  return exp2f(x * 1.4426950408889634f);
+  return expf(x);
 }
 
 __device__ __forceinline__ bool visible(int col, int row, int Sk, int causal,

@@ -4,8 +4,9 @@ The kernel (``csrc/flash_attention.cu``, ``flash_fwd_kernel_tf32``) runs
 both products on the tensor cores in split precision: each operand a
 becomes hi = cvt.rna.tf32(a) and lo = cvt.rna.tf32(a - hi), and a.b is
 taken as hi.lo + lo.hi + hi.hi with float32 accumulation, over an online
-softmax of 64-key tiles.  The emulation below repeats that arithmetic in
-torch (TF32 rounding on the int32 view, as ``cvt.rna`` rounds) and is
+softmax of 64-key tiles whose exp is float32 ``expf``.  The emulation
+below repeats that arithmetic in torch (TF32 rounding on the int32 view,
+as ``cvt.rna`` rounds; float32 ``torch.exp`` for ``expf``) and is
 held to ``flash_attention_plain`` and to the JAX reference at the
 ``FLASH_CASES`` shapes of the ``gpu`` tests, at the float32 bar (atol
 3e-5, rtol 1e-4).  One TF32 product alone keeps about three digits: at

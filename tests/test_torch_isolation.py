@@ -1,7 +1,7 @@
 """The port stands alone and passes the repo's lint gate.
 
-Every file of ``src/repro_torch/``, ``chip_smoke.py`` and the on-card
-tests ``tests/test_torch_kernels_gpu.py`` imports neither
+Every file of ``src/repro_torch/`` and ``tools/``, ``chip_smoke.py``
+and the on-card tests ``tests/test_torch_kernels_gpu.py`` imports neither
 ``jax``/``jaxlib`` nor anything of the reference package ``repro``, and
 ``repro.analysis.lint`` finds nothing in the port — so a port fault shows
 up here under the port's own name as well as in the repo-wide gate.
@@ -15,9 +15,11 @@ from repro.analysis.lint import lint_paths
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-# the card's machine has no JAX: chip_smoke.py and the gpu tests run there
-FILES = sorted(PORT.rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_kernels_gpu.py"]
+# the card's machine has no JAX: chip_smoke.py, the gpu tests and the
+# tools' measurements run there
+FILES = (sorted(PORT.rglob("*.py")) + sorted((ROOT / "tools").glob("*.py"))
+         + [ROOT / "chip_smoke.py",
+            ROOT / "tests" / "test_torch_kernels_gpu.py"])
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

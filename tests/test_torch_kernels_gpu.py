@@ -2,7 +2,8 @@
 orchestration kernels, flash attention, WKV6 and the SSD scan.
 
 Imports only torch, numpy and the port, so it runs on a machine with a
-card and no JAX (the tests skip without a card):
+card and no JAX (the tests skip without a card, but for one CPU test of
+the bf16 row bar):
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_kernels_gpu.py
 
@@ -125,6 +126,9 @@ FLASH_CASES = [
 ]
 TOL = {torch.float32: dict(atol=3e-5, rtol=1e-4),
        torch.bfloat16: dict(atol=3e-2, rtol=3e-2)}
+# bf16 is also held row by row: one bf16 step is at most 2^-7 of a value,
+# so a row off by a step in every element is off by 7.8e-3 of its norm
+BF16_ROW_BAR = 1e-2
 
 
 def _flash_inputs(seed, b, sq, sk, h, kv, d, dv, dtype):
@@ -134,9 +138,38 @@ def _flash_inputs(seed, b, sq, sk, h, kv, d, dv, dtype):
     return mk(b, sq, h, d), mk(b, sk, kv, d), mk(b, sk, kv, dv)
 
 
+def _row_rel_err(got, want):
+    """The largest |got row - want row| / |want row| over the (batch,
+    query, head) rows."""
+    diff = (got.float().cpu() - want.float()).norm(dim=-1)
+    return float((diff / want.float().norm(dim=-1).clamp_min(1e-30)).max())
+
+
 def _assert_flash_close(got, want):
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().numpy(), **TOL[want.dtype])
+    if want.dtype == torch.bfloat16:
+        assert _row_rel_err(got, want) <= BF16_ROW_BAR
+
+
+def test_bf16_row_bar_catches_lost_keys():
+    """On the CPU: at the yi-6b length, outputs whose last 128 query rows
+    lost 8 keys' share of P V (one register pair of P's operand, keys
+    1024-1031, still counted in the row sums) stay inside the
+    element-wise bf16 bar and fail the row bar by far."""
+    s, lost = 2048, slice(1024, 1032)
+    q, k, v = _flash_inputs(8, 1, s, s, 2, 1, 128, 128, torch.bfloat16)
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    rows = torch.arange(s - 128, s)[:, None]
+    scores = (q[0, -128:].float().transpose(0, 1) * 128 ** -0.5
+              @ k[0, :, 0].float().T)
+    p = torch.softmax(scores.masked_fill(torch.arange(s) > rows, -1e30), -1)
+    wrong = want.clone()
+    wrong[0, -128:] = (want[0, -128:].float() - (p[..., lost]
+                       @ v[0, lost, 0].float()).transpose(0, 1)).bfloat16()
+    np.testing.assert_allclose(wrong.float().numpy(), want.float().numpy(),
+                               **TOL[torch.bfloat16])
+    assert _row_rel_err(wrong, want) > 10 * BF16_ROW_BAR
 
 
 @pytest.mark.gpu
