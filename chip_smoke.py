@@ -18,8 +18,10 @@ CUDA toolkit's nvcc.  Phases, each printing one JSON line:
    (bytes at 3.35 TB/s, each input read once and each output written
    once, counted from this run's data);
 4. serve: the deployment — 65,536 cells, 4 cells per edge server, shared
-   cloud and edge, Poisson rate 3 per cell per 250 ms round over 4 rounds
-   — through ``repro_torch.launch.serve_fleet``, greedy and then a
+   cloud and edge, Poisson rate 3 per cell per 250 ms round over 4 rounds,
+   fleet and stream drawn from ``split(PRNGKey(0), 4)`` as the serving
+   CLI and the reference's draw them (bit for bit the reference's) —
+   through ``repro_torch.launch.serve_fleet``, greedy and then a
    guarded DQN from a bundle the port wrote and read back (weights from a
    ``torch.Generator``), with launch counts per kernel read around each
    run, and device-busy time per tick from ``torch.profiler``;
@@ -36,9 +38,11 @@ CUDA toolkit's nvcc.  Phases, each printing one JSON line:
    bound (operations at the data-sheet peak of what runs them, or bytes
    at 3.35 TB/s, whichever is larger: the f32 flash kernel's three TF32
    products at the TF32 peak, with its FP32 CUDA-core bound beside; bf16
-   flash at the dense BF16 peak; WKV6 and SSD at the FP32 peak) and the
-   flash kernels' tensor-core instruction counts from ``cuobjdump
-   -sass`` of the built library;
+   flash at the dense BF16 peak; WKV6 at the FP32 peak; SSD's chunked
+   products as three TF32 products at the TF32 peak, with the exact
+   recurrence's FP32 bound beside) and the flash and SSD kernels'
+   tensor-core instruction counts from ``cuobjdump -sass`` of the built
+   libraries (every instance must hold some);
 7. lm_serve: ``repro_torch.launch.serve`` at full width — yi-6b,
    rwkv6-1.6b and zamba2-1.2b, weights from a ``torch.Generator`` on the
    card, batch 4, prompt 2048, 32 greedy tokens — with launch counts read
@@ -217,18 +221,20 @@ def phase_build() -> None:
 
 
 def deployment_burst(torch, dev):
-    """The deployment's scenario and stream, and the busiest tick's
-    arrival lanes from the engine's own bucketer."""
+    """The deployment's scenario and stream, drawn from the keys the
+    serving CLI (and the reference's) splits from ``PRNGKey(SEED)``, and
+    the busiest tick's arrival lanes from the engine's own bucketer."""
     import numpy as np
+    from repro_torch import random as rnd
     from repro_torch.fleet.workload import random_fleet
     from repro_torch.serve.engine import ServeConfig, _tick_buckets
     from repro_torch.serve.stream import poisson_request_stream
-    scn = random_fleet(SEED, CELLS, n_max=5, cells_per_edge=CELLS_PER_EDGE,
-                       device=dev)
+    k_fleet, k_trace, _, _ = rnd.split(rnd.PRNGKey(SEED, dev), 4)
+    scn = random_fleet(k_fleet, CELLS, n_max=5,
+                       cells_per_edge=CELLS_PER_EDGE)
     cfg = ServeConfig(n_max=5, obs_spec="full")
     horizon = ROUNDS * cfg.round_ms
-    stream = poisson_request_stream(np.random.default_rng(SEED), scn,
-                                    horizon, rate=RATE,
+    stream = poisson_request_stream(k_trace, scn, horizon, rate=RATE,
                                     round_ms=cfg.round_ms,
                                     epoch_ms=horizon / EPOCHS)
     ids, _, _, _ = _tick_buckets(stream, cfg.tick_ms, 10)
@@ -467,8 +473,8 @@ def visible_pairs(s: int, window: int) -> int:
 
 def sass_tensor_ops(lib: Path) -> dict | None:
     """Tensor-core instructions (``HMMA...TF32``, ``HGMMA...BF16``) in
-    each flash kernel instance of the built library, from ``cuobjdump
-    -sass``; None where the toolkit has no ``cuobjdump``."""
+    each flash and SSD kernel instance of the built library, from
+    ``cuobjdump -sass``; None where the toolkit has no ``cuobjdump``."""
     import re
     import shutil
     from repro_torch.kernels import _build
@@ -481,9 +487,13 @@ def sass_tensor_ops(lib: Path) -> dict | None:
     counts, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            m = re.search(r"(flash_fwd_kernel_\w+?)I((?:Li\d+E)+)E", line)
-            args = ",".join(re.findall(r"Li(\d+)E", m[2])) if m else ""
-            fn = f"{m[1]}<{args}>" if m else None
+            # flash_fwd_kernel_tf32<8>, ssd_kernel<bf16,32,64>, ...
+            m = re.search(r"(flash_fwd_kernel_\w+?|ssd_kernel)I"
+                          r"(f|13__nv_bfloat16)?((?:Li\d+E)+)E", line)
+            args = re.findall(r"Li(\d+)E", m[3]) if m else []
+            if m and m[2]:
+                args.insert(0, "float" if m[2] == "f" else "bf16")
+            fn = f"{m[1]}<{','.join(args)}>" if m else None
             if fn:
                 counts[fn] = {"HMMA.TF32": 0, "HGMMA.BF16": 0}
         elif fn and re.search(r"\bHMMA\.\S*TF32", line):
@@ -502,13 +512,17 @@ def phase_lm_kernels(torch, dev) -> dict:
     out = {}
     sass = sass_tensor_ops(_build.library_path(
         _build.CSRC / "flash_attention.cu"))
-    if sass is not None:
-        for inst, key in (("flash_fwd_kernel_tf32", "HMMA.TF32"),
-                          ("flash_fwd_kernel_wgmma", "HGMMA.BF16")):
-            found = {k: v for k, v in sass.items() if k.startswith(inst)}
-            check(bool(found), f"cuobjdump lists an instance of {inst}")
-            for fn, ops in found.items():
-                check(ops[key] > 0, f"{fn} runs {key} on the tensor cores")
+    ssd_sass = sass_tensor_ops(_build.library_path(_build.CSRC / "ssd.cu"))
+    for found_in, inst, key in ((sass, "flash_fwd_kernel_tf32", "HMMA.TF32"),
+                                (sass, "flash_fwd_kernel_wgmma",
+                                 "HGMMA.BF16"),
+                                (ssd_sass, "ssd_kernel", "HMMA.TF32")):
+        if found_in is None:
+            continue
+        found = {k: v for k, v in found_in.items() if k.startswith(inst)}
+        check(bool(found), f"cuobjdump lists an instance of {inst}")
+        for fn, ops in found.items():
+            check(ops[key] > 0, f"{fn} runs {key} on the tensor cores")
     for name, b, s, h, kv, d, window, dt in FLASH_SHAPES:
         dtype = getattr(torch, dt)
         q, k, v = (torch.randn(b, s, n, d, generator=g, device=dev)
@@ -602,9 +616,21 @@ def phase_lm_kernels(torch, dev) -> dict:
         blocker_held=kern["blocker_held"],
         shape=dict(B=b, S=s, H=h, N=n, dtype="float32"))
     for name, b, s, h, p, g, n in SSD_SHAPES:
-        out[name] = ssd_entry(torch, dev, g_=g, b=b, s=s, h=h, p=p, n=n)
+        out[name] = dict(ssd_entry(torch, dev, g_=g, b=b, s=s, h=h, p=p,
+                                   n=n), sass_tensor_ops=ssd_sass)
     emit("lm_kernels", **out)
     return out
+
+
+def ssd_chunked_flops(b: int, s: int, h: int, p: int, n: int) -> int:
+    """Flops of the chunked form's four products per 64-step chunk (the
+    last one padded), with the score tiles above the diagonal skipped as
+    the kernel skips them (20 of 32 16 x 8 tiles): C B^T and scores x
+    over the kept tiles, C S^T and the state update in full; C B^T once
+    per (batch, head, chunk), however many CTAs split P."""
+    q, kept = 64, 20 / 32
+    per_chunk = 2 * q * q * (n + p) * kept + 2 * 2 * q * p * n
+    return int(b * h * -(-s // q) * per_chunk)
 
 
 def ssd_entry(torch, dev, *, g_, b, s, h, p, n) -> dict:
@@ -643,15 +669,21 @@ def ssd_entry(torch, dev, *, g_, b, s, h, p, n) -> dict:
     kern = cuda_ms(torch, lambda: sk.ssd(*args, chunk=SSD_CHUNK), iters=10)
     plain = cuda_ms(torch, lambda: sk.ssd_plain(*args, chunk=SSD_CHUNK),
                     iters=3, warmup=1)
-    # x, dt, B, C, a, d read once, y and the final state written once;
-    # the exact recurrence's 4 P N flops per (batch, step, head)
+    # x, dt, B, C, a, d read once, y and the final state written once
     n_bytes = 4 * (2 * b * s * h * p + b * s * h + 2 * b * s * g_ * n
                    + 2 * h + b * h * p * n)
     return dict(
         name="ssd", route="cuda", source=SOURCES["ssd"],
         replaces=REPLACES["ssd"], max_abs_err=err, ms=kern["ms"],
         plain_ms=plain["ms"], library_ms=None,
-        **roofline(n_bytes, 4 * b * s * h * p * n, PEAK_FP32),
+        # three TF32 products per product of the chunked form at the TF32
+        # peak; beside it the FP32 CUDA-core bound of the exact
+        # recurrence's 4 P N flops per (batch, step, head)
+        **roofline(n_bytes, 3 * ssd_chunked_flops(b, s, h, p, n),
+                   PEAK_TF32),
+        fp32_bound_ms=roofline(n_bytes, 4 * b * s * h * p * n,
+                               PEAK_FP32)["bound_ms"],
+        chunked_flops=ssd_chunked_flops(b, s, h, p, n),
         f32_plain_max_abs_err=f32_err, plain_f32_vs_f64_max_abs_err=plain_err,
         call_ms=kern["call_ms"], plain_call_ms=plain["call_ms"],
         blocker_held=kern["blocker_held"],

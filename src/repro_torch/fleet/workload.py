@@ -1,11 +1,9 @@
 """Fleet scenarios: the stacked, padded description of C cells.
 
 Counterpart of ``repro.fleet.workload``'s ``FleetScenario`` and
-``random_fleet``.  ``random_fleet`` draws from a ``torch.Generator`` on
-the host and then moves the scenario to the device, so one seed gives the
-same fleet on every device; it matches the reference in distribution,
-not in bits (``repro_torch.convert`` carries a reference fleet over
-exactly).
+``random_fleet``.  ``random_fleet`` draws with the port's threefry keys
+(``repro_torch.random``) in the reference's order, so one key gives the
+reference's fleet bit for bit, on the key's device.
 """
 from __future__ import annotations
 
@@ -13,7 +11,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch import random as rnd
 from repro_torch.env.scenarios import CONSTRAINT_ORDER, CONSTRAINTS
 from repro_torch.specs.observation import (DEFAULT_LATENCY_TARGET_MS,
                                            LATENCY_TARGET_POOL)
@@ -66,35 +64,34 @@ class FleetScenario(NamedTuple):
                                for v in self))
 
 
-def random_fleet(seed: int, n_cells: int, n_max: int = 5, *,
+def random_fleet(key: torch.Tensor, n_cells: int, n_max: int = 5, *,
                  n_users_min: int = 2, n_users_max: int | None = None,
                  weak_s_prob_max: float = 0.6, weak_e_prob: float = 0.3,
                  constraint_pool=None, latency_pool=None,
-                 cells_per_edge: int = 1, device="cuda") -> FleetScenario:
-    """Procedural random topologies, as the reference's ``random_fleet``:
-    per-cell weak-link probability p ~ U(0, weak_s_prob_max), Bernoulli(p)
-    weak-node flags, a weak-edge flag, a user count in [n_users_min,
-    n_users_max], a Table-V constraint level and a latency target from
-    ``latency_pool``.  ``cells_per_edge > 1`` co-locates consecutive cells
-    on one edge server (``edge_group = cell // cells_per_edge``)."""
-    dev = resolve_device(device)
+                 cells_per_edge: int = 1) -> FleetScenario:
+    """Procedural random topologies, as the reference's ``random_fleet``
+    from the same (2,) threefry ``key``: per-cell weak-link probability
+    p ~ U(0, weak_s_prob_max), weak-node flags u < p, a weak-edge flag, a
+    user count in [n_users_min, n_users_max], a Table-V constraint level
+    and a latency target from ``latency_pool``.  ``cells_per_edge > 1``
+    co-locates consecutive cells on one edge server (``edge_group = cell
+    // cells_per_edge``).  The scenario lives on the key's device."""
+    dev = key.device
     n_users_max = n_max if n_users_max is None else n_users_max
     if constraint_pool is None:
         constraint_pool = [CONSTRAINTS[c] for c in CONSTRAINT_ORDER]
     if latency_pool is None:
         latency_pool = LATENCY_TARGET_POOL
-    g = torch.Generator().manual_seed(int(seed))
-    p_cell = torch.rand((n_cells, 1), generator=g) * weak_s_prob_max
-    weak_s = torch.rand((n_cells, n_max), generator=g) < p_cell
-    weak_e = torch.rand((n_cells,), generator=g) < weak_e_prob
-    n_users = torch.randint(n_users_min, n_users_max + 1, (n_cells,),
-                            generator=g, dtype=torch.int32)
-    pool = torch.tensor(constraint_pool, dtype=torch.float32)
-    constraint = pool[torch.randint(len(pool), (n_cells,), generator=g)]
-    lat_pool = torch.tensor(latency_pool, dtype=torch.float32)
-    latency = lat_pool[torch.randint(len(lat_pool), (n_cells,), generator=g)]
-    edge_group = (torch.arange(n_cells, dtype=torch.int32)
+    k1, k2, k3, k4, k5, k6 = rnd.split(key, 6)
+    p_cell = rnd.uniform(k1, (n_cells, 1)) * weak_s_prob_max
+    weak_s = rnd.uniform(k2, (n_cells, n_max)) < p_cell
+    weak_e = rnd.uniform(k3, (n_cells,)) < weak_e_prob
+    n_users = rnd.randint(k4, (n_cells,), n_users_min, n_users_max + 1)
+    pool = torch.tensor(constraint_pool, dtype=torch.float32, device=dev)
+    constraint = pool[rnd.randint(k5, (n_cells,), 0, len(pool)).long()]
+    lat_pool = torch.tensor(latency_pool, dtype=torch.float32, device=dev)
+    latency = lat_pool[rnd.randint(k6, (n_cells,), 0, len(lat_pool)).long()]
+    edge_group = (torch.arange(n_cells, dtype=torch.int32, device=dev)
                   // max(1, cells_per_edge))
     return FleetScenario(weak_s, weak_e, n_users, constraint,
-                         latency_target=latency,
-                         edge_group=edge_group).to(dev)
+                         latency_target=latency, edge_group=edge_group)

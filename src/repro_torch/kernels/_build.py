@@ -7,7 +7,8 @@ file that includes no PyTorch header builds in seconds.  Libraries go to
 hash of the source and flags, so a changed source is rebuilt and an
 unchanged one is loaded as it is.  A missing ``nvcc`` raises.  The
 wrappers' shared checks (``check``, ``route``, ``raise_on``) live here
-too.
+too, with the 16-byte alignment helpers of the kernels that copy with
+``cp.async`` or TMA (``row_strides``, ``aligned``).
 """
 from __future__ import annotations
 
@@ -110,3 +111,27 @@ def raise_on(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error "
                            f"{err}")
+
+
+def row_strides(t: torch.Tensor) -> tuple[int, int, int]:
+    """Element strides of the (batch, seq, head) axes of a 4-d operand;
+    an axis of length 1 gets one past the whole tensor (its index is
+    always 0), so it never breaks the 16-byte rule."""
+    unit = 16 // t.element_size()
+    beyond = max(t.stride(i) * t.shape[i] for i in range(4))
+    beyond = -(-beyond // unit) * unit
+    return tuple(t.stride(i) if t.shape[i] > 1 else beyond for i in range(3))
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when it starts on 16 bytes and its ``row_strides`` are
+    multiples of 16 bytes, else a copy in a buffer whose last axis is
+    padded to a multiple of 16 bytes (a view of it, cut back to ``t``'s
+    shape)."""
+    unit = 16 // t.element_size()
+    if t.data_ptr() % 16 == 0 and all(s % unit == 0 for s in row_strides(t)):
+        return t
+    d = t.shape[-1]
+    buf = torch.empty((*t.shape[:-1], -(-d // unit) * unit), dtype=t.dtype,
+                      device=t.device)
+    return buf[..., :d].copy_(t)

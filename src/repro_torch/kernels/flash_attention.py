@@ -55,30 +55,6 @@ def _lib() -> ctypes.CDLL:
     return _build.load("flash_attention", _SIGNATURES)
 
 
-def _strides(t: torch.Tensor) -> tuple[int, int, int]:
-    """Element strides of the (batch, seq, head) axes; an axis of length 1
-    gets one past the whole tensor (its index is always 0), so it never
-    breaks the 16-byte rule."""
-    unit = 16 // t.element_size()
-    beyond = max(t.stride(i) * t.shape[i] for i in range(4))
-    beyond = -(-beyond // unit) * unit
-    return tuple(t.stride(i) if t.shape[i] > 1 else beyond for i in range(3))
-
-
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` itself when it starts on 16 bytes and its strides are
-    multiples of 16 bytes, else a copy in a buffer whose last axis is
-    padded to a multiple of 16 bytes (a view of it, cut back to ``t``'s
-    shape)."""
-    unit = 16 // t.element_size()
-    if t.data_ptr() % 16 == 0 and all(s % unit == 0 for s in _strides(t)):
-        return t
-    d = t.shape[-1]
-    buf = torch.empty((*t.shape[:-1], -(-d // unit) * unit), dtype=t.dtype,
-                      device=t.device)
-    return buf[..., :d].copy_(t)
-
-
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     scale: float | None = None):
     """Fused forward attention.  q: (B, Sq, H, D); k/v: (B, Sk, KV, D|Dv)
@@ -113,9 +89,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     o = torch.empty((b, sq, h, dv), dtype=q.dtype, device=dev)
     if o.numel() == 0:
         return o
-    q, k, v = (_aligned(t) for t in (q, k, v))
+    q, k, v = (_build.aligned(t) for t in (q, k, v))
     strides = (ctypes.c_longlong * 12)(
-        *(s for t in (q, k, v, o) for s in _strides(t)))
+        *(s for t in (q, k, v, o) for s in _build.row_strides(t)))
     err = getattr(_lib(), _FN[q.dtype])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), strides,
         b, h, n_kv, sq, sk, d, dv, float(scale), int(causal), int(window),

@@ -17,6 +17,14 @@ optional initial state (B, H, P, N) float32 (None: zero).  Returns
 y (B, S, H, P) in x's dtype and the final state (B, H, P, N) float32.
 The kernel takes any S and P, N up to 128; its chunk is its own (64
 steps), ``chunk`` is the plain version's.
+
+The kernel runs its products on the tensor cores as 3xTF32 (float32-level
+accuracy) and copies x, b and c into shared memory in 16-byte pieces, so
+each must start on 16 bytes and have batch, sequence and head strides
+that are multiples of 16 bytes; one that does not is first copied into
+an aligned buffer (``_build.aligned``).  The model's x, b and c, slices
+of one float32 convolution output whose width is a multiple of 4, are
+never copied.
 """
 from __future__ import annotations
 
@@ -84,8 +92,10 @@ def ssd(x, dt, a, b, c, d_skip=None, *, chunk: int = 64, init_state=None):
     state = torch.empty((bb, h, p, n), dtype=torch.float32, device=dev)
     if bb * h == 0:
         return y, state
+    x, b, c = (_build.aligned(t) for t in (x, b, c))
     strides = (ctypes.c_longlong * 12)(
-        *(t.stride(i) for t in (x, dt, b, c) for i in (0, 1, 2)))
+        *_build.row_strides(x), *(dt.stride(i) for i in (0, 1, 2)),
+        *_build.row_strides(b), *_build.row_strides(c))
     ptr = lambda t: None if t is None else t.data_ptr()
     err = getattr(_lib(), _FN[x.dtype])(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),

@@ -20,8 +20,6 @@ from __future__ import annotations
 import argparse
 import json
 
-import numpy as np
-
 from repro_torch import random as rnd
 from repro_torch.device import resolve_device
 from repro_torch.fleet.workload import random_fleet
@@ -43,9 +41,11 @@ def serve(*, bundle: str | None = None, greedy: bool = False,
           shared_edge: bool = False, device="cuda",
           verbose: bool = True) -> dict:
     """Serve one run and return its report (raw per-request arrays under
-    ``"records"``).  Seeds: the fleet from ``seed``, the stream from
-    ``numpy.random.default_rng(seed)``, the serving key the third of
-    ``split(PRNGKey(seed), 4)`` (the reference CLI's serving key)."""
+    ``"records"``).  Keys as the reference CLI's: ``k_fleet, k_trace,
+    k_serve, k_guard = split(PRNGKey(seed), 4)`` draw the fleet, the
+    request stream and the serving noise (the guard's greedy fallback
+    draws nothing from ``k_guard``), so a seed serves the reference's
+    fleet and stream."""
     if (bundle is None) == (not greedy):
         raise SystemExit("give exactly one of --bundle or --greedy")
     dev = resolve_device(device)
@@ -68,15 +68,15 @@ def serve(*, bundle: str | None = None, greedy: bool = False,
     if cells_per_edge is None:
         cells_per_edge = int(meta.get("cells_per_edge", 1))
 
-    scenario = random_fleet(seed, cells, n_max=spec.n_max,
-                            cells_per_edge=cells_per_edge, device=dev)
+    k_fleet, k_trace, k_serve, _ = rnd.split(rnd.PRNGKey(seed, dev), 4)
+    scenario = random_fleet(k_fleet, cells, n_max=spec.n_max,
+                            cells_per_edge=cells_per_edge)
     cfg = ServeConfig(n_max=spec.n_max, obs_spec=spec.name,
                       shared_cloud=shared_cloud, shared_edge=shared_edge)
     horizon_ms = rounds * cfg.round_ms
     stream = poisson_request_stream(
-        np.random.default_rng(seed), scenario, horizon_ms, rate=rate,
-        round_ms=cfg.round_ms, epoch_ms=horizon_ms / max(1, epochs))
-    key = rnd.split(rnd.PRNGKey(seed, dev), 4)[2]
+        k_trace, scenario, horizon_ms, rate=rate, round_ms=cfg.round_ms,
+        epoch_ms=horizon_ms / max(1, epochs))
     config = dict(bundle=bundle, greedy=greedy, guard=guard, cells=cells,
                   rate=rate, rounds=rounds, seed=seed, epochs=epochs,
                   cells_per_edge=cells_per_edge, shared_cloud=shared_cloud,
@@ -87,8 +87,8 @@ def serve(*, bundle: str | None = None, greedy: bool = False,
                                     for k, v in sorted(config.items())))
         print(f"serving {stream.n_requests:,} requests to {cells} cells "
               f"over {horizon_ms:.0f} ms")
-    report = serve_stream(policy, params, scenario, stream, cfg, key=key,
-                          verbose=verbose, device=dev)
+    report = serve_stream(policy, params, scenario, stream, cfg,
+                          key=k_serve, verbose=verbose, device=dev)
     report["horizon_ms"] = horizon_ms
     report["config"] = config
     if verbose:

@@ -12,12 +12,16 @@ threefry2x32 implementation under ``jax_threefry_partitionable=True``
     fold_in(key,d) = threefry(key, (0, d))
     bits(key, s)   = y0 ^ y1 where (y0, y1) = threefry(key, (hi(i), lo(i)))
                      for every flat index i of shape s
-    uniform        = bitcast((bits >> 9) | 0x3f800000) - 1.0   (float32)
+    uniform        = max(lo, fma(u, hi - lo, lo)) in float32, where
+                     u = bitcast((bits >> 9) | 0x3f800000) - 1.0
     randint        = lo + ((bits(k1) % span) * mult
                            + bits(k2) % span) % span,  (k1, k2) = split(key),
                      mult = (2**16 % span)**2 % span in wrapping uint32
     gumbel         = -log(-log(max(uniform, tiny)))
     categorical    = argmax(logits + gumbel(key, logits.shape))
+    poisson        = jax's two loops over the whole array from one key:
+                     Knuth (lam < 10, split(key) per step) and Hormann's
+                     transformed rejection (split(key, 3) per step)
 
 ``randint`` is bit-equal; ``gumbel`` draws bit-equal uniforms, and its two
 logarithms are PyTorch's, which round differently from XLA's in the last
@@ -27,8 +31,13 @@ logits tie to within that).
 
 Keys are int64 tensors of shape ``(..., 2)`` holding 32-bit words (every
 intermediate is masked to 32 bits), so leading axes batch independent
-keys without ``vmap``.  ``torch.Generator`` stays the tool for fleet and
-weight generation, where only statistical parity is asked for.
+keys without ``vmap``.  ``poisson`` computes its logarithms and
+``lgamma`` with PyTorch's float32 functions, as the reference does with
+XLA's.  The two ``lgamma``s round apart in the last bits, which flips no
+count at the stream's rates (lam up to 150, held bit-equal by
+``tests/test_torch_random.py``) but flips some near lam 1e4.
+``torch.Generator`` stays the tool for weight generation, where only
+statistical parity is asked for.
 """
 from __future__ import annotations
 
@@ -100,14 +109,23 @@ def uniform_at(keys: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     return bits.to(torch.int32).view(torch.float32) - 1.0
 
 
-def uniform(key: torch.Tensor, shape=()) -> torch.Tensor:
-    """``jax.random.uniform(key, shape)`` (float32, [0, 1)) for (..., 2)
-    keys → (..., *shape)."""
+def uniform(key: torch.Tensor, shape=(), minval=0.0, maxval=1.0
+            ) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, minval=, maxval=)`` (float32,
+    [minval, maxval)) for (..., 2) keys → (..., *shape)."""
     shape = tuple(shape)
     idx = torch.arange(math.prod(shape), dtype=torch.int64,
                        device=key.device)
-    u = uniform_at(key[..., None, :], idx)
-    return u.reshape(key.shape[:-1] + shape)
+    u = uniform_at(key[..., None, :], idx).reshape(key.shape[:-1] + shape)
+    if minval == 0.0 and maxval == 1.0:
+        return u  # u (1 - 0) + 0 is u itself
+    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    # XLA contracts u (hi - lo) + lo into one fused multiply-add; the
+    # product of two float32 values is exact in float64, so the sum
+    # there rounds as the fused form does
+    fused = u.double() * (hi - lo).double() + lo.double()
+    return torch.maximum(lo, fused.float())
 
 
 def bits_at(keys: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
@@ -155,3 +173,61 @@ def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     draw over the last axis (int64 indices)."""
     g = gumbel(key, tuple(logits.shape))
     return torch.argmax(g + logits, dim=-1)
+
+
+def _poisson_knuth(key, lam, shape):
+    """jax's ``_poisson_knuth``: multiply uniforms until their product
+    falls to exp(-lam), every element of ``shape`` stepping together."""
+    k = torch.zeros(shape, dtype=torch.int32, device=key.device)
+    log_prod = torch.zeros(shape, dtype=torch.float32, device=key.device)
+    while bool((log_prod > -lam).any()):
+        key, sub = split(key, 2)
+        k = torch.where(log_prod > -lam, k + 1, k)
+        log_prod = log_prod + torch.log(uniform(sub, shape))
+    return k - 1
+
+
+def _poisson_rejection(key, lam, shape):
+    """jax's ``_poisson_rejection`` (Hormann's transformed rejection).  As
+    there, every step draws for the whole array and overwrites the result
+    of every element that accepts, accepted before or not, until all have
+    accepted: an element's count depends on how many steps the slowest
+    one needs."""
+    log_lam = torch.log(lam)
+    b = 0.931 + 2.53 * torch.sqrt(lam)
+    a = -0.059 + 0.02483 * b
+    inv_alpha = 1.1239 + 1.1328 / (b - 3.4)
+    v_r = 0.9277 - 3.6224 / (b - 2)
+    k_out = torch.full(shape, -1.0, dtype=torch.float32, device=key.device)
+    accepted = torch.zeros(shape, dtype=torch.bool, device=key.device)
+    while not bool(accepted.all()):
+        key, k0, k1 = split(key, 3)
+        u = uniform(k0, shape) - 0.5
+        v = uniform(k1, shape)
+        u_shifted = 0.5 - torch.abs(u)
+        k = torch.floor((2 * a / u_shifted + b) * u + lam + 0.43)
+        s = torch.log(v * inv_alpha / (a / (u_shifted * u_shifted) + b))
+        t = -lam + k * log_lam - torch.lgamma(k + 1)
+        accept1 = (u_shifted >= 0.07) & (v <= v_r)
+        reject = (k < 0) | ((u_shifted < 0.013) & (v > u_shifted))
+        accept = accept1 | (~reject & (s <= t))
+        k_out = torch.where(accept, k, k_out)
+        accepted |= accept
+    return k_out.to(torch.int32)
+
+
+def poisson(key: torch.Tensor, lam, shape=None) -> torch.Tensor:
+    """``jax.random.poisson(key, lam, shape)`` (int32) for one (2,) key:
+    ``lam`` (broadcast to ``shape``) is cast to float32; elements with
+    lam < 10 (or NaN) take Knuth's count and the others the rejection
+    sampler's, both run over the whole array from ``key``; lam = 0 gives
+    0."""
+    lam = torch.as_tensor(lam, device=key.device)
+    shape = tuple(lam.shape) if shape is None else tuple(shape)
+    lam = torch.broadcast_to(lam, shape).to(torch.float32)
+    use_knuth = torch.isnan(lam) | (lam < 10)
+    knuth = _poisson_knuth(key, torch.where(use_knuth, lam, 0.0), shape)
+    rejection = _poisson_rejection(
+        key, torch.where(use_knuth, 1e5, lam), shape)
+    out = torch.where(use_knuth, knuth, rejection)
+    return torch.where(lam == 0, 0, out)

@@ -16,6 +16,7 @@ import torch
 
 from repro.kernels.flash_attention import flash_attention_pallas
 from repro.models import attention as jattn
+from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models import attention as attn
 
@@ -160,11 +161,11 @@ def test_wrapper_hands_the_kernel_aligned_operands(dtype, d):
     q = torch.as_tensor(_inputs(9, 2, 5, 5, 3, 1, d)[0]).to(dtype)
     for t in (q, q.transpose(1, 2).contiguous().transpose(1, 2),
               torch.nn.functional.pad(q, (2, 6))[..., 2:2 + d], q[:, :1]):
-        a = fa._aligned(t)
+        a = _build.aligned(t)
         assert torch.equal(a, t)
         assert a.data_ptr() % 16 == 0
-        assert all(s % unit == 0 for s in fa._strides(a))
+        assert all(s % unit == 0 for s in _build.row_strides(a))
         aligned = t.data_ptr() % 16 == 0 and all(
             t.stride(i) % unit == 0 for i in range(3) if t.shape[i] > 1)
         assert (a is t) == aligned
-    assert fa._strides(q[:, :1])[1] >= q[:, :1].numel()
+    assert _build.row_strides(q[:, :1])[1] >= q[:, :1].numel()

@@ -2,6 +2,8 @@
 
 * ``response_times`` against the numpy ``repro.env.latency_model`` in
   float64 at 1e-5 (and in float32, the serving dtype, at 1e-6 relative).
+* ``random_fleet`` bit-equal to the reference's from the same key, at
+  7, 1,000 and 65,536 cells.
 * ``observe`` / ``step`` against ``repro.fleet.env.make_fleet_env`` for
   every ported spec variant, with and without the shared-cloud /
   shared-edge couplings, with background noise on: the same scenario,
@@ -18,6 +20,7 @@ from repro.fleet.env import FleetConfig as RefFleetConfig
 from repro.fleet.env import make_fleet_env as ref_make_fleet_env
 from repro.fleet.workload import random_fleet as ref_random_fleet
 from repro_torch import convert
+from repro_torch import random as rnd
 from repro_torch.fleet import latency
 from repro_torch.fleet.env import FleetConfig, make_fleet_env
 from repro_torch.fleet.workload import random_fleet
@@ -88,13 +91,31 @@ def test_action_accuracy_matches_reference():
 
 
 def test_random_fleet_shapes_and_ranges():
-    scn = random_fleet(3, 64, n_max=5, cells_per_edge=4, device="cpu")
+    key = rnd.PRNGKey(3, CPU)
+    scn = random_fleet(key, 64, n_max=5, cells_per_edge=4)
     assert scn.weak_s.shape == (64, 5) and scn.weak_s.dtype == torch.bool
     assert scn.n_users.dtype == torch.int32
     assert int(scn.n_users.min()) >= 2 and int(scn.n_users.max()) <= 5
     assert (scn.edge_group == torch.arange(64) // 4).all()
-    again = random_fleet(3, 64, n_max=5, cells_per_edge=4, device="cpu")
+    assert scn.device == CPU
+    again = random_fleet(key, 64, n_max=5, cells_per_edge=4)
     assert all((a == b).all() for a, b in zip(scn, again))
+
+
+@pytest.mark.parametrize("cells", [7, 1000, 65_536])
+def test_random_fleet_matches_reference(cells):
+    """Every field bit-equal to the reference's fleet from the same key."""
+    for seed in (0, 3):
+        k = jax.random.split(jax.random.PRNGKey(seed), 4)[0]
+        want = ref_random_fleet(k, cells, n_max=5, cells_per_edge=4)
+        got = random_fleet(convert.key_from_data(np.asarray(k), CPU), cells,
+                           n_max=5, cells_per_edge=4)
+        for name in got._fields:
+            g, w = getattr(got, name).numpy(), np.asarray(getattr(want, name))
+            assert g.dtype == w.dtype, name
+            np.testing.assert_array_equal(
+                g.view(np.uint32) if g.dtype == np.float32 else g,
+                w.view(np.uint32) if w.dtype == np.float32 else w, name)
 
 
 # ------------------------------------------------------------ env parity
@@ -150,7 +171,7 @@ def test_env_matches_reference(spec, shared_cloud, shared_edge):
 def test_rollout_matches_stepping():
     cfg = FleetConfig(n_max=4, obs_spec="full", shared_edge=True)
     env = make_fleet_env(cfg)
-    scn = random_fleet(1, 8, n_max=4, cells_per_edge=2, device="cpu")
+    scn = random_fleet(rnd.PRNGKey(1, CPU), 8, n_max=4, cells_per_edge=2)
     st0 = env.init(torch.tensor([0, 3]), scn)
     acts = torch.randint(0, 10, (5, 8), generator=torch.Generator()
                          .manual_seed(0), dtype=torch.int32)

@@ -284,11 +284,17 @@ def ssd_recurrence(x, dt, a, bm, cm, d, init_state=None):
 
 
 # (b, s, h, p, g, n): the JAX test's shapes, ragged S, G = 2, P != N, the
-# zamba2 smoke width, the largest tile
+# zamba2 smoke width, the largest tile; then the tensor-core kernel's
+# edges: S under one chunk and off a multiple of 64, P and N of 16, 48,
+# 64 and 128 (48 fills two P slices unevenly and pads N's tile), G = 2
+# with H = 8
 SSD_CASES = [
     (1, 64, 2, 8, 1, 8), (2, 96, 4, 16, 2, 8), (1, 100, 2, 8, 1, 8),
     (2, 200, 4, 32, 1, 16), (1, 130, 4, 64, 2, 32), (1, 70, 2, 128, 1, 128),
     (2, 1, 2, 16, 1, 16),
+    (1, 40, 2, 16, 1, 48), (2, 190, 2, 48, 1, 16), (1, 129, 2, 48, 1, 128),
+    (1, 100, 2, 128, 1, 64), (1, 257, 4, 64, 1, 48), (2, 130, 8, 32, 2, 64),
+    (1, 63, 8, 16, 2, 128),
 ]
 
 
@@ -341,16 +347,23 @@ def test_ssd_kernel_initial_state_strides_and_decay(cuda):
 
 @pytest.mark.gpu
 def test_ssd_kernel_zamba2_width_and_bf16(cuda):
-    """zamba2-1.2b's head shape at B = 1 against the plain version on the
-    card (chunk 256, the config's), evaluated in float64 on the same
-    inputs: at S = 2048 the float32 plain version's own rounding comes
-    near the bar; bf16 against float32 inputs."""
-    args = tuple(t.to(cuda) for t in _ssd_inputs(8, 1, 2048, 64, 64, 1,
-                                                  64))
-    want_y, want_s = sk.ssd_plain(*(t.double() for t in args), chunk=256)
-    got_y, got_s = sk.ssd(*args, chunk=256)
-    torch.testing.assert_close(got_y.double(), want_y, atol=3e-4, rtol=1e-3)
-    torch.testing.assert_close(got_s.double(), want_s, atol=3e-4, rtol=1e-3)
+    """zamba2-1.2b's head shape at B = 1 (P split in slices of 16: 64
+    heads in slices of 32 would not fill the card) and B = 4 (slices of
+    32) against the plain version on the card (chunk 256, the config's),
+    evaluated in float64 on the same inputs: at S = 2048 the float32
+    plain version's own rounding comes near the bar; bf16 against
+    float32 inputs."""
+    for seed, b in ((8, 1), (10, 4)):
+        args = tuple(t.to(cuda) for t in _ssd_inputs(seed, b, 2048, 64, 64,
+                                                      1, 64))
+        want_y, want_s = sk.ssd_plain(*(t.double() for t in args),
+                                      chunk=256)
+        got_y, got_s = sk.ssd(*args, chunk=256)
+        torch.testing.assert_close(got_y.double(), want_y, atol=3e-4,
+                                   rtol=1e-3)
+        torch.testing.assert_close(got_s.double(), want_s, atol=3e-4,
+                                   rtol=1e-3)
+        del args, want_y, want_s, got_y, got_s
     x, dt, a, bm, cm, d = _ssd_inputs(9, 1, 96, 2, 64, 1, 64)
     xb, dtb, bb, cb = (t.to(torch.bfloat16) for t in (x, dt, bm, cm))
     want, _ = ssd_recurrence(xb.float(), dtb.float(), a, bb.float(),
@@ -359,3 +372,70 @@ def test_ssd_kernel_zamba2_width_and_bf16(cuda):
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().cpu().numpy(), want.numpy(),
                                atol=5e-2, rtol=5e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,p,g,n", [
+    (1, 40, 2, 16, 1, 48), (2, 190, 2, 48, 1, 16), (1, 130, 8, 64, 2, 64),
+    (1, 100, 2, 128, 1, 128)])
+def test_ssd_kernel_bf16_edges(cuda, b, s, h, p, g, n):
+    """bf16 operands across the kernel's edges, against the float32
+    recurrence on the same bf16 values: y rounds to bf16 (within 3e-2 and
+    1e-2 of each output row's norm), the state stays float32 (3e-4,
+    1e-3)."""
+    x, dt, a, bm, cm, d = _ssd_inputs(s + n, b, s, h, p, g, n)
+    xb, dtb, bb, cb = (t.to(torch.bfloat16) for t in (x, dt, bm, cm))
+    want_y, want_s = ssd_recurrence(xb.float(), dtb.float(), a, bb.float(),
+                                    cb.float(), d)
+    got_y, got_s = sk.ssd(*(t.to(cuda) for t in (xb, dtb, a, bb, cb, d)))
+    assert got_y.dtype == torch.bfloat16 and got_s.dtype == torch.float32
+    got_y = got_y.float().cpu()
+    np.testing.assert_allclose(got_y.numpy(), want_y.numpy(), atol=3e-2,
+                               rtol=3e-2)
+    rows = ((got_y - want_y).norm(dim=-1)
+            / want_y.norm(dim=-1).clamp_min(1e-30))
+    assert float(rows.max()) <= 1e-2
+    np.testing.assert_allclose(got_s.cpu().numpy(), want_s.numpy(),
+                               atol=3e-4, rtol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_conv_slices_and_copied_views(cuda, dtype):
+    """x, B and C as the model hands them over at zamba2's layout (slices
+    of one conv output whose width is d_inner + 2 G N) reach the kernel
+    without a copy; views that start off 16 bytes, or whose rows are not
+    multiples of 16 bytes, are copied by the wrapper first; both give the
+    plain version's result."""
+    from repro_torch.kernels import _build
+    b, s, h, p, g, n = 2, 150, 4, 64, 1, 64
+    x, dt, a, bm, cm, d = _ssd_inputs(11, b, s, h, p, g, n)
+    conv = torch.cat([x.reshape(b, s, h * p), bm.reshape(b, s, g * n),
+                      cm.reshape(b, s, g * n)], dim=-1).to(cuda, dtype)
+    xs = conv[..., :h * p].reshape(b, s, h, p)
+    bs = conv[..., h * p:h * p + g * n].reshape(b, s, g, n)
+    cs = conv[..., h * p + g * n:].reshape(b, s, g, n)
+    assert all(_build.aligned(t) is t for t in (xs, bs, cs))
+    dtc = dt.to(cuda, dtype)
+    want_y, want_s = sk.ssd_plain(*(t.double() for t in (
+        xs, dtc, a.to(cuda), bs, cs, d.to(cuda))), chunk=32)
+    tol = ((3e-4, 1e-3) if dtype == torch.float32 else (3e-2, 3e-2))
+    got_y, got_s = sk.ssd(xs, dtc, a.to(cuda), bs, cs, d.to(cuda))
+    torch.testing.assert_close(got_y.double(), want_y, atol=tol[0],
+                               rtol=tol[1])
+    torch.testing.assert_close(got_s.double(), want_s, atol=3e-4, rtol=1e-3)
+    # one element off 16 bytes, and rows of 63 columns
+    off = torch.zeros((b, s, h * p + 1), dtype=dtype, device=cuda)
+    xo = off[..., 1:].reshape(b, s, h, p).copy_(xs)
+    assert _build.aligned(xo) is not xo
+    got_y, got_s = sk.ssd(xo, dtc, a.to(cuda), bs, cs, d.to(cuda))
+    torch.testing.assert_close(got_y.double(), want_y, atol=tol[0],
+                               rtol=tol[1])
+    narrow = conv[..., :h * 63].reshape(b, s, h, 63)
+    assert _build.aligned(narrow) is not narrow
+    want_y, want_s = sk.ssd_plain(*(t.double() for t in (
+        narrow, dtc, a.to(cuda), bs, cs, d.to(cuda))), chunk=32)
+    got_y, got_s = sk.ssd(narrow, dtc, a.to(cuda), bs, cs, d.to(cuda))
+    torch.testing.assert_close(got_y.double(), want_y, atol=tol[0],
+                               rtol=tol[1])
+    torch.testing.assert_close(got_s.double(), want_s, atol=3e-4, rtol=1e-3)

@@ -191,6 +191,27 @@ def test_mamba2_forward_hands_strided_views_and_d_to_the_scan(monkeypatch):
     assert seen["d"] is tp["D"]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d_inner,gn,heads", [(4096, 64, 64), (256, 16, 8)])
+def test_scan_operands_of_the_model_need_no_copy(dtype, d_inner, gn, heads):
+    """The kernel copies x, B and C in 16-byte pieces: at zamba2-1.2b's
+    and the smoke config's conv layout the model's slices already start
+    on 16 bytes with strides of whole 16-byte pieces, so the wrapper
+    hands them over as they are; a view one element off is copied into an
+    aligned buffer with the same values."""
+    from repro_torch.kernels import _build
+    conv = torch.zeros((2, 5, d_inner + 2 * gn), dtype=dtype)
+    xs = conv[..., :d_inner].reshape(2, 5, heads, d_inner // heads)
+    bs = conv[..., d_inner:d_inner + gn].reshape(2, 5, 1, gn)
+    cs = conv[..., d_inner + gn:].reshape(2, 5, 1, gn)
+    assert all(_build.aligned(t) is t for t in (xs, bs, cs))
+    off = torch.randn((2, 5, d_inner + 1)).to(dtype)[..., 1:]
+    xo = off.reshape(2, 5, heads, d_inner // heads)
+    copied = _build.aligned(xo)
+    assert copied is not xo and torch.equal(copied, xo)
+    assert copied.data_ptr() % 16 == 0
+
+
 def test_mamba2_decode_matches():
     jmc, mc, jp, tp = _mixer(9)
     rng = np.random.default_rng(10)

@@ -4,7 +4,10 @@
 shapes () and (n_max,) (``repro/fleet/env.py`` ``sample_background``);
 ``randint`` at ``make_batch``'s shapes; and ``gumbel`` / ``categorical``
 at ``generate``'s (the Gumbel draws' uniforms bit-equal, their values to
-a few float32 ulps, since PyTorch's and XLA's ``log`` round apart)."""
+a few float32 ulps, since PyTorch's and XLA's ``log`` round apart);
+``uniform`` with ``minval`` / ``maxval`` and ``poisson`` on both of its
+branches (Knuth below lam 10, rejection from 10) bit-equal, at the
+stream's shapes up to 65,536 cells."""
 import jax
 import numpy as np
 import pytest
@@ -120,3 +123,48 @@ def test_gumbel_and_categorical_match(shape):
         np.testing.assert_array_equal(
             rnd.categorical(_port_key(k), torch.as_tensor(logits)).numpy(),
             np.asarray(jax.random.categorical(k, logits, axis=-1)))
+
+
+@pytest.mark.parametrize("lo,hi", [(0.0, 1000.0), (0.0, 250.0),
+                                   (-3.0, 2.5), (5.0, 7.0), (-1e3, -2.0)])
+def test_uniform_range_matches(lo, hi):
+    for seed in (0, 3):
+        k = jax.random.PRNGKey(seed)
+        np.testing.assert_array_equal(
+            _bits(rnd.uniform(_port_key(k), (20_000,), lo, hi).numpy()),
+            _bits(jax.random.uniform(k, (20_000,), minval=lo, maxval=hi)))
+
+
+@pytest.mark.parametrize("lam", [0, 0.5, 3, 9.99, 10, 12, 40, 150])
+def test_poisson_matches(lam):
+    for seed in (0, 1, 2):
+        k = jax.random.split(jax.random.PRNGKey(seed))[0]
+        got = rnd.poisson(_port_key(k), lam, (4096,)).numpy()
+        want = np.asarray(jax.random.poisson(k, lam, (4096,)))
+        assert got.dtype == want.dtype == np.int32
+        np.testing.assert_array_equal(got, want)
+
+
+def test_poisson_mixes_branches_per_cell():
+    """A per-cell rate array across both branches (and lam = 0): each
+    element takes its branch's count, and every count depends on the
+    whole array's loop."""
+    lam = np.random.default_rng(3).uniform(0.0, 30.0, 2000).astype(
+        np.float32)
+    lam[:50] = 0.0
+    lam[50:100] = 10.0
+    for seed in (4, 5):
+        k = jax.random.PRNGKey(seed)
+        np.testing.assert_array_equal(
+            rnd.poisson(_port_key(k), torch.as_tensor(lam)).numpy(),
+            np.asarray(jax.random.poisson(k, lam)))
+
+
+def test_poisson_at_the_deployment_size():
+    """65,536 cells at 3 arrivals per round over 4 rounds: the fleet
+    deployment's counts."""
+    k = jax.random.split(jax.random.PRNGKey(0))[0]
+    mean = np.full(65_536, 12.0)
+    np.testing.assert_array_equal(
+        rnd.poisson(_port_key(k), torch.as_tensor(mean), (65_536,)).numpy(),
+        np.asarray(jax.random.poisson(k, mean, (65_536,))))

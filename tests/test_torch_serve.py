@@ -5,7 +5,9 @@ Same scenario, stream and key through ``repro.serve.serve_stream`` and
 noise on, for the greedy baseline and a guarded DQN, uncoupled and under
 each coupling: ``dropped``, ``served``, ``violated`` and ``action`` are
 identical, ``wait_ms`` / ``service_ms`` / ``art_ms`` and every report
-figure agree to 1e-5 (absolute, relative above 1).
+figure agree to 1e-5 (absolute, relative above 1).  The Poisson request
+stream is bit-equal to the reference's from the same key, and the serving
+CLI's seed gives the reference CLI's fleet, stream and serving key.
 """
 import jax
 import numpy as np
@@ -23,6 +25,7 @@ from repro.serve.engine import _tick_buckets as ref_tick_buckets
 from repro.serve.stream import RequestStream as RefRequestStream
 from repro.specs.observation import make_spec as ref_make_spec
 from repro_torch import convert
+from repro_torch import random as rnd
 from repro_torch.launch import serve_fleet
 from repro_torch.fleet.workload import random_fleet
 from repro_torch.policy import adapters
@@ -191,8 +194,9 @@ def test_cli_serves_greedy_and_a_guarded_bundle(tmp_path, capsys):
 def test_on_epoch_runs_at_every_epoch_boundary():
     """The hot-swap hook runs once per epoch, and handing back the same
     params changes no outcome (the epoch split is not a serving knob)."""
-    scn = random_fleet(0, 8, n_max=N_MAX, device=CPU)
-    stream = poisson_request_stream(1, scn, 1000.0, epoch_ms=250.0)
+    scn = random_fleet(rnd.PRNGKey(0, CPU), 8, n_max=N_MAX)
+    stream = poisson_request_stream(rnd.PRNGKey(1, CPU), scn, 1000.0,
+                                    epoch_ms=250.0)
     pol = adapters.heuristic_greedy_policy(make_spec(SPEC, N_MAX))
     cfg = ServeConfig(n_max=N_MAX, obs_spec=SPEC)
     seen = []
@@ -204,3 +208,63 @@ def test_on_epoch_runs_at_every_epoch_boundary():
     for k in EXACT + CLOSE:
         np.testing.assert_array_equal(rep["records"][k],
                                       plain["records"][k], k)
+
+
+@pytest.mark.parametrize("cells,rate,rounds,per_cell", [
+    (7, 3.0, 4, False), (300, 3.0, 50, False), (65_536, 3.0, 4, False),
+    (200, 2.0, 6, True)])
+def test_poisson_request_stream_matches_reference(cells, rate, rounds,
+                                                  per_cell):
+    """t, cell and slo bit-equal to the reference's stream from the same
+    key: Poisson counts on both branches (lam 12 and 150 a cell, and a
+    per-cell rate array that straddles 10), float32 uniform times."""
+    key = jax.random.split(jax.random.PRNGKey(cells), 4)[1]
+    scn = ref_random_fleet(jax.random.PRNGKey(2), cells, n_max=N_MAX)
+    if per_cell:
+        rate = np.random.default_rng(1).uniform(0.0, 4.0, cells)
+    horizon = rounds * 250.0
+    kw = dict(rate=rate, round_ms=250.0, epoch_ms=horizon / 2)
+    want = ref_poisson_stream(key, scn, horizon, **kw)
+    got = poisson_request_stream(convert.key_from_data(np.asarray(key), CPU),
+                                 convert.fleet_scenario(scn, CPU), horizon,
+                                 **kw)
+    assert got.n_requests == want.n_requests > 0
+    for name in ("t_ms", "cell", "slo_ms"):
+        g, w = getattr(got, name), getattr(want, name)
+        assert g.dtype == w.dtype, name
+        np.testing.assert_array_equal(g.view(np.uint32), w.view(np.uint32),
+                                      name)
+    assert (got.horizon_ms, got.epoch_ms, got.n_cells) == (
+        want.horizon_ms, want.epoch_ms, want.n_cells)
+
+
+@pytest.mark.parametrize("seed,cells_per_edge,shared", [
+    (0, 1, False), (7, 4, True)])
+def test_cli_serves_the_reference_cli_draws(seed, cells_per_edge, shared):
+    """``serve(greedy=True, seed=s)`` serves the records that the
+    reference's ``serve_stream`` serves on its CLI's draws: ``k_fleet,
+    k_trace, k_serve, k_guard = split(PRNGKey(s), 4)``, the fleet from
+    ``k_fleet``, the stream from ``k_trace``, the serving noise from
+    ``k_serve``."""
+    cells, rounds, epochs, rate = 16, 4, 2, 3.0
+    cfg_kw = dict(n_max=N_MAX, obs_spec=SPEC, shared_cloud=shared,
+                  shared_edge=shared)
+    k_fleet, k_trace, k_serve, _ = jax.random.split(jax.random.PRNGKey(seed),
+                                                    4)
+    scn = ref_random_fleet(k_fleet, cells, n_max=N_MAX,
+                           cells_per_edge=cells_per_edge)
+    ref_cfg = RefServeConfig(**cfg_kw)
+    horizon = rounds * ref_cfg.round_ms
+    stream = ref_poisson_stream(k_trace, scn, horizon, rate=rate,
+                                round_ms=ref_cfg.round_ms,
+                                epoch_ms=horizon / epochs)
+    ref_pol = ref_adapters.heuristic_greedy_policy(ref_make_spec(SPEC, N_MAX))
+    ref = ref_serve_stream(ref_pol, ref_pol.init(None), scn, stream, ref_cfg,
+                           key=k_serve)
+    rep = serve_fleet.serve(greedy=True, seed=seed, cells=cells, rate=rate,
+                            rounds=rounds, epochs=epochs,
+                            cells_per_edge=cells_per_edge,
+                            shared_cloud=shared, shared_edge=shared,
+                            device="cpu", verbose=False)
+    _assert_reports_match(rep, ref)
+    assert rep["served_requests"] > 0
