@@ -14,8 +14,9 @@ alone: on CUDA tensors it launches the hand-written kernel of
 ``csrc/orchestration.cu`` (and raises if the launch fails); on CPU tensors
 it runs the plain PyTorch version beside it.  The plain versions are the
 CPU path and the reference ``chip_smoke.py`` holds the kernels against;
-nothing on the CUDA path calls them.  Each kernel launch adds one to its
-count in :data:`LAUNCHES`.
+nothing on the CUDA path calls them.  Each wrapper call that launches
+adds one to its count in :data:`LAUNCHES` (a ``queue_admit`` call is a
+memset and three kernels).
 """
 from __future__ import annotations
 
@@ -26,6 +27,8 @@ import torch
 from repro_torch.kernels import _build
 
 LAUNCHES = {"queue_admit": 0, "group_occupancy": 0}
+# lanes per CTA of the queue_admit kernels (kAdmitTile in the source)
+ADMIT_TILE = 1024
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -72,11 +75,14 @@ def queue_admit(q_ids, q_head, q_len, rid, cell, valid):
     if _build.route(dev) == "cpu":
         return queue_admit_plain(q_ids, q_head, q_len, rid, cell, valid)
     admitted = torch.empty((a,), dtype=torch.bool, device=dev)
-    seen = torch.empty((c,), dtype=torch.int32, device=dev)
+    # each tile's per-cell counts (zeroed by the kernel's stream) and the
+    # lanes' in-tile ranks
+    scratch = torch.empty((-(-a // ADMIT_TILE) * c + a,), dtype=torch.int32,
+                          device=dev)
     err = _lib().queue_admit(
         q_ids.data_ptr(), q_head.data_ptr(), q_len.data_ptr(),
         rid.data_ptr(), cell.data_ptr(), valid.data_ptr(),
-        admitted.data_ptr(), seen.data_ptr(), c, q, a, dev.index,
+        admitted.data_ptr(), scratch.data_ptr(), c, q, a, dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.raise_on(err, "queue_admit")
     LAUNCHES["queue_admit"] += 1

@@ -54,7 +54,9 @@ def wkv6_chunked(r, k, v, lw, u, init_state=None, *, chunk: int = 64,
                  tile: int = 32):
     """Chunked parallel WKV; same signature and semantics as
     ``wkv6_recurrent``.  S is end-padded to a chunk multiple (zero
-    r/k/v and zero log-decay contribute nothing)."""
+    r/k/v and zero log-decay contribute nothing).  Computes in float32,
+    or in float64 when r is float64 (a yardstick for the kernel at long
+    S, where the float32 form's own rounding nears the kernel's bar)."""
     b, s, h, n = r.shape
     q = min(chunk, s)
     if s % q:
@@ -67,19 +69,19 @@ def wkv6_chunked(r, k, v, lw, u, init_state=None, *, chunk: int = 64,
     tau = min(tile, q)
     if q % tau:
         raise ValueError(f"chunk {q} must be a multiple of tile {tau}")
-    f32 = torch.float32
+    ft = torch.float64 if r.dtype == torch.float64 else torch.float32
     dev = r.device
 
-    rc, kc, vc, lwc = (a.float().reshape(b, nc, q, h, n)
+    rc, kc, vc, lwc = (a.to(ft).reshape(b, nc, q, h, n)
                        for a in (r, k, v, lw))
     cw = torch.cumsum(lwc, dim=2)  # inclusive within the chunk
     ecw = cw - lwc  # exclusive
-    uf = u.float()
-    state = (torch.zeros((b, h, n, n), dtype=f32, device=dev)
-             if init_state is None else init_state.float())
+    uf = u.to(ft)
+    state = (torch.zeros((b, h, n, n), dtype=ft, device=dev)
+             if init_state is None else init_state.to(ft))
     strictly_lower = torch.tril(torch.ones((tau, tau), dtype=torch.bool,
                                            device=dev), diagonal=-1)
-    eye = torch.eye(tau, dtype=f32, device=dev)
+    eye = torch.eye(tau, dtype=ft, device=dev)
 
     ys = []
     for c in range(nc):
@@ -100,11 +102,11 @@ def wkv6_chunked(r, k, v, lw, u, init_state=None, *, chunk: int = 64,
             dec = (ecwq[:, t0:t0 + tau][:, :, None]
                    - cwq[:, t0:t0 + tau][:, None, :])  # (b, t, s, h, n)
             dec = torch.where(strictly_lower[None, :, :, None, None], dec,
-                              torch.zeros((), dtype=f32, device=dev))
+                              torch.zeros((), dtype=ft, device=dev))
             a_diag = torch.einsum("bthn,btshn->bhts", rt,
                                   kt[:, None] * torch.exp(dec))
             a_diag = torch.where(strictly_lower[None, None], a_diag,
-                                 torch.zeros((), dtype=f32, device=dev))
+                                 torch.zeros((), dtype=ft, device=dev))
             bonus = torch.einsum("bthn,hn,bthn->bht", rt, uf, kt)
             a_diag = a_diag + bonus[..., None] * eye
             y[:, t0:t0 + tau] += torch.einsum("bhts,bshj->bthj", a_diag, vt)

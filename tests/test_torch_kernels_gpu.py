@@ -85,6 +85,38 @@ def test_queue_admit_kernel_matches_plain(cuda, seed, c, q, a, order, fill):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("order", ["random", "one_cell", "interleaved",
+                                   "reversed"])
+@pytest.mark.parametrize("fill", ["random", "near_full"])
+@pytest.mark.parametrize("a", [39519, 131072])
+def test_queue_admit_kernel_deployment_bursts(cuda, a, order, fill):
+    """The deployment's ring (C 65,536, Q 64) under a burst of its busiest
+    tick's size and one of 131,072 lanes (39 and 128 tiles), in every lane
+    order."""
+    case = admit_case(a, 65536, 64, a, order, fill)
+    want = [x.numpy() for x in _plain(case)]
+    got = orch.queue_admit(*(torch.as_tensor(x.copy(), device=cuda)
+                             for x in case))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w)
+
+
+@pytest.mark.gpu
+def test_queue_admit_kernel_repeats_bit_identical(cuda):
+    """Ten launches on the same inputs give the same rings, lengths and
+    admissions."""
+    case = admit_case(4, 65536, 64, 39519, "random", "near_full")
+    outs = []
+    for _ in range(10):
+        got = orch.queue_admit(*(torch.as_tensor(x.copy(), device=cuda)
+                                 for x in case))
+        outs.append([g.cpu() for g in got])
+    for other in outs[1:]:
+        assert all(torch.equal(x, y) for x, y in zip(outs[0], other))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("c,n_groups", [(1, 1), (129, 7), (65536, 16384)])
 def test_group_occupancy_kernel_matches_plain(cuda, c, n_groups):
     g = torch.Generator().manual_seed(c)
@@ -242,6 +274,78 @@ def test_wkv6_kernel_matches_plain(cuda, b, s, h, n, decay_scale):
     for got, want in ((got_o, want_o), (got_s, want_s), (got_o, plain_o)):
         np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
                                    atol=5e-4, rtol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h", [(4, 2048, 32), (4, 2000, 32),
+                                   (1, 2048, 1)])
+def test_wkv6_kernel_serving_lengths(cuda, b, s, h):
+    """rwkv6-1.6b's prefill (B 4, H 32, N 64) at S 2048 and a ragged 2000,
+    and one (batch, head) at S 2048 (the smallest chunks), against the
+    recurrence and the plain version on the card."""
+    args = tuple(t.to(cuda) for t in _wkv_inputs(s, b, s, h, 64))
+    want_o, want_s = wkv6_recurrent(*args)
+    plain_o, _ = wk.wkv6_plain(*args)
+    got_o, got_s = wk.wkv6(*args)
+    assert bool(torch.isfinite(got_o).all())
+    for got, want in ((got_o, want_o), (got_s, want_s), (got_o, plain_o)):
+        torch.testing.assert_close(got, want, atol=5e-4, rtol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("steps", [1, 15, 16, 17, 100, 128, 256])
+def test_wkv6_kernel_chunk_lengths(cuda, steps):
+    """Every chunk length the launcher takes: one step per CTA, ragged
+    staging, a chunk longer than S."""
+    r, k, v, lw, u = (t.to(cuda) for t in _wkv_inputs(steps, 2, 200, 3, 32))
+    want_o, want_s = wkv6_recurrent(r, k, v, lw, u)
+    got_o, got_s = wk._launch(r, k, v, lw, u, steps)
+    torch.testing.assert_close(got_o, want_o, atol=5e-4, rtol=1e-3)
+    torch.testing.assert_close(got_s, want_s, atol=5e-4, rtol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_kernel_unaligned_views(cuda, dtype):
+    """Contiguous views that start off 16 bytes (the kernel copies rows in
+    16- or 8-byte pieces): the wrapper copies them first."""
+    args = _wkv_inputs(6, 2, 77, 3, 32)
+    want_o, want_s = wkv6_recurrent(*(
+        t.to(dtype).float() if i < 3 else t for i, t in enumerate(args)))
+    moved = []
+    for i, t in enumerate(args):
+        t = t.to(cuda, dtype if i < 3 else torch.float32)
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        moved.append(buf[1:].view(t.shape).copy_(t))
+    assert all(t.data_ptr() % 16 for t in moved)
+    got_o, got_s = wk.wkv6(*moved)
+    tol = (5e-4, 1e-3) if dtype == torch.float32 else (5e-2, 5e-2)
+    torch.testing.assert_close(got_o.float(), want_o.to(cuda), atol=tol[0],
+                               rtol=tol[1])
+    torch.testing.assert_close(got_s, want_s.to(cuda), atol=5e-4, rtol=1e-3)
+
+
+@pytest.mark.gpu
+def test_wkv6_kernel_repeats_bit_identical(cuda):
+    args = tuple(t.to(cuda) for t in _wkv_inputs(5, 4, 512, 32, 64))
+    first = wk.wkv6(*args)
+    for _ in range(9):
+        again = wk.wkv6(*args)
+        assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
+@pytest.mark.gpu
+def test_wkv6_kernel_bf16_serving_shape(cuda):
+    """bf16 r, k, v at rwkv6-1.6b's prefill shape against the float32
+    recurrence on the same bf16 values."""
+    r, k, v, lw, u = (t.to(cuda) for t in _wkv_inputs(12, 4, 2048, 32, 64))
+    rb, kb, vb = (t.to(torch.bfloat16) for t in (r, k, v))
+    want_o, want_s = wkv6_recurrent(rb.float(), kb.float(), vb.float(), lw,
+                                    u)
+    got_o, got_s = wk.wkv6(rb, kb, vb, lw, u)
+    assert got_o.dtype == torch.bfloat16
+    torch.testing.assert_close(got_o.float(), want_o, atol=5e-2, rtol=5e-2)
+    torch.testing.assert_close(got_s, want_s, atol=5e-4, rtol=1e-3)
 
 
 @pytest.mark.gpu

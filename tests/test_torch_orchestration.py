@@ -7,6 +7,11 @@ kernel's 128-wide blocks.  ``group_occupancy_plain`` must equal
 ``group_occupancy_lax`` exactly on integer counts.  On CPU tensors the
 wrappers take these plain versions; ``test_torch_kernels_gpu.py`` holds
 the CUDA kernels to them on the card.
+
+``emulate_admit`` is the multi-block CUDA ``queue_admit``'s design in
+numpy (in-tile ranks and per-tile cell counts, a walk over the tiles per
+cell, then one pass per lane), held to ``queue_admit_lax`` bit for bit on
+bursts of more than three tiles in every lane order.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -84,6 +89,57 @@ def test_queue_admit_checks_its_inputs():
         orch.queue_admit(case[0].t().contiguous().t(), *case[1:])
     with pytest.raises(ValueError, match="shape"):
         orch.queue_admit(case[0], case[1][:2], *case[2:])
+
+
+def emulate_admit(q_ids, q_head, q_len, rid, cell, valid,
+                  tile=orch.ADMIT_TILE):
+    """``csrc/orchestration.cu``'s three queue_admit launches in numpy."""
+    q_ids, q_len = q_ids.copy(), q_len.copy()
+    c_n, q = q_ids.shape
+    a = rid.shape[0]
+    n_tiles = -(-a // tile)
+    cl = np.clip(cell, 0, c_n - 1)
+    # 1. in-tile rank: earlier valid lanes of the cell in the tile; each
+    #    tile's count per cell (zero where the cell is absent)
+    count = np.zeros((n_tiles, c_n), np.int64)
+    rank = np.zeros(a, np.int64)
+    for t in range(n_tiles):
+        seen = {}
+        for i in range(t * tile, min(a, (t + 1) * tile)):
+            if valid[i]:
+                rank[i] = seen.get(cl[i], 0)
+                seen[cl[i]] = rank[i] + 1
+                count[t, cl[i]] = max(count[t, cl[i]], rank[i] + 1)
+    # 2. per cell: each present tile's count becomes the queue position
+    #    before that tile; q_len takes the admitted lanes
+    for c in range(c_n):
+        len0, run = int(q_len[c]), 0
+        for t in range(n_tiles):
+            if count[t, c]:
+                count[t, c], run = len0 + run, run + count[t, c]
+        if run:
+            q_len[c] = len0 + max(0, min(run, q - len0))
+    # 3. per lane: position, admission, ring slot
+    admitted = np.zeros(a, bool)
+    for i in np.flatnonzero(valid):
+        pos = count[i // tile, cl[i]] + rank[i]
+        if pos < q:
+            admitted[i] = True
+            q_ids[cl[i], (q_head[cl[i]] + pos) % q] = rid[i]
+    return q_ids, q_len, admitted
+
+
+@pytest.mark.parametrize("order", ["one_cell", "interleaved", "reversed",
+                                   "random"])
+@pytest.mark.parametrize("fill", ["random", "near_full"])
+@pytest.mark.parametrize("c,a", [(300, 3 * orch.ADMIT_TILE + 77),
+                                 (5, 4 * orch.ADMIT_TILE)])
+def test_queue_admit_tiles_match_sequential(c, a, order, fill):
+    case = admit_case(c + a, c, 8, a, order, fill)
+    got = emulate_admit(*case)
+    for g, w, name in zip(got, _ref(case), ("q_ids", "q_len", "admitted")):
+        np.testing.assert_array_equal(g, w, name)
+    assert (case[5] & ~got[2]).any()  # the burst overflows some ring
 
 
 # ------------------------------------------------------- group_occupancy
