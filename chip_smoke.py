@@ -13,11 +13,15 @@ CUDA toolkit's nvcc.  Phases, each printing one JSON line:
 3. kernels: each kernel against its plain PyTorch version on the card at
    the serving deployment's shapes (C = 65,536 cells, Q = 64, the busiest
    tick's arrival burst from the real bucketer; queue_admit also on a
-   burst of 131,072 lanes in four lane orders) — bit-exact on integer
-   inputs — and timed with CUDA events after warm-up beside its plain
-   version, a one-call PyTorch yardstick where one exists, and its bound
-   (bytes at 3.35 TB/s, each input read once and each output written
-   once, counted from this run's data);
+   burst of 131,072 lanes in four lane orders; group_occupancy over four
+   group layouts, float32 bit for bit against its summation order
+   emulated on the CPU in ten launches, one kernel per call in the
+   profiler) — bit-exact on integer inputs — and timed with CUDA events
+   after warm-up beside its plain version, a one-call PyTorch yardstick
+   where one exists, and its bound (bytes at 3.35 TB/s, each input read
+   once and each output written once, counted from this run's data);
+   group_occupancy also beside an empty kernel's launch
+   (``launch_floor_ms``);
 4. serve: the deployment — 65,536 cells, 4 cells per edge server, shared
    cloud and edge, Poisson rate 3 per cell per 250 ms round over 4 rounds,
    fleet and stream drawn from ``split(PRNGKey(0), 4)`` as the serving
@@ -25,7 +29,9 @@ CUDA toolkit's nvcc.  Phases, each printing one JSON line:
    through ``repro_torch.launch.serve_fleet``, greedy and then a
    guarded DQN from a bundle the port wrote and read back (weights from a
    ``torch.Generator``), with launch counts per kernel read around each
-   run, and device-busy time per tick from ``torch.profiler``;
+   run (group_occupancy 3 a tick), and device ops and busy time per tick
+   from ``torch.profiler`` (one kernel per group_occupancy call, no
+   memset but queue_admit's);
 5. parity: a small configuration served on the CPU and on the card —
    integer records identical, float records within 1e-5;
 6. lm_kernels: flash attention, WKV6 and the SSD scan against their
@@ -333,36 +339,110 @@ def phase_kernels(torch, dev) -> dict:
                    dropped=n_drop, touched_cells=touched),
         wide_burst=wide)
 
-    # group_occupancy on the deployment's edge groups
-    groups = scn.edge_groups()
+    out["group_occupancy"] = group_occupancy_entry(torch, dev, orch, scn, g)
+    emit("kernels", **out)
+    return out
+
+
+def group_layouts(torch, dev, g) -> dict:
+    """The four edge-group layouts at the deployment's C: its contiguous
+    groups of 4, singletons, one group of all cells (a combining launch),
+    and random ids in [0, C), some of them without a cell."""
+    ar = torch.arange(CELLS, device=dev, dtype=torch.int32)
+    return {"groups_of_4": ar // CELLS_PER_EDGE, "singleton": ar,
+            "one_group": torch.zeros_like(ar),
+            "random": torch.randint(0, CELLS, (CELLS,), generator=g,
+                                    device=dev, dtype=torch.int32)}
+
+
+def stream_ops(torch, fn) -> dict:
+    """Device events of one ``fn()`` call under ``torch.profiler``, by
+    name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            names[e.name[:60]] = names.get(e.name[:60], 0) + 1
+    return names
+
+
+def group_occupancy_entry(torch, dev, orch, scn, g) -> dict:
+    """group_occupancy over the deployment's group index: int32 against
+    the plain version, float32 (non-integer values) bit for bit against
+    the kernel's summation order emulated on the CPU and across ten
+    launches, at each of the four layouts; one kernel per call (two for
+    the one-group layout) in the profiler; timed beside the plain
+    version, one ``index_add_`` + gather, and an empty kernel's launch
+    through the same path (``launch_floor_ms``)."""
+    C = CELLS
+    index = scn.group_index
+    check(index is not None and torch.equal(index.groups, scn.edge_group),
+          "the deployment carries its group index")
     own = torch.randint(0, 6, (C,), generator=g, device=dev,
                         dtype=torch.int32)
-    k_out = orch.group_occupancy(own, groups)
-    p_out = orch.group_occupancy_plain(own, groups)
+    own_f = torch.randn(C, generator=g, device=dev)
+    layouts = {}
+    for name, groups in group_layouts(torch, dev, g).items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx = orch.group_index(groups)  # set-up: host clock, synchronised
+        build_ms = (time.perf_counter() - t0) * 1e3
+        k_out = orch.group_occupancy(own, idx)
+        p_out = orch.group_occupancy_plain(own, groups)
+        torch.cuda.synchronize()
+        check(torch.equal(k_out, p_out),
+              f"group_occupancy {name}: int32 equals its plain version")
+        tree = orch.group_occupancy_tree(own_f.cpu(), idx.to("cpu"))
+        runs = [orch.group_occupancy(own_f, idx).cpu() for _ in range(10)]
+        check(all(torch.equal(r, tree) for r in runs),
+              f"group_occupancy {name}: float32 equals the kernel's order "
+              "emulated on the CPU, in each of ten launches")
+        ops = stream_ops(torch, lambda: orch.group_occupancy(own, idx))
+        check(sum(ops.values()) == 1 + idx.chunked and all(
+            "group_" in n for n in ops), f"group_occupancy {name}: "
+            f"{1 + idx.chunked} kernel launch(es) per call, nothing else "
+            f"({ops})")
+        layouts[name] = dict(
+            n_groups=idx.n_groups, max_size=idx.max_size,
+            n_tiles=idx.n_tiles, chunked=idx.chunked, stream_ops=ops,
+            index_build_ms=build_ms,
+            float32_vs_plain_max_abs_err=float(
+                (runs[0] - orch.group_occupancy_plain(
+                    own_f, groups).cpu()).abs().max()),
+            ms=cuda_ms(torch, lambda: orch.group_occupancy(own, idx),
+                       per=20)["ms"])
+    groups = index.groups
     lib = lambda: torch.zeros(C, dtype=own.dtype, device=dev).index_add_(
         0, groups, own)[groups]
-    torch.cuda.synchronize()
-    err = int((k_out - p_out).abs().max())
+    p_out = orch.group_occupancy_plain(own, groups)
+    err = int((orch.group_occupancy(own, index) - p_out).abs().max())
     check(err == 0, "group_occupancy differs from its plain version")
     check(torch.equal(lib(), p_out), "index_add_ yardstick agrees")
-    f_out = orch.group_occupancy(own.float(), groups)
-    f_err = float((f_out - p_out.float()).abs().max())
-    check(f_err <= 1e-5, f"group_occupancy float32 within 1e-5 ({f_err})")
-    kern, plain, library = (
+    kern, plain, library, floor = (
         cuda_ms(torch, fn, per=20)
-        for fn in (lambda: orch.group_occupancy(own, groups),
-                   lambda: orch.group_occupancy_plain(own, groups), lib))
-    out["group_occupancy"] = dict(
+        for fn in (lambda: orch.group_occupancy(own, index),
+                   lambda: orch.group_occupancy_plain(own, groups), lib,
+                   lambda: orch.empty_launch(dev)))
+    return dict(
         name="group_occupancy", route="cuda", source=ORCH_CU,
         replaces=REPLACES["group_occupancy"], max_abs_err=err,
         ms=kern["ms"], plain_ms=plain["ms"],
+        # own and groups read, out written: 12 bytes a cell
         bound_ms=bound_ms(12 * C), bound_by="bytes",
-        library_ms=library["ms"], call_ms=kern["call_ms"],
-        plain_call_ms=plain["call_ms"], library_call_ms=library["call_ms"],
-        blocker_held=all(x["blocker_held"] for x in (kern, plain, library)),
-        float32_max_abs_err=f_err, shape=dict(C=C, groups=C // 4))
-    emit("kernels", **out)
-    return out
+        library_ms=library["ms"], launch_floor_ms=floor["ms"],
+        # the design reads slot_cell and slot_seg for groups: 16 a cell
+        design_floor_ms=bound_ms(16 * C),
+        call_ms=kern["call_ms"], plain_call_ms=plain["call_ms"],
+        library_call_ms=library["call_ms"], launch_floor_call_ms=floor[
+            "call_ms"],
+        blocker_held=all(x["blocker_held"]
+                         for x in (kern, plain, library, floor)),
+        layouts=layouts, shape=dict(C=C, groups=index.n_groups))
 
 
 def admit_wide(torch, dev, orch, q_ids0, q_head0, q_len0, g) -> dict:
@@ -447,14 +527,23 @@ def phase_serve(torch) -> dict:
     guarded, q_launch = serve_counted(orch, serve_fleet, bundle=str(path),
                                       guard=True, **SERVE_KW)
     check(guarded["violation_rate"] == 0.0, "guarded run never violates")
+    # a tick sums edge groups three times: its observe's coupling and
+    # group load, and the transition's coupling
+    for name, rep, launches in (("greedy", greedy, g_launch),
+                                ("guarded_dqn", guarded, q_launch)):
+        check(launches["group_occupancy"] == 3 * rep["n_ticks"],
+              f"{name}: group_occupancy launched 3 times a tick "
+              f"({launches['group_occupancy']} in {rep['n_ticks']} ticks)")
 
     # device-busy share of a tick: profile a short run of the deployment
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    reset_all_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         short = serve_fleet.serve(greedy=True, device="cuda", verbose=False,
                                   **dict(SERVE_KW, rounds=1, epochs=1))
+    prof_launches = dict(orch.LAUNCHES)
     dev_events = [e for e in prof.events()
                   if e.device_type == DeviceType.CUDA]
     # every tick opens with its admission kernel: count from the first
@@ -463,6 +552,17 @@ def phase_serve(torch) -> dict:
                  if "queue_admit_kernel" in e.name), default=None)
     check(first is not None, "profiler saw the admission kernel")
     dev_events = [e for e in dev_events if e.time_range.start >= first]
+    # in the ticks: one kernel per group_occupancy call, and no memset but
+    # queue_admit's
+    n_group = sum("group_occupancy_kernel" in e.name for e in dev_events)
+    n_combine = sum("group_combine_kernel" in e.name for e in dev_events)
+    n_memset = sum("memset" in e.name.lower() for e in dev_events)
+    check(n_group == prof_launches["group_occupancy"] and n_combine == 0,
+          f"one group_occupancy kernel per call ({n_group} kernels, "
+          f"{n_combine} combining, {prof_launches['group_occupancy']} calls)")
+    check(n_memset <= prof_launches["queue_admit"],
+          f"no memset for group_occupancy ({n_memset} memsets, "
+          f"{prof_launches['queue_admit']} queue_admit calls)")
     busy_us = sum(e.time_range.elapsed_us() for e in dev_events)
     (OUT / "chip_smoke_profile.txt").write_text(prof.key_averages().table(
         sort_by="self_device_time_total", row_limit=40))
@@ -476,7 +576,9 @@ def phase_serve(torch) -> dict:
                                             for k, v in launches.items()})
     busy_ms = busy_us / 1e3 / prof_ticks
     out["profile"] = dict(
-        ticks=prof_ticks, device_events=len(dev_events),
+        ticks=prof_ticks, launches=prof_launches,
+        group_occupancy_kernels=n_group, memsets=n_memset,
+        device_events=len(dev_events),
         device_events_per_tick=len(dev_events) / prof_ticks,
         device_busy_ms_per_tick=busy_ms,
         wall_ms_per_tick_unprofiled=greedy["ms_per_tick"],
@@ -991,8 +1093,8 @@ def main() -> int:
     summary = {"kernels": [
         {key: k[key] for key in ("name", "route", "source", "replaces",
                                  "launches", "max_abs_err", "ms",
-                                 "plain_ms", "bound_ms", "bound_by",
-                                 "library_ms")}
+                                 "plain_ms", "bound_ms", "launch_floor_ms",
+                                 "bound_by", "library_ms") if key in k}
         for k in kernels.values()]}
     (OUT / "chip_smoke.json").write_text(json.dumps(
         dict(results, summary=summary), indent=1))

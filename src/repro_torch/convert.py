@@ -48,7 +48,8 @@ def policy_params(params, device="cuda"):
 
 
 def fleet_scenario(scenario, device="cuda") -> FleetScenario:
-    """The reference's ``FleetScenario`` (fields read by name)."""
+    """The reference's ``FleetScenario`` (fields read by name), with its
+    group index."""
     dev = resolve_device(device)
     field = lambda name, dtype: (
         None if getattr(scenario, name) is None else
@@ -58,7 +59,8 @@ def fleet_scenario(scenario, device="cuda") -> FleetScenario:
                          field("n_users", np.int32),
                          field("constraint", np.float32),
                          latency_target=field("latency_target", np.float32),
-                         edge_group=field("edge_group", np.int32))
+                         edge_group=field("edge_group", np.int32)
+                         ).with_group_index()
 
 
 def request_stream(stream) -> RequestStream:

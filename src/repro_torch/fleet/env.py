@@ -1,10 +1,16 @@
 """The vectorized FleetEnv on tensors: every cell of a fleet steps at once.
 
 Counterpart of ``repro.fleet.env.make_fleet_env`` (semantics, reward and
-key schedule identical, test-enforced): ``init`` / ``observe`` / ``step``
-/ ``rollout`` are plain functions on a ``FleetState`` of stacked
-tensors, with the ``shared_cloud`` (fleet-wide cloud pool) and
-``shared_edge`` (edge-group co-location) couplings.  ``reset_rounds``
+key schedule identical, test-enforced): ``init`` / ``observe`` /
+``transition`` / ``step`` / ``rollout`` are plain functions on a
+``FleetState`` of stacked tensors, with the ``shared_cloud`` (fleet-wide
+cloud pool) and ``shared_edge`` (edge-group co-location) couplings.
+``step`` is ``transition`` then ``observe``; a caller that discards the
+next observation (the serving tick) calls ``transition`` alone, which
+the reference's jitted scan gets from XLA dropping an unused output.
+Edge groups are read from the scenario's ``group_index``, built once per
+deployment (``FleetScenario.with_group_index``); ``observe`` and
+``transition`` raise when they need it and it is missing.  ``reset_rounds``
 (round-replay user-count swaps) arrives with the round gateway.
 Background flags are drawn per global cell id with the port's threefry
 (``repro_torch.random``), so with background noise on the env draws the
@@ -14,6 +20,7 @@ reference's exact bits.  Done cells auto-reset with a fresh background.
     state = env.init(key, scenario)
     obs = env.observe(scenario, state)          # (C, cfg.spec().dim)
     state, obs, reward, done, info = env.step(scenario, state, actions)
+    state, reward, done, info = env.transition(scenario, state, actions)
 """
 from __future__ import annotations
 
@@ -73,8 +80,16 @@ class FleetState(NamedTuple):
 class FleetEnvFns(NamedTuple):
     init: Callable
     observe: Callable
+    transition: Callable
     step: Callable
     rollout: Callable
+
+
+def _group_index(scenario: FleetScenario):
+    if scenario.group_index is None:
+        raise ValueError("the scenario has no group index: build it once "
+                         "per deployment with scenario.with_group_index()")
+    return scenario.group_index
 
 
 def _pick(done: torch.Tensor, new: torch.Tensor, old: torch.Tensor):
@@ -146,7 +161,7 @@ def make_fleet_env(cfg: FleetConfig) -> FleetEnvFns:
         """(C,) edge occupancy from co-located cells' assigned edge
         requests."""
         own = _count(actions, mask, latency.A_EDGE)
-        return latency.group_coupling(own, scenario.edge_groups())
+        return latency.group_coupling(own, _group_index(scenario))
 
     def _round_times(scenario, state, actions):
         """Per-slot response times under the partial assignment
@@ -188,12 +203,10 @@ def make_fleet_env(cfg: FleetConfig) -> FleetEnvFns:
             total = (own_cloud + state.bg.bg_cloud).sum(dtype=torch.int32)
             cloud_fleet = (total / n_cells).expand(n_cells)
         if "edge_load" in spec.blocks:
-            groups = scenario.edge_groups()
-            group_sz = latency.group_occupancy(torch.ones_like(groups),
-                                               groups)
+            index = _group_index(scenario)
             edge_occ = own_edge + state.bg.bg_edge
-            edge_group = (latency.group_occupancy(edge_occ, groups)
-                          / group_sz.clamp(min=1))
+            edge_group = (latency.group_occupancy(edge_occ, index)
+                          / index.size)
         return spec.encode(ObsInputs(
             user=state.user, n_users=scenario.n_users,
             busy_p_s=state.bg.busy_p_s, busy_m_s=state.bg.busy_m_s,
@@ -204,10 +217,11 @@ def make_fleet_env(cfg: FleetConfig) -> FleetEnvFns:
             constraint=scenario.constraint,
             latency_target=scenario.latency_targets()))
 
-    def step(scenario: FleetScenario, state: FleetState, actions_in):
-        """One orchestration decision per cell.  Returns (state', obs',
-        reward, done, info); done cells auto-reset and report their
-        round's art/acc/violated and per-slot ``times`` in ``info``."""
+    def transition(scenario: FleetScenario, state: FleetState, actions_in):
+        """One orchestration decision per cell, without the next
+        observation.  Returns (state', reward, done, info); done cells
+        auto-reset and report their round's art/acc/violated and per-slot
+        ``times`` in ``info``."""
         n = scenario.n_users
         u = state.user.clamp(max=n_max - 1).long()[:, None]
         acts = state.actions.scatter(1, u, actions_in.to(torch.int32)[:, None])
@@ -250,11 +264,18 @@ def make_fleet_env(cfg: FleetConfig) -> FleetEnvFns:
                 # completed round's per-request service latency
                 "times": times * mask,
                 "actions": acts}
+        return state2, reward, done, info
+
+    def step(scenario: FleetScenario, state: FleetState, actions_in):
+        """:func:`transition`, then the next observation: (state', obs',
+        reward, done, info)."""
+        state2, reward, done, info = transition(scenario, state, actions_in)
         return state2, observe(scenario, state2), reward, done, info
 
     def rollout(scenario: FleetScenario, state: FleetState, actions):
         """Apply a (T, C) action sequence; returns (state', trajectory)
         with every per-step output stacked on a leading T axis."""
+        scenario = scenario.with_group_index()
         steps = []
         for a_t in actions:
             state, obs, reward, done, info = step(scenario, state, a_t)
@@ -262,5 +283,5 @@ def make_fleet_env(cfg: FleetConfig) -> FleetEnvFns:
         return state, {k: torch.stack([s[k] for s in steps])
                        for k in steps[0]}
 
-    return FleetEnvFns(init=init, observe=observe, step=step,
-                       rollout=rollout)
+    return FleetEnvFns(init=init, observe=observe, transition=transition,
+                       step=step, rollout=rollout)

@@ -8,9 +8,9 @@ real slots of padded rounds: masked slots add neither contention nor
 response time.
 
 ``group_occupancy`` launches the hand-written CUDA kernel on CUDA
-tensors (``repro_torch.kernels.orchestration``).  The cells-mesh branch
-of the reference (a ``psum`` over sharded segment totals) arrives with
-the sharded slice.
+tensors (``repro_torch.kernels.orchestration``), over the group index a
+scenario carries.  The cells-mesh branch of the reference (a ``psum``
+over sharded segment totals) arrives with the sharded slice.
 """
 from __future__ import annotations
 
@@ -42,16 +42,19 @@ def tables(device: torch.device, dtype: torch.dtype = torch.float32) -> dict:
     }
 
 
-def group_occupancy(own: torch.Tensor, groups: torch.Tensor) -> torch.Tensor:
+def group_occupancy(own: torch.Tensor,
+                    index: orchestration.GroupIndex) -> torch.Tensor:
     """(C,) total occupancy of each cell's group, own contribution
-    included: ``out[i] = sum_j own[j] * [groups[j] == groups[i]]``."""
-    return orchestration.group_occupancy(own, groups)
+    included: ``out[i] = sum_j own[j] * [groups[j] == groups[i]]`` over
+    the groups of ``index`` (the scenario's ``group_index``)."""
+    return orchestration.group_occupancy(own, index)
 
 
-def group_coupling(own: torch.Tensor, groups: torch.Tensor) -> torch.Tensor:
+def group_coupling(own: torch.Tensor,
+                   index: orchestration.GroupIndex) -> torch.Tensor:
     """(C,) extra occupancy each cell sees from co-located cells (its
     group total minus its own contribution); zero for singleton groups."""
-    return group_occupancy(own, groups) - own
+    return group_occupancy(own, index) - own
 
 
 def action_accuracy(actions: torch.Tensor) -> torch.Tensor:

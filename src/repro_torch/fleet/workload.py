@@ -13,6 +13,7 @@ import torch
 
 from repro_torch import random as rnd
 from repro_torch.env.scenarios import CONSTRAINT_ORDER, CONSTRAINTS
+from repro_torch.kernels.orchestration import GroupIndex, group_index
 from repro_torch.specs.observation import (DEFAULT_LATENCY_TARGET_MS,
                                            LATENCY_TARGET_POOL)
 
@@ -27,6 +28,10 @@ class FleetScenario(NamedTuple):
     latency_target: torch.Tensor | None = None
     # (C,) int32 edge-server group ids in [0, C); None → singleton groups
     edge_group: torch.Tensor | None = None
+    # the edge groups' index for the group_occupancy kernel, built once per
+    # deployment (``random_fleet``, ``to``, ``with_group_index``); it must
+    # index ``edge_groups()``, so replace both together or neither
+    group_index: GroupIndex | None = None
 
     @property
     def n_cells(self) -> int:
@@ -59,9 +64,16 @@ class FleetScenario(NamedTuple):
                                 device=self.device)
         return self.edge_group
 
+    def with_group_index(self) -> "FleetScenario":
+        """This scenario with its group index, built if it has none."""
+        if self.group_index is not None:
+            return self
+        return self._replace(group_index=group_index(self.edge_groups()))
+
     def to(self, device) -> "FleetScenario":
+        """The scenario on ``device``, with its group index."""
         return FleetScenario(*(None if v is None else v.to(device)
-                               for v in self))
+                               for v in self)).with_group_index()
 
 
 def random_fleet(key: torch.Tensor, n_cells: int, n_max: int = 5, *,
@@ -75,7 +87,8 @@ def random_fleet(key: torch.Tensor, n_cells: int, n_max: int = 5, *,
     user count in [n_users_min, n_users_max], a Table-V constraint level
     and a latency target from ``latency_pool``.  ``cells_per_edge > 1``
     co-locates consecutive cells on one edge server (``edge_group = cell
-    // cells_per_edge``).  The scenario lives on the key's device."""
+    // cells_per_edge``).  The scenario lives on the key's device, with
+    its group index."""
     dev = key.device
     n_users_max = n_max if n_users_max is None else n_users_max
     if constraint_pool is None:
@@ -94,4 +107,5 @@ def random_fleet(key: torch.Tensor, n_cells: int, n_max: int = 5, *,
     edge_group = (torch.arange(n_cells, dtype=torch.int32, device=dev)
                   // max(1, cells_per_edge))
     return FleetScenario(weak_s, weak_e, n_users, constraint,
-                         latency_target=latency, edge_group=edge_group)
+                         latency_target=latency, edge_group=edge_group,
+                         group_index=group_index(edge_group))

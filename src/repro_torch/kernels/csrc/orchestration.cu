@@ -44,13 +44,29 @@
 //   Replaces repro/kernels/orchestration.py group_occupancy_pallas (body
 //   _group_occupancy_kernel): out[i] = sum_j own[j] * [g_j == g_i].  The
 //   TPU form is an O(C^2) membership-mask matvec shaped for the MXU.
-//   What bounds it here: bytes (it reads own and groups and writes out,
-//   12 bytes a cell) and, at C = 65,536, the launch latency of its passes.
-//   Design: O(C) segment sum — zero a (C,) totals scratch, scatter with
-//   atomicAdd, gather.  For int32 counts (the engine's only input) the
-//   result is exact and deterministic; for float32 the atomic order
-//   varies from run to run, so it agrees with a sequential sum only to
-//   float32 rounding of each group's partial sums.
+//   What bounds it here: bytes would (own and groups read, out written,
+//   12 bytes a cell: 0.24 us at C = 65,536), so one launch's latency and
+//   the chain of dependent loads inside it do.
+//   Design: one launch over a group index the wrapper builds once per
+//   deployment (repro_torch.kernels.orchestration.group_index).  The index
+//   sorts the cells by group, cuts them into tiles of at most 1,024 on
+//   group boundaries, and gives tile b the slots [1024 b, 1024 (b + 1)):
+//   each slot's cell (slot_cell, -1 for padding) and its place r in its
+//   group's run in the tile with the run's length n (slot_seg = r << 16 |
+//   n).  group_occupancy_kernel runs one CTA per tile: a thread loads its
+//   slot's cell and seg (one coalesced round trip, with no search of the
+//   tile), then own[cell] into shared memory; the CTA sums each run in a
+//   tree whose stride doubles (at stride d, r adds r + d when r is a
+//   multiple of 2d), and each member writes its run's total.  No memset, no
+//   scratch to zero, no atomics: each group is summed in one fixed order,
+//   so int32 is exact and float32 repeats bit for bit from launch to
+//   launch (group_occupancy_tree in the wrapper's module is that order in
+//   plain PyTorch).  A group larger than a tile gets whole tiles of its
+//   own, 1,024 entries from its start; their CTAs write tile sums, and
+//   group_combine_kernel sums those in the same tree and writes the total
+//   to the members, so the order is the one tree over the whole group.
+//   The index decides once whether a call takes that second launch.
+//   Bytes: slot_cell and slot_seg besides own and out, 16 a cell.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -58,7 +74,8 @@
 namespace {
 
 constexpr int kAdmitTile = 1024;
-constexpr int kGroupBlock = 256;
+constexpr int kCellBlock = 256;
+constexpr int kGroupTile = 1024;
 
 __device__ __forceinline__ int clamp_cell(int c, int n_cells) {
   return min(max(c, 0), n_cells - 1);
@@ -101,12 +118,12 @@ queue_admit_kernel_rank(const int32_t* __restrict__ cell,
 
 // per cell: each tile's count becomes the cell's queue position before
 // that tile; q_len takes the admitted lanes
-__global__ void __launch_bounds__(kGroupBlock)
+__global__ void __launch_bounds__(kCellBlock)
 queue_admit_kernel_cells(int32_t* __restrict__ tile_count,
                          int32_t* __restrict__ q_len, int n_cells,
                          int n_tiles, int q_cap) {
   constexpr int kBatch = 8;  // tiles whose loads are issued together
-  const int c = blockIdx.x * kGroupBlock + threadIdx.x;
+  const int c = blockIdx.x * kCellBlock + threadIdx.x;
   if (c >= n_cells) return;
   const int len0 = q_len[c];
   int run = 0;
@@ -156,48 +173,97 @@ queue_admit_kernel_lanes(int32_t* __restrict__ q_ids,
   admitted[i] = ok;
 }
 
+// s[0] += s[1], s[2] += s[3], ..., then at stride 2, 4, ...: the sum of
+// s[0, n) lands in s[0].  Every thread of the CTA calls it.
 template <typename T>
-__global__ void __launch_bounds__(kGroupBlock)
-group_scatter_kernel(const T* __restrict__ own,
-                     const int32_t* __restrict__ groups,
-                     T* __restrict__ totals, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) {
-    const int g = groups[i];
-    if (g >= 0 && g < n) atomicAdd(totals + g, own[i]);
+__device__ __forceinline__ void tree_sum(T* s, int n, int t) {
+  for (int d = 1; d < n; d *= 2) {
+    if ((t & (2 * d - 1)) == 0 && t + d < n) s[t] += s[t + d];
+    __syncthreads();
   }
 }
 
+// one CTA per tile: each group's total to its members, or the tile sum of
+// a group that spans tiles
 template <typename T>
-__global__ void __launch_bounds__(kGroupBlock)
-group_gather_kernel(const int32_t* __restrict__ groups,
-                    const T* __restrict__ totals, T* __restrict__ out,
-                    int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) {
-    const int g = groups[i];
-    out[i] = (g >= 0 && g < n) ? totals[g] : T(0);
+__global__ void __launch_bounds__(kGroupTile)
+group_occupancy_kernel(const T* __restrict__ own,
+                       const int32_t* __restrict__ slot_cell,
+                       const int32_t* __restrict__ slot_seg,
+                       const int32_t* __restrict__ tile_chunk,
+                       T* __restrict__ out, T* __restrict__ partial,
+                       int span) {
+  __shared__ T s_val[kGroupTile];
+  const int t = threadIdx.x;
+  const int k = blockIdx.x * kGroupTile + t;
+  const int cell = slot_cell[k];  // -1 for padding
+  const int seg = slot_seg[k];
+  const bool spans = tile_chunk[2 * blockIdx.x] >= 0;
+  s_val[t] = cell >= 0 ? own[cell] : T(0);
+  __syncthreads();
+  // rel: the member's place in its group's run in the tile, len the run's
+  // length (0 for padding, which adds nothing and is never added)
+  const int rel = seg >> 16, len = seg & 0xffff;
+  for (int d = 1; d < span; d *= 2) {
+    if ((rel & (2 * d - 1)) == 0 && rel + d < len) s_val[t] += s_val[t + d];
+    __syncthreads();
+  }
+  if (spans) {
+    if (t == 0) partial[blockIdx.x] = s_val[0];
+  } else if (cell >= 0) {
+    out[cell] = s_val[t - rel];
   }
 }
 
+// one CTA per tile of a group that spans tiles: the group's tile sums in
+// the same tree (in blocks of kGroupTile sums, then over the blocks,
+// which is the one tree: the blocks start at multiples of a power of two)
 template <typename T>
-int group_occupancy_launch(const void* own, const void* groups,
-                           void* totals, void* out, int n, int device,
-                           void* stream) {
+__global__ void __launch_bounds__(kGroupTile)
+group_combine_kernel(const int32_t* __restrict__ slot_cell,
+                     const int32_t* __restrict__ tile_chunk,
+                     const T* __restrict__ partial, T* __restrict__ out) {
+  const int first_tile = tile_chunk[2 * blockIdx.x];
+  const int m = tile_chunk[2 * blockIdx.x + 1];
+  if (first_tile < 0) return;
+  __shared__ T s_val[kGroupTile];
+  __shared__ T s_blk[kGroupTile];
+  const int t = threadIdx.x;
+  const int cell = slot_cell[blockIdx.x * kGroupTile + t];
+  const int n_blk = (m + kGroupTile - 1) / kGroupTile;
+  for (int b = 0; b < n_blk; ++b) {
+    const int n = min(kGroupTile, m - b * kGroupTile);
+    if (t < n) s_val[t] = partial[first_tile + b * kGroupTile + t];
+    __syncthreads();
+    tree_sum(s_val, n, t);
+    if (t == 0) s_blk[b] = s_val[0];
+    __syncthreads();
+  }
+  tree_sum(s_blk, n_blk, t);
+  if (cell >= 0) out[cell] = s_blk[0];
+}
+
+template <typename T>
+int group_occupancy_launch(const void* own, const void* slot_cell,
+                           const void* slot_seg, const void* tile_chunk,
+                           void* out, void* partial, int n_tiles, int span,
+                           int combine, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = cudaMemsetAsync(totals, 0, sizeof(T) * static_cast<size_t>(n), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (n + kGroupBlock - 1) / kGroupBlock;
-  group_scatter_kernel<T><<<blocks, kGroupBlock, 0, s>>>(
-      static_cast<const T*>(own), static_cast<const int32_t*>(groups),
-      static_cast<T*>(totals), n);
-  group_gather_kernel<T><<<blocks, kGroupBlock, 0, s>>>(
-      static_cast<const int32_t*>(groups), static_cast<const T*>(totals),
-      static_cast<T*>(out), n);
+  const int32_t* sc = static_cast<const int32_t*>(slot_cell);
+  const int32_t* tc = static_cast<const int32_t*>(tile_chunk);
+  group_occupancy_kernel<T><<<n_tiles, kGroupTile, 0, s>>>(
+      static_cast<const T*>(own), sc, static_cast<const int32_t*>(slot_seg),
+      tc, static_cast<T*>(out), static_cast<T*>(partial), span);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if (combine)
+    group_combine_kernel<T><<<n_tiles, kGroupTile, 0, s>>>(
+        sc, tc, static_cast<const T*>(partial), static_cast<T*>(out));
   return static_cast<int>(cudaGetLastError());
 }
+
+__global__ void empty_kernel() {}
 
 }  // namespace
 
@@ -224,8 +290,8 @@ int queue_admit(void* q_ids, const void* q_head, void* q_len,
       static_cast<const int32_t*>(cell), static_cast<const bool*>(valid),
       tile_count, lane_rank, n_cells, n_lanes);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  queue_admit_kernel_cells<<<(n_cells + kGroupBlock - 1) / kGroupBlock,
-                             kGroupBlock, 0, s>>>(
+  queue_admit_kernel_cells<<<(n_cells + kCellBlock - 1) / kCellBlock,
+                             kCellBlock, 0, s>>>(
       tile_count, static_cast<int32_t*>(q_len), n_cells, n_tiles, q_cap);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   queue_admit_kernel_lanes<<<n_tiles, kAdmitTile, 0, s>>>(
@@ -236,16 +302,32 @@ int queue_admit(void* q_ids, const void* q_head, void* q_len,
   return static_cast<int>(cudaGetLastError());
 }
 
-int group_occupancy_i32(const void* own, const void* groups, void* totals,
-                        void* out, int n, int device, void* stream) {
-  return group_occupancy_launch<int32_t>(own, groups, totals, out, n, device,
-                                         stream);
+// slot_cell, slot_seg: (n_tiles * 1024) int32; tile_chunk: (n_tiles, 2)
+// int32; partial: (n_tiles) of the value type when combine, else unused
+int group_occupancy_i32(const void* own, const void* slot_cell,
+                        const void* slot_seg, const void* tile_chunk,
+                        void* out, void* partial, int n_tiles, int span,
+                        int combine, int device, void* stream) {
+  return group_occupancy_launch<int32_t>(own, slot_cell, slot_seg, tile_chunk,
+                                         out, partial, n_tiles, span, combine,
+                                         device, stream);
 }
 
-int group_occupancy_f32(const void* own, const void* groups, void* totals,
-                        void* out, int n, int device, void* stream) {
-  return group_occupancy_launch<float>(own, groups, totals, out, n, device,
-                                       stream);
+int group_occupancy_f32(const void* own, const void* slot_cell,
+                        const void* slot_seg, const void* tile_chunk,
+                        void* out, void* partial, int n_tiles, int span,
+                        int combine, int device, void* stream) {
+  return group_occupancy_launch<float>(own, slot_cell, slot_seg, tile_chunk,
+                                       out, partial, n_tiles, span, combine,
+                                       device, stream);
+}
+
+// one empty kernel: what a launch costs with nothing to do
+int empty_launch(int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

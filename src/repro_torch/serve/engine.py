@@ -8,10 +8,17 @@ advances in decision ticks of ``tick_ms``; per tick it
     2. forms a round of ``min(queue_len, n_max)`` requests at every idle
        cell with backlog,
     3. micro-batches all pending decisions across cells through one
-       ``Policy.act`` and steps the fleet env once (whose observations
-       run the ``group_occupancy`` kernel), and
+       ``Policy.act`` and advances the fleet env once
+       (``FleetEnvFns.transition``: the env's next observation, which the
+       tick would discard, is not computed), and
     4. scatters per-request records (wait, service, round ART, accuracy
        violation, action) for rounds that completed.
+
+A tick launches the ``group_occupancy`` kernel at most three times, over
+the scenario's group index (built once, at ``serve_stream``'s set-up):
+in its ``observe``, for the edge coupling under ``shared_edge`` and for
+the ``edge_load`` block of the ``contention`` and ``full`` specs, and
+in the transition's edge coupling under ``shared_edge``.
 
 It runs eagerly: ``serve_stream`` is a host loop over epochs and ticks.
 The ring queues and the record arrays are updated in place (the
@@ -190,7 +197,7 @@ def make_serve_engine(policy: Policy, cfg: ServeConfig, live=None,
             # they add no edge/cloud occupancy under shared couplings;
             # their results are masked out of every record below
             a = torch.where(active, a, 0)
-            env2, _, _, done, info = env.step(scn_t, st.env, a)
+            env2, _, done, info = env.transition(scn_t, st.env, a)
 
             # -- 4. scatter per-request records of completed rounds --
             fin = done & active
@@ -272,7 +279,7 @@ def serve_stream(policy: Policy, params, scenario: FleetScenario,
         raise ValueError(f"stream built for {stream.n_cells} cells, "
                          f"scenario has {scenario.n_cells}")
     dev = resolve_device(device)
-    scenario = scenario.to(dev)
+    scenario = scenario.to(dev)  # with its group index, built once here
     params = params_to(params, dev)
     key = rnd.PRNGKey(0, dev) if key is None else key.to(dev)
     engine = make_serve_engine(policy, cfg)

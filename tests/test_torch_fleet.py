@@ -99,7 +99,13 @@ def test_random_fleet_shapes_and_ranges():
     assert (scn.edge_group == torch.arange(64) // 4).all()
     assert scn.device == CPU
     again = random_fleet(key, 64, n_max=5, cells_per_edge=4)
-    assert all((a == b).all() for a, b in zip(scn, again))
+    assert all(torch.equal(getattr(scn, f), getattr(again, f))
+               for f in scn._fields if f != "group_index")
+    # the fleet carries its group index, built from its edge groups
+    assert scn.group_index.groups is scn.edge_group
+    assert torch.equal(scn.group_index.members,
+                       torch.arange(64, dtype=torch.int32))
+    assert (scn.group_index.n_groups, scn.group_index.max_size) == (16, 4)
 
 
 @pytest.mark.parametrize("cells", [7, 1000, 65_536])
@@ -110,7 +116,8 @@ def test_random_fleet_matches_reference(cells):
         want = ref_random_fleet(k, cells, n_max=5, cells_per_edge=4)
         got = random_fleet(convert.key_from_data(np.asarray(k), CPU), cells,
                            n_max=5, cells_per_edge=4)
-        for name in got._fields:
+        assert got.group_index is not None
+        for name in want._fields:
             g, w = getattr(got, name).numpy(), np.asarray(getattr(want, name))
             assert g.dtype == w.dtype, name
             np.testing.assert_array_equal(
@@ -182,3 +189,45 @@ def test_rollout_matches_stepping():
         assert torch.equal(traj["obs"][t], obs)
         assert torch.equal(traj["reward"][t], r)
     assert torch.equal(st.actions, st_r.actions)
+
+
+@pytest.mark.parametrize("spec,shared_cloud,shared_edge", CASES)
+def test_transition_is_step_without_the_observation(spec, shared_cloud,
+                                                    shared_edge):
+    """``transition`` gives ``step``'s state, reward, done and info bit
+    for bit, and ``step``'s observation is ``observe`` of that state."""
+    kw = dict(n_max=4, obs_spec=spec, shared_cloud=shared_cloud,
+              shared_edge=shared_edge)
+    env = make_fleet_env(FleetConfig(**kw))
+    scn = random_fleet(rnd.PRNGKey(2, CPU), 12, n_max=4, cells_per_edge=3)
+    st = env.init(rnd.PRNGKey(9, CPU), scn)
+    acts = torch.as_tensor(np.random.default_rng(3).integers(
+        0, ref_lm.N_ACTIONS, (6, 12)).astype(np.int32))
+    for a in acts:
+        st_s, obs, r_s, done_s, info_s = env.step(scn, st, a)
+        st_t, r_t, done_t, info_t = env.transition(scn, st, a)
+        for x, y in zip(st_s[:4] + tuple(st_s.bg), st_t[:4] + tuple(st_t.bg)):
+            assert torch.equal(x, y)
+        assert torch.equal(r_s, r_t) and torch.equal(done_s, done_t)
+        assert info_s.keys() == info_t.keys()
+        assert all(torch.equal(info_s[k], info_t[k]) for k in info_s)
+        assert torch.equal(obs, env.observe(scn, st_t))
+        st = st_s
+
+
+def test_env_needs_the_group_index_once():
+    """``observe`` and ``transition`` read the edge groups from the
+    scenario's index and raise without one; ``rollout`` builds it once."""
+    env = make_fleet_env(FleetConfig(n_max=4, obs_spec="full",
+                                     shared_edge=True))
+    scn = random_fleet(rnd.PRNGKey(1, CPU), 8, n_max=4, cells_per_edge=2)
+    bare = scn._replace(group_index=None)
+    st = env.init(rnd.PRNGKey(0, CPU), scn)
+    acts = torch.zeros((2, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="group index"):
+        env.observe(bare, st)
+    with pytest.raises(ValueError, match="group index"):
+        env.transition(bare, st, acts[0])
+    _, traj = env.rollout(bare, st, acts)
+    _, want = env.rollout(scn, st, acts)
+    assert all(torch.equal(traj[k], want[k]) for k in want)

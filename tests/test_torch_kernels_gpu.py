@@ -10,7 +10,8 @@ the bf16 row bar):
 ``admit_case`` and ``ADMIT_CASES`` are also the lane orders
 ``test_torch_orchestration.py`` holds the plain versions to the
 reference with: interleaved cells, one cell's burst past Q, reversed
-order, invalid lanes with junk cell ids, C straddling 128.
+order, invalid lanes with junk cell ids, C straddling 128; and
+``group_layout`` its four edge-group layouts.
 """
 import numpy as np
 import pytest
@@ -61,6 +62,22 @@ ADMIT_CASES = [(s, c, q, a, order, fill)
 def _plain(case):
     t = [torch.as_tensor(x.copy()) for x in case]
     return orch.queue_admit_plain(*t)
+
+
+GROUP_LAYOUTS = ("groups_of_4", "singleton", "one_group", "random")
+
+
+def group_layout(name, c, seed=0):
+    """(c,) int32 edge-group ids: the deployment's contiguous groups of 4,
+    every cell its own group, one group of all cells, or random ids in
+    [0, c) (so some ids have no cell)."""
+    if name == "groups_of_4":
+        return (np.arange(c) // 4).astype(np.int32)
+    if name == "singleton":
+        return np.arange(c, dtype=np.int32)
+    if name == "one_group":
+        return np.zeros(c, np.int32)
+    return np.random.default_rng(seed).integers(0, c, c).astype(np.int32)
 
 
 @pytest.fixture
@@ -124,12 +141,39 @@ def test_group_occupancy_kernel_matches_plain(cuda, c, n_groups):
     groups = torch.randint(0, n_groups, (c,), generator=g,
                            dtype=torch.int32)
     want = orch.group_occupancy_plain(own, groups)
-    got = orch.group_occupancy(own.to(cuda), groups.to(cuda))
+    index = orch.group_index(groups.to(cuda))
+    got = orch.group_occupancy(own.to(cuda), index)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
-    # float32: atomic order varies, so equal only to f32 rounding
-    got_f = orch.group_occupancy(own.float().to(cuda), groups.to(cuda))
-    torch.testing.assert_close(got_f.cpu(), want.float())
+    # float32: each group summed in the kernel's fixed tree order
+    got_f = orch.group_occupancy(own.float().to(cuda), index)
+    want_f = orch.group_occupancy_tree(own.float(), index.to("cpu"))
+    assert torch.equal(got_f.cpu(), want_f)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", GROUP_LAYOUTS)
+def test_group_occupancy_kernel_layouts(cuda, layout):
+    """The four layouts at the deployment's 65,536 cells: int32 equal to
+    the plain version, float32 equal to the kernel's order emulated on the
+    CPU and the same across ten launches; one kernel launch per call (the
+    one-group layout through its combining launch)."""
+    c = 65536
+    groups = torch.as_tensor(group_layout(layout, c, seed=1))
+    rng = np.random.default_rng(2)
+    own = torch.as_tensor(rng.integers(0, 9, c).astype(np.int32))
+    own_f = torch.as_tensor(rng.standard_normal(c).astype(np.float32))
+    index = orch.group_index(groups.to(cuda))
+    assert index.chunked == (layout == "one_group")
+    before = orch.LAUNCHES["group_occupancy"]
+    got = orch.group_occupancy(own.to(cuda), index)
+    assert orch.LAUNCHES["group_occupancy"] == before + 1
+    assert torch.equal(got.cpu(), orch.group_occupancy_plain(own, groups))
+    want_f = orch.group_occupancy_tree(own_f, index.to("cpu"))
+    own_f = own_f.to(cuda)
+    for _ in range(10):
+        got_f = orch.group_occupancy(own_f, index)
+        assert torch.equal(got_f.cpu(), want_f)
 
 
 # ------------------------------------------------------------ LM kernels

@@ -268,3 +268,36 @@ def test_cli_serves_the_reference_cli_draws(seed, cells_per_edge, shared):
                             device="cpu", verbose=False)
     _assert_reports_match(rep, ref)
     assert rep["served_requests"] > 0
+
+
+def test_tick_calls_group_occupancy_three_times(monkeypatch):
+    """Under shared_edge with the ``full`` spec a tick sums edge groups
+    three times (its observe's coupling and group load, the transition's
+    coupling) and builds no group index: ``serve_stream`` builds it once
+    at set-up for a scenario that has none."""
+    from repro_torch.fleet import latency, workload
+    from repro_torch.kernels import orchestration as orch
+    calls = {"group_occupancy": 0, "group_index": 0}
+
+    def counted(name, fn):
+        def wrapper(*args):
+            calls[name] += 1
+            return fn(*args)
+        return wrapper
+
+    scn = random_fleet(rnd.PRNGKey(4, CPU), 16, n_max=N_MAX,
+                       cells_per_edge=4)._replace(group_index=None)
+    monkeypatch.setattr(latency.orchestration, "group_occupancy",
+                        counted("group_occupancy", orch.group_occupancy))
+    monkeypatch.setattr(workload, "group_index",
+                        counted("group_index", orch.group_index))
+    cfg = ServeConfig(n_max=N_MAX, obs_spec=SPEC, shared_cloud=True,
+                      shared_edge=True)
+    horizon = 3 * cfg.round_ms
+    stream = poisson_request_stream(rnd.PRNGKey(5, CPU), scn, horizon,
+                                    rate=3.0, round_ms=cfg.round_ms,
+                                    epoch_ms=horizon / 2)
+    pol = adapters.heuristic_greedy_policy(make_spec(SPEC, N_MAX))
+    rep = serve_stream(pol, pol.init(0, CPU), scn, stream, cfg, device=CPU)
+    assert calls == {"group_occupancy": 3 * rep["n_ticks"],
+                     "group_index": 1}
