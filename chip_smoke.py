@@ -34,7 +34,27 @@ CUDA toolkit's nvcc.  Phases, each printing one JSON line:
    memset but queue_admit's);
 5. parity: a small configuration served on the CPU and on the card —
    integer records identical, float records within 1e-5;
-6. lm_kernels: flash attention, WKV6 and the SSD scan against their
+6. round_replay: policy evaluation against the exact solver optimum at
+   the deployment (65,536 cells, 8 rounds of a rate-3 round trace from
+   the same seed split). (a) Coupled, background on, through
+   ``serve_fleet --round-replay`` for the greedy baseline and an
+   ``oracle`` bundle the port wrote and read back: every traced request
+   served, no violation, every round's ART at least its oracle's less
+   1e-2, group_occupancy launched 3 times a decision step and
+   queue_admit never; the host seconds of ``solve_oracle`` (memoised,
+   and the per-cell loop on 1,024 cells); ms per round and decisions/s,
+   and one round's device ops and busy time in the profiler.
+   (b) Quiet and uncoupled: the oracle replay's every round at the
+   optimum within 1e-3; ``serve_stream`` on the trace's
+   round-synchronous stream reproduces the greedy replay's
+   request-weighted ART and violation rate within 1e-5, nothing dropped
+   or deferred, queue_admit once a tick; every cell's reward gap to the
+   optimum at least -1e-6 (the greedy baseline through the evaluator,
+   and ``evaluate_vs_solver`` of phase 4's DQN); the throughput runner's
+   decisions/s.  (c) 64 cells, 4 rounds, coupled, background on, greedy
+   and oracle, replayed on the CPU and on the card: per-round requests
+   and violation rates identical, ART and reward within 1e-5;
+7. lm_kernels: flash attention, WKV6 and the SSD scan against their
    plain versions on the card at the LM serving shapes (yi-6b f32 and
    bf16, h2o-danube's window and head_dim 120 in f32 and bf16,
    zamba2-1.2b's shared block; rwkv6-1.6b's WKV6, also at a ragged S and
@@ -52,7 +72,7 @@ CUDA toolkit's nvcc.  Phases, each printing one JSON line:
    beside) and the flash and SSD kernels' tensor-core instruction counts
    from ``cuobjdump -sass`` of the built libraries (every instance must
    hold some);
-7. lm_serve: ``repro_torch.launch.serve`` at full width — yi-6b,
+8. lm_serve: ``repro_torch.launch.serve`` at full width — yi-6b,
    rwkv6-1.6b and zamba2-1.2b, weights from a ``torch.Generator`` on the
    card, batch 4, prompt 2048, 32 greedy tokens — with launch counts read
    around each run (each kernel launched as often as the config's blocks
@@ -61,7 +81,7 @@ CUDA toolkit's nvcc.  Phases, each printing one JSON line:
    mamba2 block, the others not at all) and the serving invariant: a
    teacher-forced forward over prompt + generated tokens matches the
    prefill and decode logits within 1e-3;
-8. lm_parity: the yi, h2o-danube, rwkv6 and zamba2 smoke configs from
+9. lm_parity: the yi, h2o-danube, rwkv6 and zamba2 smoke configs from
    one seed on the CPU and on the card — logits within 1e-4, greedy
    tokens identical.
 
@@ -91,6 +111,10 @@ CELLS, CELLS_PER_EDGE, RATE, ROUNDS, EPOCHS, SEED = 65536, 4, 3.0, 4, 2, 0
 SERVE_KW = dict(cells=CELLS, rate=RATE, rounds=ROUNDS, seed=SEED,
                 epochs=EPOCHS, cells_per_edge=CELLS_PER_EDGE,
                 shared_cloud=True, shared_edge=True)
+# round replay of the deployment: rounds of its trace, decision steps a
+# round (n_max)
+REPLAY_ROUNDS, N_MAX = 8, 5
+REPLAY_KW = dict(SERVE_KW, rounds=REPLAY_ROUNDS, round_replay=True)
 ORCH_CU = "src/repro_torch/kernels/csrc/orchestration.cu"
 REPLACES = {"queue_admit": "src/repro/kernels/orchestration.py:114",
             "group_occupancy": "src/repro/kernels/orchestration.py:55",
@@ -607,6 +631,222 @@ def phase_parity() -> None:
     emit("parity", **worst)
 
 
+def _replay_summary(rep: dict) -> dict:
+    keys = ("served_requests", "mean_art_ms", "opt_art_ms",
+            "violation_rate", "mean_reward", "opt_reward", "decisions_per_s")
+    out = {k: rep[k] for k in keys}
+    dps = rep["decisions_per_s"]
+    # decisions/s counts C * n_max decisions a round
+    out["ms_per_round"] = (rep["n_cells"] * N_MAX / dps * 1e3
+                           if dps else None)
+    return out
+
+
+def replay_counted(serve_fleet, **kw) -> tuple[dict, dict]:
+    """One round replay through the CLI's entry point on the card, with
+    the launch counts zeroed just before it and read just after."""
+    reset_all_counts()
+    rep = serve_fleet.serve(device="cuda", verbose=False, **kw)
+    return rep, all_counts()
+
+
+def phase_round_replay(torch) -> dict:
+    import numpy as np
+    from repro_torch import random as rnd
+    from repro_torch.env.scenarios import Scenario
+    from repro_torch.fleet.env import FleetConfig
+    from repro_torch.fleet.evaluate import (make_greedy_evaluator,
+                                            make_throughput_runner)
+    from repro_torch.fleet.solver import solve_optimal
+    from repro_torch.fleet.workload import poisson_round_trace, random_fleet
+    from repro_torch.hltrain.metrics import (evaluate_vs_solver,
+                                             optimal_rewards,
+                                             reward_from_round)
+    from repro_torch.launch import serve_fleet
+    from repro_torch.policy import adapters
+    from repro_torch.policy.bundle import (PolicyBundle, load_bundle,
+                                           policy_from_bundle, save_bundle)
+    from repro_torch.serve.compat import make_gateway, replay_trace
+    from repro_torch.serve.engine import ServeConfig, serve_stream
+    from repro_torch.serve.stream import round_synchronous_stream
+    from repro_torch.specs.observation import make_spec
+
+    dev = torch.device("cuda")
+    spec = make_spec("full", N_MAX)
+    meta = {"shared_cloud": True, "shared_edge": True,
+            "cells_per_edge": CELLS_PER_EDGE}
+
+    def oracle_bundle(name, cells, seed):
+        """An oracle bundle for the fleet the CLI draws from ``seed``,
+        written and read back; with the tables and the solver's host
+        seconds."""
+        k_fleet = rnd.split(rnd.PRNGKey(seed, dev), 4)[0]
+        scn = random_fleet(k_fleet, cells, n_max=N_MAX,
+                           cells_per_edge=CELLS_PER_EDGE)
+        t0 = time.perf_counter()
+        tables = adapters.solve_oracle(scn)
+        seconds = time.perf_counter() - t0
+        path = str(OUT / f"chip_smoke_{name}.bundle.msgpack")
+        save_bundle(path, PolicyBundle(
+            "oracle", "full", N_MAX, adapters.oracle_params(scn, tables),
+            meta=meta))
+        b = load_bundle(path, expect_spec="full", expect_n_max=N_MAX)
+        check(b.kind == "oracle" and np.array_equal(
+            b.params["table"].numpy(), tables["actions"]),
+            f"{name} bundle reads back")
+        return path, scn, tables, seconds
+
+    # (a) the deployment, coupled, background on, through the CLI
+    path, scn, tables, solve_s = oracle_bundle("oracle", CELLS, SEED)
+    # the reference's per-cell loop, which the memoised solver replaces,
+    # on 1,024 cells
+    weak_s, weak_e, cons = (x.cpu().numpy() for x in (
+        scn.weak_s, scn.weak_e, scn.constraint))
+    t0 = time.perf_counter()
+    for i in range(1024):
+        for n in range(1, N_MAX + 1):
+            solve_optimal(Scenario(f"cell{i}", tuple(map(bool, weak_s[i, :n])),
+                                   bool(weak_e[i])),
+                          round(float(cons[i]), 4), n)
+    loop_s = time.perf_counter() - t0
+    k_trace, k_serve = rnd.split(rnd.PRNGKey(SEED, dev), 4)[1:3]
+    trace, stats = poisson_round_trace(k_trace, scn, REPLAY_ROUNDS,
+                                       rate=RATE, with_stats=True)
+    n_traced = int(trace.sum())
+    coupled = {}
+    per_round = 3 * N_MAX  # observe's coupling and group load, transition's
+    for name, kw in (("greedy", dict(greedy=True)),
+                     ("oracle", dict(bundle=path))):
+        rep, launches = replay_counted(serve_fleet, **kw, **REPLAY_KW)
+        check(rep["served_requests"] == n_traced
+              == sum(r["served_requests"] for r in rep["rounds"])
+              and rep["trace_stats"] == stats,
+              f"{name}: every traced request served ({n_traced})")
+        check(rep["violation_rate"] == 0.0, f"{name}: no violation")
+        for r in rep["rounds"]:
+            check(r["mean_art_ms"] >= r["opt_art_ms"] - 1e-2,
+                  f"{name} round {r['round']}: ART {r['mean_art_ms']} at "
+                  f"least the oracle's {r['opt_art_ms']} - 1e-2")
+        want = {"group_occupancy": per_round * REPLAY_ROUNDS,
+                "queue_admit": 0, "flash_attention": 0, "wkv6": 0, "ssd": 0}
+        check(launches == want, f"{name}: launches {launches}, want {want}")
+        coupled[name] = dict(_replay_summary(rep), launches=launches,
+                             rounds=[dict(round=r["round"],
+                                          art=r["mean_art_ms"],
+                                          opt=r["opt_art_ms"])
+                                     for r in rep["rounds"]])
+    # device ops and busy time of one coupled greedy round, after a warm
+    # one, as the gateway serves it
+    greedy = adapters.heuristic_greedy_policy(spec)
+    g_params = greedy.init(SEED, dev)
+    cfg_c = FleetConfig(n_max=N_MAX, obs_spec="full", shared_cloud=True,
+                        shared_edge=True)
+    env, serve_round = make_gateway(greedy, cfg_c)
+    scn_0 = scn._replace(n_users=trace[0])
+    p_0 = greedy.refresh(g_params, scn_0)
+    state = serve_round(p_0, scn_0, env.init(k_serve, scn), k_serve)[0]
+    prof, _ = _device_time(torch, lambda: serve_round(p_0, scn_0, state,
+                                                      k_serve))
+    prof["device_busy_share"] = (prof["device_busy_ms"]
+                                 / coupled["greedy"]["ms_per_round"])
+    coupled["greedy"]["profile_one_round"] = prof
+
+    # (b) the deployment, quiet and uncoupled
+    cfg_q = FleetConfig(n_max=N_MAX, obs_spec="full", quiet=True)
+    orep = replay_trace(adapters.oracle_policy(spec),
+                        adapters.oracle_params(scn, tables), scn, trace,
+                        cfg_q, key=k_serve, oracle=tables, device=dev)
+    oracle_gap = max(abs(r["mean_art_ms"] - r["opt_art_ms"])
+                     for r in orep["rounds"])
+    check(oracle_gap <= 1e-3 and orep["violation_rate"] == 0.0,
+          f"quiet uncoupled oracle replay at the optimum ({oracle_gap})")
+    g_rep = replay_trace(greedy, g_params, scn, trace, cfg_q, key=k_serve,
+                         oracle=tables, device=dev)
+    scfg = ServeConfig(n_max=N_MAX, obs_spec="full", quiet=True)
+    stream = round_synchronous_stream(trace, scfg.round_ms)
+    reset_all_counts()
+    req = serve_stream(greedy, g_params, scn, stream, scfg, key=k_serve,
+                       device=dev)
+    req_launches = all_counts()
+    art_err = abs(req["mean_art_ms"] - g_rep["mean_art_ms"])
+    vio_err = abs(req["violation_rate"] - g_rep["violation_rate"])
+    check(art_err <= 1e-5 and vio_err <= 1e-5,
+          f"round-request parity: ART {art_err}, violations {vio_err}")
+    check(req["served_requests"] == n_traced
+          and req["dropped_requests"] == 0
+          and req["deferred_requests"] == 0,
+          "round-synchronous stream served whole")
+    check(req_launches["queue_admit"] == req["n_ticks"],
+          f"queue_admit once a tick ({req_launches['queue_admit']} in "
+          f"{req['n_ticks']} ticks)")
+    opt_reward = optimal_rewards(scn)
+    g_info = make_greedy_evaluator(cfg_q, greedy)(
+        greedy.refresh(g_params, scn), scn, rnd.PRNGKey(SEED, dev))
+    g_reward = reward_from_round(*(g_info[k].cpu().numpy()
+                                   for k in ("art", "acc")),
+                                 scn.constraint.cpu().numpy())
+    g_gap = (opt_reward - g_reward) / np.abs(opt_reward)
+    dqn, net = policy_from_bundle(load_bundle(
+        str(OUT / "chip_smoke_dqn.bundle.msgpack")), dev)
+    d_eval = evaluate_vs_solver(net, scn, cfg_q, opt_reward=opt_reward)
+    check(float(g_gap.min()) >= -1e-6 and float(
+        d_eval["reward_gap"].min()) >= -1e-6,
+        "the optimum bounds every cell's reward")
+    steps = 25
+    run = make_throughput_runner(cfg_c, greedy, n_steps=steps)
+    g_ref = greedy.refresh(g_params, scn)
+    run(g_ref, scn, k_serve)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reward = float(run(g_ref, scn, k_serve))
+    throughput_s = time.perf_counter() - t0
+    quiet = dict(
+        oracle_max_art_gap_ms=oracle_gap,
+        greedy=_replay_summary(g_rep),
+        parity=dict(art_abs_err=art_err, violation_abs_err=vio_err,
+                    request_mean_art_ms=req["mean_art_ms"],
+                    n_ticks=req["n_ticks"], launches=req_launches),
+        greedy_gap=dict(min=float(g_gap.min()), mean=float(g_gap.mean())),
+        dqn_vs_solver=dict(min_gap=float(d_eval["reward_gap"].min()),
+                           mean_gap=d_eval["mean_reward_gap"],
+                           violation_rate=d_eval["violation_rate"]),
+        throughput=dict(steps=steps, coupled=True, mean_reward=reward,
+                        seconds=throughput_s,
+                        decisions_per_s=CELLS * steps / throughput_s))
+
+    # (c) CPU against the card, small and coupled, background on
+    small = dict(cells=64, rounds=4, seed=1, cells_per_edge=CELLS_PER_EDGE,
+                 shared_cloud=True, shared_edge=True, round_replay=True,
+                 verbose=False)
+    s_path = oracle_bundle("oracle_small", 64, 1)[0]
+    worst = {}
+    for name, kw in (("greedy", dict(greedy=True)),
+                     ("oracle", dict(bundle=s_path))):
+        cpu = serve_fleet.serve(device="cpu", **kw, **small)["rounds"]
+        gpu = serve_fleet.serve(device="cuda", **kw, **small)["rounds"]
+        for c, g in zip(cpu, gpu, strict=True):
+            check(c["served_requests"] == g["served_requests"]
+                  and c["violation_rate"] == g["violation_rate"],
+                  f"{name} round {c['round']}: requests and violations "
+                  "identical on the CPU and the card")
+        errs = {k: max(abs(c[k] - g[k]) for c, g in zip(cpu, gpu))
+                for k in ("mean_art_ms", "mean_reward")}
+        check(max(errs.values()) <= 1e-5, f"{name}: CPU and card within "
+              f"1e-5 ({errs})")
+        worst[name] = errs
+
+    out = dict(cells=CELLS, rounds=REPLAY_ROUNDS, rate=RATE,
+               clipped_fraction=stats["clipped_fraction"],
+               floor_fraction=stats["floor_fraction"],
+               traced_requests=n_traced,
+               solve_oracle_host_s=solve_s,
+               per_cell_loop_host_s_1024_cells=loop_s,
+               per_cell_loop_host_s_extrapolated=loop_s * CELLS / 1024,
+               coupled=coupled, quiet_uncoupled=quiet, cpu_vs_card=worst)
+    emit("round_replay", **out)
+    return out
+
+
 # ------------------------------------------------------------- LM phases
 # (name, B, S, H, KV, D, window, dtype): the LM serving shapes
 FLASH_SHAPES = (
@@ -1075,6 +1315,7 @@ def main() -> int:
     kernels = phase_kernels(torch, dev)
     serve = phase_serve(torch)
     phase_parity()
+    phase_round_replay(torch)
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in f32
     lm_kernels = phase_lm_kernels(torch, dev, ptxas)
     lm_serve = phase_lm_serve(torch)

@@ -7,7 +7,11 @@ the vectorized fleet env (whose edge-group coupling runs the hand-written
 ``group_occupancy`` kernel) and scatters per-request records.  It also
 serves the LM substrate (``repro_torch.serving.engine``): prefill runs
 the hand-written flash-attention kernel in every attention block and the
-WKV6 kernel in every RWKV6 block, then decodes token by token.
+WKV6 kernel in every RWKV6 block, then decodes token by token.  Beside
+the tick, a round gateway (``repro_torch.serve.compat.replay_trace``)
+replays a round trace through a policy and scores it against the exact
+solver optimum (``repro_torch.fleet.solver``), as the paper judges its
+orchestration policies.
 
 Entry points take an explicit ``device`` that defaults to ``"cuda"`` and
 raise when no card is visible; the CPU runs only when asked for, and then

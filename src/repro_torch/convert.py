@@ -5,8 +5,11 @@ Every function takes the reference's objects as plain arrays (anything
 by name, so this module imports nothing of the reference:
 
     mlp_from_layers     [{"w", "b"}] layer list → MLP
-    policy_params       greedy / guarded params dicts (inner MLP or dict)
-    fleet_scenario      FleetScenario fields → port FleetScenario
+    policy_params       greedy / oracle / guarded params dicts (inner MLP
+                        or dict); a qtable dict stays on the host
+    fleet_scenario      FleetScenario fields → port FleetScenario (from
+                        random_fleet, from_table4 or one stage of
+                        curriculum_fleets)
     request_stream      RequestStream arrays → port RequestStream
     key_from_data       a (2,) uint32 key_data pair → port threefry key
     lm_params           an LM params pytree → the port's LM module
@@ -37,11 +40,15 @@ def _tensors(tree, dev):
 
 def policy_params(params, device="cuda"):
     """A params pytree of the reference's adapters: a dqn layer list
-    becomes an MLP, dicts of arrays (greedy; guarded, whose ``inner`` may
-    be a layer list) become dicts of tensors."""
+    becomes an MLP, dicts of arrays (greedy; oracle's ``table`` and
+    ``n_users``; guarded, whose ``inner`` may be a layer list) become
+    dicts of tensors.  A qtable dict (bytes keys) keeps its keys and
+    holds its rows as numpy arrays: the adapter runs on the host."""
     dev = resolve_device(device)
     if isinstance(params, (list, tuple)):
         return mlp_from_layers(params, dev)
+    if params and all(isinstance(k, bytes) for k in params):
+        return {k: np.asarray(v) for k, v in params.items()}
     return {k: (policy_params(v, dev) if isinstance(v, (list, tuple, dict))
                 else _tensors(v, dev))
             for k, v in params.items()}

@@ -18,3 +18,10 @@ def resolve_device(device="cuda") -> torch.device:
             f"device {str(dev)!r} requested but no CUDA device is visible; "
             f"pass device='cpu' to run the plain PyTorch path")
     return dev
+
+
+def synchronize(dev: torch.device) -> None:
+    """Wait for ``dev``'s queued work (a no-op on the CPU), so a host
+    clock read after it measures the device's work."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

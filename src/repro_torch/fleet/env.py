@@ -10,9 +10,10 @@ next observation (the serving tick) calls ``transition`` alone, which
 the reference's jitted scan gets from XLA dropping an unused output.
 Edge groups are read from the scenario's ``group_index``, built once per
 deployment (``FleetScenario.with_group_index``); ``observe`` and
-``transition`` raise when they need it and it is missing.  ``reset_rounds``
-(round-replay user-count swaps) arrives with the round gateway.
-Background flags are drawn per global cell id with the port's threefry
+``transition`` raise when they need it and it is missing.
+``reset_rounds`` aborts in-flight rounds (actions, cursor and charged
+reward cleared; key and background kept), which round replay needs
+before it swaps a scenario's ``n_users``.  Background flags are drawn per global cell id with the port's threefry
 (``repro_torch.random``), so with background noise on the env draws the
 reference's exact bits.  Done cells auto-reset with a fresh background.
 
@@ -21,6 +22,7 @@ reference's exact bits.  Done cells auto-reset with a fresh background.
     obs = env.observe(scenario, state)          # (C, cfg.spec().dim)
     state, obs, reward, done, info = env.step(scenario, state, actions)
     state, reward, done, info = env.transition(scenario, state, actions)
+    state = env.reset_rounds(state)
 """
 from __future__ import annotations
 
@@ -82,6 +84,7 @@ class FleetEnvFns(NamedTuple):
     observe: Callable
     transition: Callable
     step: Callable
+    reset_rounds: Callable
     rollout: Callable
 
 
@@ -272,6 +275,15 @@ def make_fleet_env(cfg: FleetConfig) -> FleetEnvFns:
         state2, reward, done, info = transition(scenario, state, actions_in)
         return state2, observe(scenario, state2), reward, done, info
 
+    def reset_rounds(state: FleetState) -> FleetState:
+        """Abort every in-flight round: actions to -1, cursor and charged
+        reward to 0; the key and the background stay.  Call it before
+        stepping under a new ``n_users``, so no cell settles a round
+        against a user count it did not start with."""
+        return state._replace(actions=torch.full_like(state.actions, -1),
+                              user=torch.zeros_like(state.user),
+                              charged=torch.zeros_like(state.charged))
+
     def rollout(scenario: FleetScenario, state: FleetState, actions):
         """Apply a (T, C) action sequence; returns (state', trajectory)
         with every per-step output stacked on a leading T axis."""
@@ -284,4 +296,5 @@ def make_fleet_env(cfg: FleetConfig) -> FleetEnvFns:
                        for k in steps[0]}
 
     return FleetEnvFns(init=init, observe=observe, transition=transition,
-                       step=step, rollout=rollout)
+                       step=step, reset_rounds=reset_rounds,
+                       rollout=rollout)

@@ -1,18 +1,30 @@
 """Fleet scenarios: the stacked, padded description of C cells.
 
-Counterpart of ``repro.fleet.workload``'s ``FleetScenario`` and
-``random_fleet``.  ``random_fleet`` draws with the port's threefry keys
-(``repro_torch.random``) in the reference's order, so one key gives the
-reference's fleet bit for bit, on the key's device.
+Counterpart of ``repro.fleet.workload``:
+
+    from_table4          the paper's four Table-IV scenarios tiled over
+                         the constraint levels — the replication fleet
+    random_fleet         procedural random topologies
+    curriculum_fleets    one random fleet per curriculum stage, user
+                         counts growing start → end
+    poisson_round_trace  per-round Poisson arrival counts clipped to
+                         [1, n_max], for round replay
+
+The random draws use the port's threefry keys (``repro_torch.random``)
+in the reference's order, so one key gives the reference's fleet and
+trace bit for bit.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch import random as rnd
-from repro_torch.env.scenarios import CONSTRAINT_ORDER, CONSTRAINTS
+from repro_torch.device import resolve_device
+from repro_torch.env.scenarios import (CONSTRAINT_ORDER, CONSTRAINTS,
+                                       SCENARIOS, Scenario)
 from repro_torch.kernels.orchestration import GroupIndex, group_index
 from repro_torch.specs.observation import (DEFAULT_LATENCY_TARGET_MS,
                                            LATENCY_TARGET_POOL)
@@ -64,6 +76,16 @@ class FleetScenario(NamedTuple):
                                 device=self.device)
         return self.edge_group
 
+    def cell(self, i: int) -> tuple[Scenario, float, int]:
+        """Cell ``i`` as a (Scenario, constraint, n_users) triple for the
+        single-cell exact solver.  The float32 constraint is snapped back
+        to the Table-V tenths grid, so 89.9 does not come back as
+        89.90000153."""
+        n = int(self.n_users[i])
+        weak = tuple(bool(x) for x in self.weak_s[i, :n].tolist())
+        return (Scenario(f"cell{i}", weak, bool(self.weak_e[i])),
+                round(float(self.constraint[i]), 4), n)
+
     def with_group_index(self) -> "FleetScenario":
         """This scenario with its group index, built if it has none."""
         if self.group_index is not None:
@@ -109,3 +131,81 @@ def random_fleet(key: torch.Tensor, n_cells: int, n_max: int = 5, *,
     return FleetScenario(weak_s, weak_e, n_users, constraint,
                          latency_target=latency, edge_group=edge_group,
                          group_index=group_index(edge_group))
+
+
+def from_table4(names=("A", "B", "C", "D"), constraints=CONSTRAINT_ORDER,
+                n_users: int = 5, n_max: int | None = None,
+                device="cuda") -> FleetScenario:
+    """Every (Table-IV scenario × constraint level) as one fleet cell, in
+    that order, on ``device`` (with its group index: singletons)."""
+    dev = resolve_device(device)
+    n_max = n_users if n_max is None else n_max
+    ws, we, nu, cs = [], [], [], []
+    for name in names:
+        sc = SCENARIOS[name].for_users(n_users)
+        row = np.zeros(n_max, bool)
+        row[:n_users] = sc.weak_s_arr()
+        for c in constraints:
+            ws.append(row)
+            we.append(sc.weak_e)
+            nu.append(n_users)
+            cs.append(CONSTRAINTS[c] if isinstance(c, str) else float(c))
+    t = lambda a: torch.as_tensor(a, device=dev)
+    return FleetScenario(t(np.stack(ws)), t(np.array(we)),
+                         t(np.array(nu, np.int32)),
+                         t(np.array(cs, np.float32))).with_group_index()
+
+
+def curriculum_fleets(key: torch.Tensor, n_cells: int, epochs: int, *,
+                      start: int = 2, end: int = 32, n_max: int | None = None,
+                      **random_fleet_kw) -> list[FleetScenario]:
+    """One :func:`random_fleet` per curriculum stage, the user-count
+    ceiling growing linearly start → end over ``epochs`` stages; every
+    stage has the same ``n_max`` (default ``end``), so one observation
+    width serves the whole curriculum.  Stage e draws from the second key
+    of the e-th ``split`` of ``key``, as the reference does."""
+    n_max = end if n_max is None else n_max
+    stages = []
+    for e in range(epochs):
+        frac = e / max(1, epochs - 1)
+        cap = int(round(start + frac * (end - start)))
+        key, sub = rnd.split(key)
+        stages.append(random_fleet(sub, n_cells, n_max=n_max,
+                                   n_users_min=min(start, cap),
+                                   n_users_max=cap, **random_fleet_kw))
+    return stages
+
+
+def poisson_round_trace(key: torch.Tensor, scenario: FleetScenario,
+                        horizon: int, rate=3.0, *, with_stats: bool = False):
+    """(horizon, C) int32 per-round arrival counts for round replay, on
+    the key's device: Poisson(rate) clipped to [1, n_max] (an empty round
+    is filled with one request, and a burst beyond ``n_max`` loses its
+    excess).  ``rate`` is a scalar or a per-cell (C,) array, cast to
+    float32.  The counts are ``poisson(key, rate, (horizon, C))``, drawn
+    on the CPU whatever the key's device (the card's ``log`` rounds apart
+    from the CPU's), so a key gives the reference's trace bit for bit.
+
+    ``with_stats=True`` also returns the clipping's labels: the raw and
+    served totals, ``clipped_fraction`` (share of the raw Poisson mass
+    the ``n_max`` ceiling discarded) and ``floor_fraction`` (share of the
+    served requests that fill empty rounds)."""
+    lam = torch.as_tensor(rate, dtype=torch.float32).cpu()
+    lam = torch.broadcast_to(lam, (scenario.n_cells,))
+    counts = rnd.poisson(key.cpu(), lam, (horizon, scenario.n_cells))
+    trace = counts.clamp(1, scenario.n_max)
+    if not with_stats:
+        return trace.to(key.device)
+    raw = int(counts.sum())
+    clipped = int((counts - scenario.n_max).clamp(min=0).sum())
+    floored = int((counts == 0).sum())
+    served = int(trace.sum())
+    stats = {
+        "raw_requests": raw,
+        "served_requests": served,
+        "clipped_requests": clipped,
+        "clipped_fraction": clipped / raw if raw else 0.0,
+        "floored_rounds": floored,
+        "floor_fraction": floored / served if served else 0.0,
+    }
+    return trace.to(key.device), stats

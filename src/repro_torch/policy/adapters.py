@@ -1,17 +1,23 @@
 """Policy adapters on tensors.
 
     dqn_policy               greedy argmax over the MLP's Q-values
+    qtable_policy            the tabular Q baseline: params are the
+                             table, keyed by the quantized observation
+                             (host-side)
     heuristic_greedy_policy  parameter-free latency-greedy baseline: the
                              cheapest action whose accuracy keeps the
                              round's constraint satisfiable
+    oracle_policy            the exact solver optimum as a policy: a
+                             per-(cell, n) action table on the device,
+                             looked up by the round cursor
+    epsilon_greedy           exploration over any policy, from its key
     slo_guarded              feasibility guard: serves the wrapped
                              policy's pick unless it would make the
                              round's accuracy constraint unsatisfiable,
                              then the fallback (default: greedy) serves
 
 Counterparts of ``repro.policy.adapters`` with the same arithmetic in
-float32 (actions test-enforced identical).  The oracle, epsilon-greedy
-and tabular adapters arrive with a later slice.
+float32 and the same key schedule (actions test-enforced identical).
 """
 from __future__ import annotations
 
@@ -82,6 +88,57 @@ def dqn_policy(spec, n_actions: int = lm.N_ACTIONS,
     return Policy("dqn", init, act)
 
 
+def epsilon_greedy(policy: Policy, n_actions: int, epsilon: float
+                   ) -> Policy:
+    """With probability ``epsilon`` act uniformly at random, else as
+    ``policy``: ``k_u, k_r, k_p = split(key, 3)``, the base policy acts on
+    ``k_p``, ``randint(k_r)`` draws the random action and ``uniform(k_u)
+    < epsilon`` picks, as the reference draws them.  A host-side base
+    stays host-side."""
+
+    def act(params, obs, key):
+        k_u, k_r, k_p = rnd.split(key, 3)
+        greedy = policy.act(params, obs, k_p)
+        rand = rnd.randint(k_r, tuple(greedy.shape), 0, n_actions)
+        explore = rnd.uniform(k_u, tuple(greedy.shape)) < epsilon
+        return torch.where(explore, rand, greedy.to(torch.int32))
+
+    return Policy(f"eps-{policy.kind}", policy.init, act, policy.refresh,
+                  policy.with_users, host_side=policy.host_side)
+
+
+# ------------------------------------------------------------------ qtable
+def obs_table_key(obs, decimals: int = 4) -> bytes:
+    """The tabular baseline's key of one observation row: rounded to
+    ``decimals`` in float64, then its float32 bytes (the reference's
+    bytes for the same float32 row)."""
+    if isinstance(obs, torch.Tensor):
+        obs = obs.detach().cpu().numpy()
+    return np.round(np.asarray(obs, np.float64), decimals) \
+        .astype(np.float32).tobytes()
+
+
+def qtable_policy(n_actions: int = lm.N_ACTIONS) -> Policy:
+    """Tabular Q baseline: ``params`` is the ``{obs_key: (n_actions,) q}``
+    dict itself, so ``act`` runs on the host, row by row (``host_side``).
+    Unseen states take action 0 (d0 local, most accurate), the argmax of
+    a fresh row of zeros.  Actions come back on the observations'
+    device."""
+
+    def init(seed: int = 0, device="cuda"):
+        return {}
+
+    def act(params, obs, key):
+        rows = obs.detach().cpu().numpy()
+        out = np.zeros(rows.shape[0], np.int32)
+        for i, row in enumerate(rows):
+            q = params.get(obs_table_key(row))
+            out[i] = 0 if q is None else int(np.argmax(np.asarray(q)))
+        return torch.as_tensor(out, device=obs.device)
+
+    return Policy("qtable", init, act, host_side=True)
+
+
 # ---------------------------------------------------------------- heuristic
 def heuristic_greedy_policy(spec) -> Policy:
     """Latency-greedy under the accuracy constraint, from the observation
@@ -143,6 +200,68 @@ def heuristic_greedy_policy(spec) -> Policy:
         return dict(params, n_users=n_users.to(torch.float32))
 
     return Policy("greedy", init, act, refresh, with_users)
+
+
+# ------------------------------------------------------------------ oracle
+def solve_oracle(scenario) -> dict:
+    """Exact optima for every user count a round trace can ask of each
+    cell: ``actions`` (C, n_max, n_max) int32 (row [c, n-1] is the
+    optimal n-user round, zero-padded), ``art`` / ``acc`` (C, n_max)
+    float64.  Host-side numpy (``fleet.solver.solve_cells``, one solver
+    call per distinct argument tuple); compute once per fleet and reuse
+    across rounds."""
+    from repro_torch.fleet.solver import host, solve_cells
+    n_cells, n_max = scenario.n_cells, scenario.n_max
+    n = np.tile(np.arange(1, n_max + 1), n_cells)
+    out = solve_cells(np.repeat(host(scenario.weak_s), n_max, axis=0),
+                      np.repeat(host(scenario.weak_e), n_max),
+                      np.repeat(host(scenario.constraint), n_max), n)
+    return {"actions": out["actions"].reshape(n_cells, n_max, n_max),
+            "art": out["art"].reshape(n_cells, n_max),
+            "acc": out["acc"].reshape(n_cells, n_max)}
+
+
+def oracle_params(scenario, tables: dict | None = None) -> dict:
+    """Params for :func:`oracle_policy` on the scenario's device; pass
+    precomputed :func:`solve_oracle` tables when replaying many
+    rounds."""
+    tables = solve_oracle(scenario) if tables is None else tables
+    return {"table": torch.as_tensor(np.asarray(tables["actions"]),
+                                     dtype=torch.int32,
+                                     device=scenario.device),
+            "n_users": scenario.n_users.to(torch.int32)}
+
+
+def oracle_policy(spec) -> Policy:
+    """The exact solver optimum as a policy: ``act`` gathers the table at
+    (cell, n_users - 1, cursor), the cursor decoded from the base block —
+    a gather on the device, with no host sync.  The optimum is
+    quiet-background and per-cell, so it is a lower bound under
+    background noise and the shared couplings; the order of actions
+    within a round is immaterial (round metrics depend on the
+    multiset)."""
+    n_max = _require_base_first(spec)
+
+    def act(params, obs, key):
+        n = params["n_users"].long()
+        cell = torch.arange(obs.shape[0], device=obs.device)
+        u = torch.argmax(obs[:, :n_max], -1)
+        return params["table"][cell, (n - 1).clamp(min=0),
+                               torch.minimum(u, n - 1)].to(torch.int32)
+
+    def init(seed: int = 0, device="cuda"):
+        dev = resolve_device(device)
+        return {"table": torch.zeros((0, n_max, n_max), dtype=torch.int32,
+                                     device=dev),
+                "n_users": torch.zeros(0, dtype=torch.int32, device=dev)}
+
+    def refresh(params, scenario):
+        return dict(params, n_users=scenario.n_users.to(torch.int32))
+
+    def with_users(params, n_users):
+        return dict(params, n_users=n_users.to(torch.int32))
+
+    return Policy("oracle", init, act, refresh, with_users)
 
 
 # ----------------------------------------------------------------- guarded
@@ -208,4 +327,5 @@ def slo_guarded(policy: Policy, spec, fallback: Policy | None = None
         return dict(params, inner=inner, fallback=fb,
                     n_users=n_users.to(torch.float32))
 
-    return Policy(f"guarded-{policy.kind}", init, act, refresh, with_users)
+    return Policy(f"guarded-{policy.kind}", init, act, refresh, with_users,
+                  host_side=policy.host_side or fallback.host_side)

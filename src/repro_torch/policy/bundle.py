@@ -1,10 +1,12 @@
 """Versioned PolicyBundle checkpoints, byte-compatible with the reference.
 
-Counterpart of ``repro.policy.bundle`` for the ``dqn`` and ``greedy``
-kinds: a bundle is the policy's params plus what they are (adapter kind,
-observation spec, ``n_max``, schema version, metadata), written in the
-reference's checkpoint format, so a bundle written by either package
-loads in the other.  Load is defensive: a non-bundle file, a newer
+Counterpart of ``repro.policy.bundle`` for the ``dqn``, ``greedy``,
+``oracle`` and ``qtable`` kinds: a bundle is the policy's params plus
+what they are (adapter kind, observation spec, ``n_max``, schema
+version, metadata), written in the reference's checkpoint format, so a
+bundle written by either package loads in the other.  An ``oracle``
+bundle holds one fleet's action table (``{"table", "n_users"}``); a
+``qtable`` bundle holds the table dict, its bytes keys as they are.  Load is defensive: a non-bundle file, a newer
 schema, an unknown spec or kind, or params whose width contradicts the
 declared spec raise.
 
@@ -28,8 +30,9 @@ from repro_torch.specs.observation import SPEC_NAMES, make_spec
 
 BUNDLE_FORMAT = "repro.policy.bundle"
 BUNDLE_VERSION = 1
-# kinds the reference writes that wait for a later slice of the port
-LATER_KINDS = ("oracle", "qtable", "cost_greedy")
+KINDS = ("dqn", "greedy", "oracle", "qtable")
+# the kind the reference writes that waits for the port's economy slice
+LATER_KINDS = ("cost_greedy",)
 
 
 class BundleError(ValueError):
@@ -42,10 +45,10 @@ class SpecMismatchError(BundleError):
 
 @dataclasses.dataclass(frozen=True)
 class PolicyBundle:
-    kind: str           # adapter family: "dqn" | "greedy"
+    kind: str           # adapter family: one of KINDS
     obs_spec: str       # ObservationSpec variant name
     n_max: int          # spec width parameter the policy was trained at
-    params: Any         # MLP (or its layer list) for dqn; dict for greedy
+    params: Any         # MLP (or its layer list) for dqn; else a dict
     meta: dict = dataclasses.field(default_factory=dict)
     version: int = BUNDLE_VERSION
 
@@ -66,8 +69,8 @@ def _validate(bundle: PolicyBundle) -> None:
         raise BundleError(f"bundle n_max must be >= 1, got {bundle.n_max}")
     if bundle.kind in LATER_KINDS:
         raise BundleError(f"{bundle.kind!r} bundles arrive with a later "
-                          f"slice of the port (dqn and greedy are served)")
-    if bundle.kind not in ("dqn", "greedy"):
+                          f"slice of the port (served: {KINDS})")
+    if bundle.kind not in KINDS:
         raise BundleError(f"unknown policy kind {bundle.kind!r}")
     if bundle.kind == "dqn":
         try:
@@ -101,7 +104,7 @@ def save_bundle(path: str, bundle: PolicyBundle) -> None:
 def load_bundle(path: str, *, expect_spec: str | None = None,
                 expect_n_max: int | None = None) -> PolicyBundle:
     """Load and validate; params come back as host tensors (a layer list
-    for dqn)."""
+    for dqn; a qtable's rows too, under their bytes keys)."""
     raw = restore(path)
     if not isinstance(raw, dict) or raw.get("format") != BUNDLE_FORMAT:
         raise BundleError(f"{path} is not a PolicyBundle checkpoint")
@@ -136,7 +139,14 @@ def policy_from_bundle(bundle: PolicyBundle,
                else MLP.from_layers(bundle.params))
         hidden = net.sizes[1:-1]
         return adapters.dqn_policy(spec, hidden=hidden), net.to(dev)
-    if bundle.kind == "greedy":
-        params = {k: torch.as_tensor(v) for k, v in bundle.params.items()}
-        return adapters.heuristic_greedy_policy(spec), params_to(params, dev)
+    if bundle.kind in ("greedy", "oracle"):
+        params = params_to({k: torch.as_tensor(v)
+                            for k, v in bundle.params.items()}, dev)
+        if bundle.kind == "greedy":
+            return adapters.heuristic_greedy_policy(spec), params
+        return adapters.oracle_policy(spec), params
+    if bundle.kind == "qtable":
+        # host-side: the rows stay numpy arrays under their bytes keys
+        params = {k: np.asarray(v) for k, v in bundle.params.items()}
+        return adapters.qtable_policy(), params
     raise BundleError(f"unknown policy kind {bundle.kind!r}")

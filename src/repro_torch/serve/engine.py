@@ -40,12 +40,12 @@ import numpy as np
 import torch
 
 from repro_torch import random as rnd
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, synchronize
 from repro_torch.fleet.env import FleetConfig, FleetState, make_fleet_env
 from repro_torch.fleet.workload import FleetScenario
 from repro_torch.kernels.orchestration import queue_admit
 from repro_torch.policy.api import (Policy, act_batch, params_to,
-                                    refresh_params)
+                                    refresh_params, require_device_side)
 from repro_torch.serve.metrics import request_report
 from repro_torch.serve.stream import RequestStream
 
@@ -128,6 +128,7 @@ def _reject_later_slices(live, mesh) -> None:
 def make_serve_engine(policy: Policy, cfg: ServeConfig, live=None,
                       mesh=None) -> ServeEngine:
     _reject_later_slices(live, mesh)
+    require_device_side(policy, "the request-level serving engine")
     env = make_fleet_env(cfg.fleet())
     n_max, Q = cfg.n_max, cfg.queue_cap
 
@@ -255,11 +256,6 @@ def _tick_buckets(stream: RequestStream, tick_ms: float,
     return ids, now, live, n_epochs
 
 
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
 def serve_stream(policy: Policy, params, scenario: FleetScenario,
                  stream: RequestStream, cfg: ServeConfig, *, key=None,
                  on_epoch: Optional[Callable] = None, verbose: bool = False,
@@ -306,7 +302,7 @@ def serve_stream(policy: Policy, params, scenario: FleetScenario,
         state, n_act = engine.run_epoch(
             params_t, scenario, state, ids[lo:hi], now[lo:hi],
             live_ticks[lo:hi], stream_t, stream_cell)
-        _sync(dev)
+        synchronize(dev)
         dt = time.perf_counter() - t0
         if e > 0:
             wall += dt

@@ -4,9 +4,17 @@ Counterpart of ``repro.serve.stream``: a flat, arrival-time-sorted
 sequence of requests (timestamp, cell, SLO budget) with no ``[1, n_max]``
 clipping — bursts queue, idle cells idle.  Streams are host-side numpy;
 the engine ships them to the device once per run.
-``poisson_request_stream`` draws with the port's threefry keys
-(``repro_torch.random``) as the reference does, on the CPU, so one key
-gives the reference's stream bit for bit.
+
+    poisson_request_stream    per-cell Poisson processes in continuous
+                              time, drawn with the port's threefry keys
+                              (``repro_torch.random``) as the reference
+                              does, on the CPU: one key gives the
+                              reference's stream bit for bit
+    round_synchronous_stream  a (T, C) round trace as a stream whose
+                              arrivals all land on round boundaries — the
+                              degenerate mode in which the engine must
+                              reproduce the round gateway
+                              (``serve.compat.replay_trace``)
 """
 from __future__ import annotations
 
@@ -79,3 +87,32 @@ def poisson_request_stream(key, scenario: FleetScenario, horizon_ms: float,
     return _sorted_stream(t, cell, slo, horizon_ms,
                          horizon_ms if epoch_ms is None else epoch_ms,
                          n_cells)
+
+
+def round_synchronous_stream(trace, round_ms: float, *,
+                             slo_ms: float | np.ndarray | None = None,
+                             epoch_ms: float | None = None
+                             ) -> RequestStream:
+    """A (T, C) per-round arrival-count trace (array or tensor) as a
+    stream: the ``trace[t, c]`` requests of round t arrive at ``t *
+    round_ms`` with ``slo_ms = round_ms`` unless given.  Counts from
+    ``poisson_round_trace`` lie in [1, n_max], so every round drains in
+    its own window and the engine serves round by round.  Requests come
+    in round, then cell order, as the reference lists them."""
+    trace = (trace.cpu().numpy() if isinstance(trace, torch.Tensor)
+             else np.asarray(trace))
+    horizon, n_cells = trace.shape
+    counts = trace.reshape(-1).astype(np.int64)
+    t = np.repeat(np.repeat(np.arange(horizon) * float(round_ms), n_cells),
+                  counts).astype(np.float32)
+    cell = np.repeat(np.tile(np.arange(n_cells, dtype=np.int32), horizon),
+                     counts)
+    if slo_ms is None:
+        slo = np.full(t.shape, float(round_ms), np.float32)
+    else:
+        slo = np.broadcast_to(np.asarray(slo_ms, np.float32),
+                              (n_cells,))[cell]
+    horizon_ms = horizon * float(round_ms)
+    return _sorted_stream(t, cell, slo, horizon_ms,
+                          horizon_ms if epoch_ms is None else epoch_ms,
+                          n_cells)

@@ -3,8 +3,12 @@
 * The MLP fed ``init_mlp_net`` params through ``convert`` gives Q-values
   within 1e-5 and the same argmax; greedy and guarded actions are
   identical on observations from the reference env.
-* Bundles cross-load both ways, and the port's msgpack-free encoder
-  writes the bytes ``msgpack.packb`` writes.
+* ``epsilon_greedy`` (over the greedy heuristic and a DQN), the solver
+  oracle and the tabular Q policy give identical actions for the same
+  key and observations; ``obs_table_key`` writes the reference's bytes.
+* Bundles cross-load both ways (``dqn``, ``greedy``, ``oracle`` and
+  ``qtable``), and the port's msgpack-free encoder writes the bytes
+  ``msgpack.packb`` writes.
 """
 import jax
 import msgpack
@@ -89,6 +93,92 @@ def test_greedy_actions_match_reference(env_obs):
     np.testing.assert_array_equal(_acts(pol, params, obs), want)
 
 
+def _port_key(key):
+    return convert.key_from_data(np.asarray(key), CPU)
+
+
+@pytest.mark.parametrize("base,epsilon", [("greedy", 0.3), ("dqn", 0.5),
+                                          ("dqn", 0.0)])
+def test_epsilon_greedy_matches_reference(env_obs, base, epsilon):
+    obs, scn = env_obs
+    scn_t = _tile(scn, 3)
+    ref_spec, spec = ref_make_spec("full", N_MAX), make_spec("full", N_MAX)
+    if base == "greedy":
+        ref_base = ref_adapters.heuristic_greedy_policy(ref_spec)
+        ref_params = ref_base.refresh(None, scn_t)
+        pol_base = adapters.heuristic_greedy_policy(spec)
+        params = pol_base.refresh(None, convert.fleet_scenario(scn_t, CPU))
+    else:
+        ref_base = ref_adapters.dqn_policy(ref_spec, hidden=(16,))
+        ref_params = ref_base.init(jax.random.PRNGKey(4))
+        pol_base = adapters.dqn_policy(spec, hidden=(16,))
+        params = convert.policy_params(
+            jax.tree.map(np.asarray, ref_params), CPU)
+    ref_pol = ref_adapters.epsilon_greedy(ref_base, 10, epsilon)
+    pol = adapters.epsilon_greedy(pol_base, 10, epsilon)
+    assert pol.kind == ref_pol.kind and not pol.host_side
+    for seed in range(4):
+        key = jax.random.PRNGKey(seed)
+        want = np.asarray(ref_pol.act(ref_params, obs, key))
+        got = pol.act(params, torch.as_tensor(obs), _port_key(key))
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+    plain = np.asarray(ref_base.act(ref_params, obs, None))
+    assert (want != plain).any() == (epsilon > 0)
+
+
+def _oracle_params(scn, reps):
+    """Reference oracle params for ``scn`` tiled ``reps`` times (one
+    table block per stacked step of observations)."""
+    tables = ref_adapters.solve_oracle(scn)
+    return {"table": np.tile(tables["actions"], (reps, 1, 1)),
+            "n_users": np.tile(np.asarray(scn.n_users), reps)}
+
+
+def test_oracle_actions_match_reference(env_obs):
+    obs, scn = env_obs
+    ref_params = jax.tree.map(jax.numpy.asarray, _oracle_params(scn, 3))
+    ref_pol = ref_adapters.oracle_policy(ref_make_spec("full", N_MAX))
+    want = np.asarray(ref_pol.act(ref_params, obs, None))
+    pol = adapters.oracle_policy(make_spec("full", N_MAX))
+    params = convert.policy_params(jax.tree.map(np.asarray, ref_params), CPU)
+    assert params["table"].dtype == torch.int32
+    np.testing.assert_array_equal(_acts(pol, params, obs), want)
+    # refresh / with_users rebind the round sizes, as the reference's do
+    n = np.full(obs.shape[0], 2, np.int32)
+    want = np.asarray(ref_pol.act(ref_pol.with_users(ref_params, n), obs,
+                                  None))
+    got = _acts(pol, pol.with_users(params, torch.as_tensor(n)), obs)
+    np.testing.assert_array_equal(got, want)
+    # oracle_params builds the port's table from the same solver
+    own = adapters.oracle_params(convert.fleet_scenario(scn, CPU))
+    np.testing.assert_array_equal(own["table"].numpy(),
+                                  ref_adapters.solve_oracle(scn)["actions"])
+
+
+def _qtable(obs, seed=0):
+    """A Q table over half the observation rows, random values."""
+    rng = np.random.default_rng(seed)
+    return {ref_adapters.obs_table_key(row):
+            rng.normal(size=10).astype(np.float32) for row in obs[::2]}
+
+
+def test_qtable_actions_match_reference(env_obs):
+    obs, _ = env_obs
+    table = _qtable(obs)
+    for row in obs[:5]:
+        assert (adapters.obs_table_key(torch.as_tensor(row))
+                == ref_adapters.obs_table_key(row))
+    want = np.asarray(ref_adapters.qtable_policy().act(table, obs, None))
+    pol = adapters.qtable_policy()
+    assert pol.host_side
+    params = convert.policy_params(table, CPU)
+    assert all(isinstance(v, np.ndarray) for v in params.values())
+    got = _acts(pol, params, obs)
+    np.testing.assert_array_equal(got, want)
+    assert (got[1::2] == 0).all() and (got[::2] != 0).any()
+
+
 def test_guarded_dqn_actions_match_reference(env_obs):
     obs, scn = env_obs
     scn_t = _tile(scn, 3)
@@ -150,6 +240,42 @@ def test_port_bundle_loads_in_reference(tmp_path):
     assert pol.kind == "greedy" and params["n_users"].numel() == 0
 
 
+@pytest.mark.parametrize("kind", ["oracle", "qtable"])
+def test_oracle_and_qtable_bundles_cross_both_ways(tmp_path, env_obs, kind):
+    obs, scn = env_obs
+    if kind == "oracle":
+        ref_params = jax.tree.map(jax.numpy.asarray, _oracle_params(scn, 3))
+        port_params = convert.policy_params(
+            jax.tree.map(np.asarray, ref_params), CPU)
+        ref_pol = ref_adapters.oracle_policy(ref_make_spec("full", N_MAX))
+    else:
+        ref_params = _qtable(obs, 1)
+        port_params = convert.policy_params(ref_params, CPU)
+        ref_pol = ref_adapters.qtable_policy()
+    want = np.asarray(ref_pol.act(ref_params, obs, None))
+    meta = {"cells": 64}
+    # reference → port
+    path = str(tmp_path / "ref.bundle.msgpack")
+    ref_bundle.save_bundle(path, ref_bundle.PolicyBundle(
+        kind, "full", N_MAX, ref_params, meta=meta))
+    b = bundle.load_bundle(path, expect_spec="full", expect_n_max=N_MAX)
+    assert b.kind == kind and b.meta == meta
+    pol, params = bundle.policy_from_bundle(b, CPU)
+    assert pol.kind == kind and pol.host_side == (kind == "qtable")
+    np.testing.assert_array_equal(_acts(pol, params, obs), want)
+    # port → reference
+    path = str(tmp_path / "port.bundle.msgpack")
+    bundle.save_bundle(path, bundle.PolicyBundle(kind, "full", N_MAX,
+                                                 port_params, meta=meta))
+    rb = ref_bundle.load_bundle(path, expect_spec="full")
+    r_pol, r_params = ref_bundle.policy_from_bundle(rb)
+    assert r_pol.kind == kind and rb.meta == meta
+    np.testing.assert_array_equal(np.asarray(r_pol.act(r_params, obs, None)),
+                                  want)
+    if kind == "qtable":
+        assert set(r_params) == set(ref_params)
+
+
 def test_encoder_bytes_equal_msgpack():
     net = MLP((6, 4, 10), seed=2)
     tree = {"format": bundle.BUNDLE_FORMAT, "version": 1, "kind": "dqn",
@@ -183,7 +309,7 @@ def test_bundle_validation(tmp_path):
             "dqn", "full", N_MAX, net))
     with pytest.raises(bundle.BundleError, match="later slice"):
         bundle.save_bundle(str(tmp_path / "x"), bundle.PolicyBundle(
-            "oracle", "base", N_MAX, {}))
+            "cost_greedy", "base", N_MAX, {}))
     ckpt.save(str(tmp_path / "bare"), {"w": np.zeros(3)})
     with pytest.raises(bundle.BundleError, match="not a PolicyBundle"):
         bundle.load_bundle(str(tmp_path / "bare"))
