@@ -131,6 +131,9 @@ DEVICE_NAMES = {"flash_attention": "flash_fwd_kernel",
 # H100 SXM data-sheet peaks: FP32 on the CUDA cores, dense TF32 and BF16
 # on the tensor cores
 PEAK_FP32, PEAK_TF32, PEAK_BF16 = 67e12, 495e12, 989e12
+# traces of one call taken before the profiler's loss of every device
+# record fails the run
+PROFILE_ATTEMPTS = 3
 # the LM serving runs: batch, prompt, greedy tokens
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
 
@@ -379,19 +382,39 @@ def group_layouts(torch, dev, g) -> dict:
                                     device=dev, dtype=torch.int32)}
 
 
+def traced(torch, fn, cpu=True, before=None) -> tuple:
+    """Run ``fn`` under ``torch.profiler``: the profile, its device events
+    and what ``fn`` returned.  Every ``fn`` traced here launches kernels,
+    so a trace without a single device event lost its records; it is
+    taken again (``before`` runs, untraced, ahead of each attempt), up to
+    ``PROFILE_ATTEMPTS`` times, and each lost trace is counted in
+    ``results["profiler_lost_traces"]``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
+    for _ in range(PROFILE_ATTEMPTS):
+        if before:
+            before()
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            result = fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        if events:
+            return prof, events, result
+        results["profiler_lost_traces"] = results.get(
+            "profiler_lost_traces", 0) + 1
+    raise RuntimeError(f"chip_smoke check failed: the profiler recorded no "
+                       f"device event in {PROFILE_ATTEMPTS} traces")
+
+
 def stream_ops(torch, fn) -> dict:
     """Device events of one ``fn()`` call under ``torch.profiler``, by
     name."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
     names: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            names[e.name[:60]] = names.get(e.name[:60], 0) + 1
+    for e in traced(torch, fn, cpu=False)[1]:
+        names[e.name[:60]] = names.get(e.name[:60], 0) + 1
     return names
 
 
@@ -560,16 +583,11 @@ def phase_serve(torch) -> dict:
               f"({launches['group_occupancy']} in {rep['n_ticks']} ticks)")
 
     # device-busy share of a tick: profile a short run of the deployment
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    reset_all_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        short = serve_fleet.serve(greedy=True, device="cuda", verbose=False,
-                                  **dict(SERVE_KW, rounds=1, epochs=1))
+    prof, dev_events, short = traced(
+        torch, lambda: serve_fleet.serve(
+            greedy=True, device="cuda", verbose=False,
+            **dict(SERVE_KW, rounds=1, epochs=1)), before=reset_all_counts)
     prof_launches = dict(orch.LAUNCHES)
-    dev_events = [e for e in prof.events()
-                  if e.device_type == DeviceType.CUDA]
     # every tick opens with its admission kernel: count from the first
     # one on, so set-up copies before the ticks stay out
     first = min((e.time_range.start for e in dev_events
@@ -1153,13 +1171,7 @@ def _device_time(torch, fn, matches=()) -> tuple[dict, object]:
     """Run ``fn`` under ``torch.profiler``; device ops, busy ms, the five
     kernels with the most device time and, for each name in ``matches``,
     the time of the kernels whose name holds it."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        result = fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    _, events, result = traced(torch, fn)
     by_name: dict = {}
     for e in events:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
@@ -1183,12 +1195,13 @@ def profile_lm(torch, run, rep: dict, steps: int = 2) -> dict:
         pre, (logits, cache) = _device_time(torch, lambda: tf.prefill(
             params, cfg, tokens, max_len=LM_PROMPT + steps + 1),
             [DEVICE_NAMES[k] for k in kernels])
-        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        tok0 = torch.argmax(logits, dim=-1).to(torch.int32)
+        pos0 = cache["pos"]
 
-        def decode():
-            nonlocal tok, cache
+        def decode():  # from the prefill's position, so a retrace fits
+            cache["pos"], tok = pos0, tok0
             for _ in range(steps):
-                tok, _, cache = step(params, tok, cache)
+                tok, _, _ = step(params, tok, cache)
 
         dec, _ = _device_time(torch, decode)
     del cache, logits
