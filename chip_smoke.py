@@ -83,7 +83,27 @@ CUDA toolkit's nvcc.  Phases, each printing one JSON line:
    prefill and decode logits within 1e-3;
 9. lm_parity: the yi, h2o-danube, rwkv6 and zamba2 smoke configs from
    one seed on the CPU and on the card — logits within 1e-4, greedy
-   tokens identical.
+   tokens identical;
+10. hltrain: fleet Hybrid Learning training (Algorithm 1).  (a) The
+   deployment (65,536 cells, n_max 5, ``full``, shared cloud and edge,
+   4 cells per edge) trained through ``rl_train --fleet`` for 4 epochs
+   of a 4-stage curriculum, the CLI's defaults otherwise: direct steps
+   equal to the closed-form budget, verifications inside theirs,
+   group_occupancy launched exactly as ``session_schedule`` implies
+   around ``run_curriculum`` (2 per observe at init and stage swaps, 3
+   per env step, one env step per direct step and k_best + 1 per
+   planning step) and queue_admit never, finite losses and parameters,
+   every cell's reward gap to the optimum at least -1e-6 on the last
+   stage and a held-out fleet; host seconds per epoch, real steps/s,
+   the solver's host seconds, and one direct and one planning step's
+   device ops and busy ms in the profiler.  (b) The bundle it wrote
+   loads and replays 2 rounds of the deployment's trace on the card,
+   every request served, 3 group sums a decision step.  (c) One epoch
+   at 4,096 cells under ``torch.cuda.set_sync_debug_mode("error")``.
+   (d) 64 cells, 2 tiny epochs from one key on the CPU and the card,
+   epoch by epoch: integers identical (counters, ring pointers and
+   sizes, actions, done flags, plan keys), floats within the CPU tests'
+   bars; a differing direct action only at a near-tie (Q gap < 1e-4).
 
 Any failed check raises, so the exit code is non-zero.  Ends with the
 ``nvidia-smi`` line, the kernels' JSON summary and, last,
@@ -1311,6 +1331,285 @@ def phase_lm_parity(torch) -> None:
     emit("lm_parity", **out)
 
 
+# ------------------------------------------------------- training phase
+# the trainer's deployment run: the serving deployment trained as the
+# reference CLI trains it, cut to a few epochs (one curriculum stage each)
+TRAIN_EPOCHS = 4
+TRAIN_ARGS = ["--algo", "HL", "--fleet", "--cells", str(CELLS), "--n-max",
+              str(N_MAX), "--obs-spec", "full", "--shared-cloud",
+              "--shared-edge", "--cells-per-edge", str(CELLS_PER_EDGE),
+              "--epochs", str(TRAIN_EPOCHS), "--chunk", "1", "--seed",
+              str(SEED)]
+SYNC_FREE_CELLS = 4096
+# CPU vs card: cells, and a schedule small enough for the CPU
+SMALL_TRAIN_CELLS = 64
+SMALL_TRAIN_HP = dict(epochs=2, n_direct=3, t_direct=6, n_world=6,
+                      n_suggest=2, t_suggest=3, n_plan=6, k_best=3,
+                      batch=16, direct_cap=1024, world_cap=1024,
+                      plan_cap=512)
+# the CPU tests' bars (tests/test_torch_trainer.py): buffers and metrics
+# 1e-5, parameters and moments 2e-6; a differing argmax only at a near-tie
+BUFFER_BAR, PARAM_BAR, NEAR_TIE = 1e-5, 2e-6, 1e-4
+
+
+def train_launches(hp, n_stages: int, epochs: int) -> dict:
+    """group_occupancy launches in ``run_curriculum`` under shared_edge
+    and the full spec: 2 per observe (the coupling and the group load) at
+    init and at each stage swap, 3 per env step (transition's coupling
+    and the next observe's two), one env step per direct step and
+    k_best + 1 per planning step."""
+    from repro_torch.hltrain.trainer import session_schedule
+    sched = session_schedule(hp)
+    direct = int(sched["direct"][:epochs].sum()) * hp.t_direct
+    planning = int(sched["suggest"][:epochs].sum()) * hp.t_suggest
+    return dict(direct_steps_per_cell=direct, planning_steps=planning,
+                group_occupancy=2 * n_stages + 3 * direct
+                + 3 * (hp.k_best + 1) * planning)
+
+
+def step_profiles(torch, cfg, scn, key) -> dict:
+    """Device ops and busy ms of one direct step and one planning step
+    at the deployment: one-epoch runs of a schedule of one session of
+    each kind, traced, with one more direct (planning) step taken apart
+    by difference."""
+    import dataclasses
+    from repro_torch.hltrain.trainer import make_hl_trainer
+    from repro_torch.launch.rl_train import fleet_params
+    base = dataclasses.replace(fleet_params(CELLS, 1, SEED), n_direct=1,
+                               n_world=1, n_suggest=1, n_plan=1,
+                               t_direct=1, t_suggest=1)
+    out = {}
+    for name, kw in (("base", {}), ("direct", dict(t_direct=2)),
+                     ("planning", dict(t_suggest=2))):
+        trainer = make_hl_trainer(cfg, dataclasses.replace(base, **kw))
+        state = trainer.init(key, scn)
+        trainer.run(state, scn, 0, 1)  # warm
+        prof, _ = _device_time(torch, lambda: trainer.run(state, scn, 0, 1))
+        out[name] = prof
+    return {name: dict(device_ops=out[name]["device_ops"]
+                       - out["base"]["device_ops"],
+                       device_busy_ms=out[name]["device_busy_ms"]
+                       - out["base"]["device_busy_ms"])
+            for name in ("direct", "planning")}
+
+
+def _carry_arrays(state) -> dict:
+    from repro_torch.convert import hl_train_state_arrays
+
+    def leaves(tree, path=""):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from leaves(v, f"{path}.{k}")
+        elif isinstance(tree, list):
+            for i, v in enumerate(tree):
+                yield from leaves(v, f"{path}[{i}]")
+        else:
+            yield path, tree
+    return dict(leaves(hl_train_state_arrays(state)))
+
+
+def near_tie_gap(torch, params, obs) -> float:
+    """Gap between the two largest Q-values of ``obs`` under ``params``
+    (on the CPU)."""
+    with torch.no_grad():
+        q = params(torch.as_tensor(obs)[None])[0]
+    top = torch.topk(q, 2).values
+    return float(top[0] - top[1])
+
+
+def train_cpu_vs_card(torch) -> dict:
+    """The same key and fleet on the CPU and on the card, epoch by epoch:
+    integers identical, floats within the CPU tests' bars; where a direct
+    action first differs, the CPU's Q gap there (under the epoch's
+    starting weights) must be a near-tie."""
+    import copy
+
+    import numpy as np
+    from repro_torch import random as rnd
+    from repro_torch.fleet.env import FleetConfig
+    from repro_torch.fleet.workload import random_fleet
+    from repro_torch.hltrain.trainer import FleetHLParams, make_hl_trainer
+    cfg = FleetConfig(n_max=N_MAX, obs_spec="full", shared_cloud=True,
+                      shared_edge=True)
+    hp = FleetHLParams(**SMALL_TRAIN_HP)
+    trainer = make_hl_trainer(cfg, hp)
+    states, worst = {}, {"buffers": 0.0, "params": 0.0}
+    for dev in ("cpu", "cuda"):
+        k_fleet, k_init = rnd.split(rnd.PRNGKey(SEED + 7, dev), 2)
+        scn = random_fleet(k_fleet, SMALL_TRAIN_CELLS, n_max=N_MAX,
+                           cells_per_edge=CELLS_PER_EDGE)
+        states[dev] = (scn, trainer.init(k_init, scn))
+    tie = None
+    for e in range(hp.epochs):
+        start_params = copy.deepcopy(states["cpu"][1].dqn.params)
+        arrays = {}
+        for dev, (scn, st) in states.items():
+            st, _ = trainer.run(st, scn, e, 1)
+            states[dev] = (scn, st)
+            arrays[dev] = _carry_arrays(st)
+        cpu, gpu = arrays["cpu"], arrays["cuda"]
+        a_c, a_g = cpu[".d_direct.ring.a"], gpu[".d_direct.ring.a"]
+        if not np.array_equal(a_c, a_g):
+            slot = int(np.flatnonzero(a_c != a_g)[0])
+            gap = near_tie_gap(torch, start_params,
+                               cpu[".d_direct.ring.s"][slot])
+            tie = dict(epoch=e, step=slot // SMALL_TRAIN_CELLS,
+                       cell=slot % SMALL_TRAIN_CELLS, q_gap=gap)
+            print(json.dumps({"hltrain_cpu_vs_card_first_difference": tie}),
+                  flush=True)
+            check(gap < NEAR_TIE, f"CPU and card actions differ at a Q gap "
+                  f"of {gap} (near-tie bar {NEAR_TIE})")
+            break  # past a near-tie the two runs train apart
+        for path, c in cpu.items():
+            g = gpu[path]
+            if c.dtype.kind == "f":
+                kind = "params" if path.startswith((".dqn", ".sm")) \
+                    else "buffers"
+                err = float(np.abs(c.astype(np.float64) - g).max()) \
+                    if c.size else 0.0
+                worst[kind] = max(worst[kind], err)
+            else:
+                check(np.array_equal(c, g), f"epoch {e}: {path} identical on "
+                      f"the CPU and the card")
+    check(tie is not None or (worst["buffers"] <= BUFFER_BAR
+                              and worst["params"] <= PARAM_BAR),
+          f"CPU and card floats within {BUFFER_BAR} / {PARAM_BAR}: {worst}")
+    return dict(cells=SMALL_TRAIN_CELLS, epochs=hp.epochs,
+                max_abs_err=worst, first_difference=tie,
+                verify_steps=int(states["cpu"][1].verify_steps))
+
+
+def phase_hltrain(torch) -> dict:
+    import numpy as np
+    from repro_torch import random as rnd
+    from repro_torch.fleet.workload import poisson_round_trace, random_fleet
+    from repro_torch.hltrain.metrics import real_step_budget
+    from repro_torch.hltrain.trainer import make_hl_trainer
+    from repro_torch.launch import rl_train, serve_fleet
+    from repro_torch.launch.rl_train import fleet_params
+    from repro_torch.policy.bundle import load_bundle, policy_from_bundle
+
+    dev = torch.device("cuda")
+    # (a) the deployment trained through the CLI, launches counted around
+    # run_curriculum (zeroed just before it, read just after)
+    path = OUT / "hl_fleet.bundle.msgpack"
+    curriculum_counts: dict = {}
+    run_curriculum = rl_train.run_curriculum
+
+    def counted(*args, **kw):
+        reset_all_counts()
+        state = run_curriculum(*args, **kw)
+        curriculum_counts.update(all_counts())
+        return state
+
+    rl_train.run_curriculum = counted
+    try:
+        reset_all_counts()
+        rep = rl_train.main(TRAIN_ARGS + ["--ckpt", str(path)])
+        cli_counts = all_counts()
+    finally:
+        rl_train.run_curriculum = run_curriculum
+    hp, state = rep["hp"], rep["state"]
+    n_stages = len(rep["stages"])
+    budget = real_step_budget(hp, CELLS, TRAIN_EPOCHS)
+    direct, verify = int(state.direct_steps), int(state.verify_steps)
+    check(direct == budget["direct_steps"],
+          f"direct_steps {direct} == the budget {budget['direct_steps']}")
+    check(0 < verify <= budget["verify_steps_max"],
+          f"0 < verify_steps {verify} <= {budget['verify_steps_max']}")
+    want = train_launches(hp, n_stages, TRAIN_EPOCHS)
+    check(curriculum_counts == {"queue_admit": 0,
+                                "group_occupancy": want["group_occupancy"],
+                                "flash_attention": 0, "wkv6": 0, "ssd": 0},
+          f"launches around run_curriculum {curriculum_counts}, want "
+          f"group_occupancy {want['group_occupancy']} and nothing else")
+    # the two evaluations: one quiet round each, 3 sums a decision step
+    check(cli_counts["group_occupancy"]
+          == want["group_occupancy"] + 2 * 3 * N_MAX,
+          f"launches in the whole CLI run {cli_counts}")
+    for c in rep["chunks"]:
+        m = c["metrics"]
+        for k in ("q_loss", "sm_loss", "plan_loss"):
+            # at 65,536 cells every buffer holds a batch from its first
+            # session on
+            check(all(np.isfinite(m[k])), f"stage {c['stage']}: {k} finite "
+                  f"({m[k]})")
+    nets = (state.dqn.params, state.dqn.target_params, state.sm.params)
+    check(all(bool(torch.isfinite(p).all()) for net in nets
+              for p in net.parameters()), "every final parameter finite")
+    gaps = {}
+    for name in ("final", "held_out"):
+        ev = rep[name]
+        check(float(ev["reward_gap"].min()) >= -1e-6,
+              f"{name}: every cell's reward at most the optimum's")
+        gaps[name] = dict(mean_reward_gap=ev["mean_reward_gap"],
+                          min_reward_gap=float(ev["reward_gap"].min()),
+                          violation_rate=ev["violation_rate"],
+                          mean_policy_reward=ev["mean_policy_reward"],
+                          mean_opt_reward=ev["mean_opt_reward"])
+    k_fleet, k_init = rnd.split(rnd.PRNGKey(SEED, dev), 3)[:2]
+    profiles = step_profiles(torch, rep["cfg"], rep["stages"][-1], k_init)
+
+    # (b) the bundle it wrote serves: loaded, then 2 rounds of the
+    # deployment's trace replayed on the card
+    pol, net = policy_from_bundle(load_bundle(str(path), expect_spec="full",
+                                              expect_n_max=N_MAX), dev)
+    check(pol.kind == "dqn" and net.sizes[0] == rep["cfg"].state_dim,
+          "the trained bundle loads")
+    rounds = 2
+    rep_b, launches_b = replay_counted(
+        serve_fleet, **dict(REPLAY_KW, rounds=rounds, bundle=str(path)))
+    scn = random_fleet(rnd.split(rnd.PRNGKey(SEED, dev), 4)[0], CELLS,
+                       n_max=N_MAX, cells_per_edge=CELLS_PER_EDGE)
+    trace = poisson_round_trace(rnd.split(rnd.PRNGKey(SEED, dev), 4)[1],
+                                scn, rounds, rate=RATE)
+    check(rep_b["served_requests"] == int(trace.sum()),
+          f"every traced request served ({rep_b['served_requests']})")
+    check(launches_b["group_occupancy"] == 3 * N_MAX * rounds
+          and launches_b["queue_admit"] == 0,
+          f"3 group sums a decision step in the replay: {launches_b}")
+
+    # (c) one epoch makes no host sync
+    cfg = rep["cfg"]
+    trainer = make_hl_trainer(cfg, fleet_params(SYNC_FREE_CELLS, 4, SEED))
+    small = random_fleet(k_fleet, SYNC_FREE_CELLS, n_max=N_MAX,
+                         cells_per_edge=CELLS_PER_EDGE)
+    st = trainer.init(k_init, small)
+    st, _ = trainer.run(st, small, 0, 1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st, m = trainer.run(st, small, 1, 1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(m["q_loss"]).all()),
+          "the sync-free epoch trained")
+
+    # (d) CPU against the card
+    cpu_vs_card = train_cpu_vs_card(torch)
+
+    epoch_s = [c["seconds"] / c["epochs"] for c in rep["chunks"]]
+    out = dict(cells=CELLS, epochs=TRAIN_EPOCHS, stages=n_stages,
+               direct_steps=direct, verify_steps=verify, budget=budget,
+               expected=want, launches_run_curriculum=curriculum_counts,
+               launches_cli=cli_counts,
+               host_s_per_epoch=epoch_s, train_host_s=rep["train_seconds"],
+               real_steps_per_s=rep["real_steps"] / rep["train_seconds"],
+               solver_host_s=rep["solver_seconds"], vs_solver=gaps,
+               metrics=[c["metrics"] for c in rep["chunks"]],
+               step_profiles=profiles,
+               bundle_replay=dict(rounds=rounds,
+                                  served=rep_b["served_requests"],
+                                  mean_art_ms=rep_b["mean_art_ms"],
+                                  violation_rate=rep_b["violation_rate"],
+                                  launches=launches_b),
+               sync_free_epoch=dict(cells=SYNC_FREE_CELLS, syncs=0),
+               cpu_vs_card=cpu_vs_card)
+    emit("hltrain", **out)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1333,6 +1632,7 @@ def main() -> int:
     lm_kernels = phase_lm_kernels(torch, dev, ptxas)
     lm_serve = phase_lm_serve(torch)
     phase_lm_parity(torch)
+    phase_hltrain(torch)
     for name, k in kernels.items():
         k["launches"] = serve["greedy"]["launches"][name]
     kernels["flash_attention"] = dict(

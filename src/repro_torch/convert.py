@@ -13,19 +13,29 @@ by name, so this module imports nothing of the reference:
     request_stream      RequestStream arrays → port RequestStream
     key_from_data       a (2,) uint32 key_data pair → port threefry key
     lm_params           an LM params pytree → the port's LM module
+    fleet_state         a FleetState (env carry) → port FleetState
+    hl_train_state      the fleet trainer's whole carry (HLTrainState) →
+                        the port's; ``hl_train_state_arrays`` is its
+                        inverse, to numpy in the reference's layout
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.dqn import DQNState
 from repro_torch.core.networks import MLP
+from repro_torch.core.system_model import SystemModelState
 from repro_torch.device import resolve_device
+from repro_torch.fleet.env import FleetBackground, FleetState
 from repro_torch.fleet.workload import FleetScenario
+from repro_torch.hltrain.buffers import PlanRing, PrioRing, Ring
+from repro_torch.hltrain.trainer import HLTrainState
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig
 from repro_torch.random import MASK32
 from repro_torch.serve.stream import RequestStream
+from repro_torch.training.optimizer import AdamState
 
 
 def mlp_from_layers(layers, device="cuda") -> MLP:
@@ -114,3 +124,141 @@ def lm_params(params, cfg: ModelConfig, device="cuda") -> tf.LM:
     return tf.LM(cfg, _map_tree(params["embed"], tensor),
                  _map_tree(params["final_norm"], tensor), blocks, head,
                  shared)
+
+
+# ------------------------------------------------------------ trainer carry
+def _array(x, dtype=None, device="cpu") -> torch.Tensor:
+    return torch.as_tensor(np.array(x, dtype=dtype), device=device)
+
+
+def fleet_state(state, device="cuda") -> FleetState:
+    """The reference's ``FleetState`` (fields read by name; its ``econ``
+    must be None)."""
+    dev = resolve_device(device)
+    if getattr(state, "econ", None) is not None:
+        raise ValueError("economy state arrives with the economy slice")
+    bg = state.bg
+    return FleetState(
+        key_from_data(state.key, dev),
+        _array(state.actions, np.int32, dev),
+        _array(state.user, np.int32, dev),
+        _array(state.charged, np.float32, dev),
+        FleetBackground(*(_array(getattr(bg, f), None, dev)
+                          for f in FleetBackground._fields)))
+
+
+def _flat_layers(layers, dev) -> list:
+    """A ``[{"w", "b"}]`` tree as ``list(MLP.parameters())`` orders it:
+    every weight, then every bias."""
+    return ([_array(l["w"], np.float32, dev) for l in layers]
+            + [_array(l["b"], np.float32, dev) for l in layers])
+
+
+def _layers(flat: list) -> list:
+    n = len(flat) // 2
+    host = lambda t: t.detach().cpu().numpy()
+    return [{"w": host(flat[i]), "b": host(flat[n + i])} for i in range(n)]
+
+
+def _adam(opt_state, dev) -> AdamState:
+    return AdamState(_array(opt_state.step, np.int32, dev),
+                     _flat_layers(opt_state.mu, dev),
+                     _flat_layers(opt_state.nu, dev))
+
+
+def _ring(ring, dev) -> Ring:
+    """A reference ring with the port's trash row appended."""
+    def rows(x, dtype):
+        x = np.array(x, dtype)
+        return _array(np.concatenate([x, np.zeros_like(x[:1])]), dtype, dev)
+    return Ring(rows(ring.s, np.float32), rows(ring.a, np.int32),
+                rows(ring.r, np.float32), rows(ring.s2, np.float32),
+                rows(ring.done, np.float32), _array(ring.ptr, np.int32, dev),
+                _array(ring.size, np.int32, dev))
+
+
+def _prio(buf, dev) -> PrioRing:
+    prio = np.array(buf.prio, np.float32)
+    return PrioRing(_ring(buf.ring, dev),
+                    _array(np.append(prio, np.float32(0)), np.float32, dev),
+                    _array(buf.max_prio, np.float32, dev))
+
+
+def hl_train_state(state, device="cuda") -> HLTrainState:
+    """The reference's ``HLTrainState`` — key, DQN (online, target, Adam
+    moments), system model and moments, the three buffers, env state,
+    observations, ε scales and counters — as the port's, on
+    ``device``.  Telemetry (``tel``) must be off."""
+    dev = resolve_device(device)
+    if getattr(state, "tel", None) is not None:
+        raise ValueError("training telemetry arrives with the port's "
+                         "telemetry slice")
+    i32 = lambda x: _array(x, np.int32, dev)
+    mlp = lambda layers: mlp_from_layers(
+        [{k: np.array(v, np.float32) for k, v in layer.items()}
+         for layer in layers], dev)
+    dqn, sm = state.dqn, state.sm
+    return HLTrainState(
+        key=key_from_data(state.key, dev),
+        dqn=DQNState(mlp(dqn.params),
+                     mlp(dqn.target_params).requires_grad_(False),
+                     _adam(dqn.opt_state, dev), i32(dqn.step)),
+        sm=SystemModelState(mlp(sm.params), _adam(sm.opt_state, dev),
+                            i32(sm.step)),
+        d_direct=_prio(state.d_direct, dev),
+        d_world=_ring(state.d_world, dev),
+        d_plan=PlanRing(_prio(state.d_plan.buf, dev),
+                        _array(np.append(np.array(state.d_plan.keys,
+                                                  np.int64), 0),
+                               np.int64, dev)),
+        env=fleet_state(state.env, dev),
+        obs=_array(state.obs, np.float32, dev),
+        eps_scale=_array(state.eps_scale, np.float32, dev),
+        steps_per_cell=i32(state.steps_per_cell),
+        direct_steps=i32(state.direct_steps),
+        verify_steps=i32(state.verify_steps), sessions=i32(state.sessions))
+
+
+def hl_train_state_arrays(state: HLTrainState) -> dict:
+    """The port's trainer carry as nested dicts of numpy arrays in the
+    reference's layout and field names (NamedTuples as dicts, layer
+    lists as ``[{"w", "b"}]``, the buffers without their trash row, keys
+    as uint32)."""
+    host = lambda t: t.detach().cpu().numpy()
+    u32 = lambda t: host(t).astype(np.uint32)
+
+    def adam(o):
+        return {"step": host(o.step), "mu": _layers(o.mu),
+                "nu": _layers(o.nu)}
+
+    def ring(r):
+        return {"s": host(r.s[:-1]), "a": host(r.a[:-1]),
+                "r": host(r.r[:-1]), "s2": host(r.s2[:-1]),
+                "done": host(r.done[:-1]), "ptr": host(r.ptr),
+                "size": host(r.size)}
+
+    def prio(b):
+        return {"ring": ring(b.ring), "prio": host(b.prio[:-1]),
+                "max_prio": host(b.max_prio)}
+
+    dqn, sm, env = state.dqn, state.sm, state.env
+    return {
+        "key": u32(state.key),
+        "dqn": {"params": dqn.params.to_layers(),
+                "target_params": dqn.target_params.to_layers(),
+                "opt_state": adam(dqn.opt_state), "step": host(dqn.step)},
+        "sm": {"params": sm.params.to_layers(),
+               "opt_state": adam(sm.opt_state), "step": host(sm.step)},
+        "d_direct": prio(state.d_direct), "d_world": ring(state.d_world),
+        "d_plan": {"buf": prio(state.d_plan.buf),
+                   "keys": u32(state.d_plan.keys[:-1])},
+        "env": {"key": u32(env.key), "actions": host(env.actions),
+                "user": host(env.user), "charged": host(env.charged),
+                "bg": {f: host(getattr(env.bg, f))
+                       for f in FleetBackground._fields}},
+        "obs": host(state.obs), "eps_scale": host(state.eps_scale),
+        "steps_per_cell": host(state.steps_per_cell),
+        "direct_steps": host(state.direct_steps),
+        "verify_steps": host(state.verify_steps),
+        "sessions": host(state.sessions),
+    }

@@ -4,12 +4,17 @@ Counterpart of ``repro.core.networks`` (``init_mlp_net`` /
 ``apply_mlp_net``): ReLU between layers, weights stored (in, out) as the
 reference's ``{"w", "b"}`` layer lists store them, so ``x @ w + b`` is
 the reference's arithmetic and a layer list converts without transposes.
+``init_mlp_net`` draws the reference's He-normal weights from a threefry
+key (``repro_torch.random.normal``); ``MLP(sizes, seed)`` draws from a
+``torch.Generator`` where only statistical parity matters.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 from torch import nn
+
+from repro_torch import random as rnd
 
 
 class MLP(nn.Module):
@@ -59,3 +64,18 @@ class MLP(nn.Module):
             for p, v in zip([*net.weights, *net.biases], [*ws, *bs]):
                 p.copy_(v)
         return net
+
+
+def init_mlp_net(key: torch.Tensor, sizes: tuple[int, ...]) -> MLP:
+    """``repro.core.networks.init_mlp_net`` from a (2,) threefry key: one
+    subkey per layer (``split(key, n_layers)``), weights
+    ``normal(k, (in, out)) · sqrt(2 / in)``, zero biases, as an
+    :class:`MLP` on the key's device."""
+    net = MLP(sizes).to(key.device)
+    keys = rnd.split(key, len(sizes) - 1)
+    with torch.no_grad():
+        for k, w, b in zip(keys, net.weights, net.biases):
+            din, dout = w.shape
+            w.copy_(rnd.normal(k, (din, dout)) * (2.0 / din) ** 0.5)
+            b.zero_()
+    return net

@@ -61,6 +61,10 @@ class FleetConfig:
     def spec(self) -> ObservationSpec:
         return make_spec(self.obs_spec, self.n_max)
 
+    @property
+    def state_dim(self) -> int:
+        return self.spec().dim
+
 
 class FleetBackground(NamedTuple):
     busy_p_s: torch.Tensor  # (C, n_max) bool

@@ -1,11 +1,35 @@
 """Fleet-scale Hybrid Learning (counterpart of ``repro.hltrain``).
 
-    metrics   reward-vs-exact-optimum evaluation against fleet.solver
+    buffers   replay / prioritized / plan buffers on device tensors
+              (masked ring writes into a trash row, Gumbel-top-k
+              prioritized sampling, hashed (s, a) novelty by sorted
+              membership)
+    trainer   the three HL phases over sessions, the whole fleet stepped
+              per decision; one DQN + system model shared across cells
+    metrics   Table-VI real-step accounting and reward-vs-exact-optimum
+              evaluation against fleet.solver
 
-The buffers, the trainer and the Table-VI accounting arrive with the
-trainer.
+Per-session training telemetry (``train_telemetry_report``) waits for
+the port's telemetry slice.
 """
-from repro_torch.hltrain.metrics import (evaluate_vs_solver, optimal_rewards,
-                                         reward_from_round)
+from repro_torch.hltrain.buffers import (Ring, PrioRing, PlanRing, ring_init,
+                                         ring_add, ring_sample, prio_init,
+                                         prio_add, prio_sample, prio_update,
+                                         plan_init, plan_contains, plan_add,
+                                         hash_state_action)
+from repro_torch.hltrain.trainer import (FleetHLParams, FleetHLTrainer,
+                                         HLTrainState, make_hl_trainer,
+                                         run_curriculum, session_schedule)
+from repro_torch.hltrain.metrics import (real_step_budget, optimal_rewards,
+                                         reward_from_round,
+                                         evaluate_vs_solver, history_to_dict)
 
-__all__ = ["optimal_rewards", "reward_from_round", "evaluate_vs_solver"]
+__all__ = [
+    "Ring", "PrioRing", "PlanRing", "ring_init", "ring_add", "ring_sample",
+    "prio_init", "prio_add", "prio_sample", "prio_update",
+    "plan_init", "plan_contains", "plan_add", "hash_state_action",
+    "FleetHLParams", "FleetHLTrainer", "HLTrainState", "make_hl_trainer",
+    "run_curriculum", "session_schedule",
+    "real_step_budget", "optimal_rewards", "reward_from_round",
+    "evaluate_vs_solver", "history_to_dict",
+]

@@ -1,14 +1,21 @@
-"""Fleet policies scored against the exact optimum (first part of the
-counterpart of ``repro.hltrain.metrics``).
+"""Per-epoch fleet metrics and the Table-VI accounting for the trainer.
 
-``evaluate_vs_solver`` runs a policy (default: the greedy argmax of a
-DQN) for one quiet round per cell and scores it against
-``fleet.solver``'s exact constrained optimum, in the paper's reward
-units r = −ART/100 − penalty·violated; the relative gap per cell is what
-the ≥95%-of-optimum acceptance of fleet training is checked on.
+Counterpart of ``repro.hltrain.metrics``:
 
-The Table-VI accounting (``real_step_budget``) and ``history_to_dict``
-arrive with the trainer, whose ``session_schedule`` they read.
+  * **Real-step accounting (Table VI).**  ``real_step_budget`` gives in
+    closed form what the trainer's counters reach: per epoch, the
+    ``session_schedule``'s direct sessions × t_direct steps × C cells
+    (equal to the trainer's ``direct_steps``), and at most its suggest
+    sessions × t_suggest × K × C verifications (the novelty gate only
+    skips requests).
+  * **Reward vs the exact optimum.**  ``evaluate_vs_solver`` runs a
+    policy (default: the greedy argmax of a DQN) for one quiet round per
+    cell and scores it against ``fleet.solver``'s exact constrained
+    optimum, in the paper's reward units r = −ART/100 − penalty·violated;
+    the relative gap per cell is what the ≥95%-of-optimum acceptance of
+    fleet training is checked on.
+  * ``history_to_dict`` brings a ``run`` call's per-epoch metrics (device
+    tensors) to the host as lists.
 """
 from __future__ import annotations
 
@@ -22,6 +29,20 @@ from repro_torch.fleet.env import (PENALTY_BASE, PENALTY_PER_PCT,
 from repro_torch.fleet.evaluate import make_greedy_evaluator
 from repro_torch.fleet.solver import host, solve_fleet
 from repro_torch.fleet.workload import FleetScenario
+from repro_torch.hltrain.trainer import FleetHLParams, session_schedule
+
+
+def real_step_budget(hp: FleetHLParams, n_cells: int,
+                     epochs: int | None = None) -> dict:
+    """Closed-form Table-VI interaction budget for ``epochs`` epochs, from
+    the trainer's own session schedule."""
+    epochs = hp.epochs if epochs is None else epochs
+    sched = session_schedule(hp)
+    direct = int(sched["direct"][:epochs].sum()) * hp.t_direct * n_cells
+    verify_max = (int(sched["suggest"][:epochs].sum())
+                  * hp.t_suggest * hp.k_best * n_cells)
+    return {"direct_steps": direct, "verify_steps_max": verify_max,
+            "real_steps_max": direct + verify_max}
 
 
 def optimal_rewards(scenario: FleetScenario) -> np.ndarray:
@@ -75,3 +96,8 @@ def evaluate_vs_solver(params, scenario: FleetScenario, cfg: FleetConfig,
         "mean_reward_gap": float(gap.mean()),
         "violation_rate": float(info["violated"].mean()),
     }
+
+
+def history_to_dict(metrics) -> dict:
+    """Per-epoch metrics (tensors or arrays) → plain Python lists."""
+    return {k: host(v).tolist() for k, v in metrics.items()}

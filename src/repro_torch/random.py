@@ -17,16 +17,23 @@ threefry2x32 implementation under ``jax_threefry_partitionable=True``
     randint        = lo + ((bits(k1) % span) * mult
                            + bits(k2) % span) % span,  (k1, k2) = split(key),
                      mult = (2**16 % span)**2 % span in wrapping uint32
+                     (``maxval`` may be a device tensor: no host sync)
+    normal         = sqrt(2) * erf_inv(uniform(key, shape, -1 + ulp/2, 1)),
+                     erf_inv as XLA's single-precision polynomials
     gumbel         = -log(-log(max(uniform, tiny)))
     categorical    = argmax(logits + gumbel(key, logits.shape))
     poisson        = jax's two loops over the whole array from one key:
                      Knuth (lam < 10, split(key) per step) and Hormann's
                      transformed rejection (split(key, 3) per step)
 
-``randint`` is bit-equal; ``gumbel`` draws bit-equal uniforms, and its two
-logarithms are PyTorch's, which round differently from XLA's in the last
-bit of about one value in seven, so its values agree to a few float32
-ulps (and ``categorical`` picks the same index unless two perturbed
+``randint`` is bit-equal.  ``normal`` draws bit-equal uniforms and
+evaluates XLA's ``erf_inv`` polynomials with each step rounded as the
+fused multiply-add XLA emits; only PyTorch's float32 ``log1p`` rounds
+apart, so about 1% of values differ, by at most a few 1e-7 (weights
+drawn from it match the reference's to that).  ``gumbel`` draws
+bit-equal uniforms, and its two logarithms are PyTorch's, which round
+differently from XLA's in the last bit of about one value in seven, so
+its values agree to a few float32 ulps (and ``categorical`` picks the same index unless two perturbed
 logits tie to within that).
 
 Keys are int64 tensors of shape ``(..., 2)`` holding 32-bit words (every
@@ -43,6 +50,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
@@ -143,21 +151,65 @@ def _bits(key: torch.Tensor, shape) -> torch.Tensor:
     return bits_at(key[..., None, :], idx).reshape(key.shape[:-1] + shape)
 
 
-def randint(key: torch.Tensor, shape, minval: int, maxval: int
-            ) -> torch.Tensor:
+def randint(key: torch.Tensor, shape, minval: int, maxval) -> torch.Tensor:
     """``jax.random.randint(key, shape, minval, maxval)`` (int32) for one
-    (2,) key and int32-range bounds."""
+    (2,) key and int32-range bounds.  ``maxval`` may be an int or an
+    integer tensor on the key's device (broadcast to ``shape``, as a
+    traced bound in the reference), which keeps the draw free of host
+    syncs."""
     shape = tuple(shape)
     k1, k2 = split(key, 2)
-    span = maxval - minval if maxval > minval else 1
-    if not 0 < span < 2 ** 32:
-        raise ValueError(f"randint span {span} outside uint32")
+    if isinstance(maxval, torch.Tensor):
+        span = (maxval.to(torch.int64) - minval).clamp(min=1)
+    else:
+        span = maxval - minval if maxval > minval else 1
+        if not 0 < span < 2 ** 32:
+            raise ValueError(f"randint span {span} outside uint32")
     # the reference's 2**32 % span, squared in wrapping uint32
     mult = ((2 ** 16 % span) ** 2 & MASK32) % span
+    # both keys' bits in one threefry call
+    hi_bits, lo_bits = _bits(torch.stack([k1, k2]), shape)
     # every product and sum wraps at 32 bits, as the reference's uint32
-    off = ((_bits(k1, shape) % span) * mult) & MASK32
-    off = ((off + _bits(k2, shape) % span) & MASK32) % span
+    off = ((hi_bits % span) * mult) & MASK32
+    off = ((off + lo_bits % span) & MASK32) % span
     return (off + minval).to(torch.int32)
+
+
+# XLA's single-precision erf_inv (Giles' two polynomials in w = -log1p(-x²),
+# split at w = 5), coefficients highest degree first
+_ERF_INV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                -4.39150654e-06, 0.00021858087, -0.00125372503,
+                -0.00417768164, 0.246640727, 1.50140941)
+_ERF_INV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+                -0.00367342844, 0.00573950773, -0.0076224613,
+                0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """float32 inverse error function as XLA evaluates it: each Horner
+    step ``c + p·w`` rounded once, as the fused multiply-add it compiles
+    to (the product of two float32 values is exact in float64, so the
+    float64 sum rounds as the fused form does); ±1 maps to ±max."""
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0).double()
+    # the coefficients as float32 values (exact in a Python float)
+    f32 = lambda c: float(np.float32(c))
+    coef = lambda i: torch.where(lt, f32(_ERF_INV_LT5[i]),
+                                 f32(_ERF_INV_GE5[i]))
+    p = coef(0)
+    for i in range(1, len(_ERF_INV_LT5)):
+        p = (coef(i).double() + p.double() * w).float()
+    return torch.where(x.abs() == 1, x * torch.finfo(torch.float32).max,
+                       p * x)
+
+
+def normal(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` (float32): uniforms in
+    (-1, 1) mapped through ``sqrt(2) · erf_inv``."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(key, shape, lo, 1.0)
+    return float(np.float32(math.sqrt(2))) * erf_inv(u)
 
 
 def gumbel(key: torch.Tensor, shape) -> torch.Tensor:
