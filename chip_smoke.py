@@ -1187,11 +1187,12 @@ def ssd_entry(torch, dev, *, g_, b, s, h, p, n) -> dict:
                    plain_chunk=SSD_CHUNK))
 
 
-def _device_time(torch, fn, matches=()) -> tuple[dict, object]:
-    """Run ``fn`` under ``torch.profiler``; device ops, busy ms, the five
-    kernels with the most device time and, for each name in ``matches``,
-    the time of the kernels whose name holds it."""
-    _, events, result = traced(torch, fn)
+def _device_time(torch, fn, matches=(), before=None) -> tuple[dict, object]:
+    """Run ``fn`` under ``torch.profiler`` (``before`` untraced ahead of
+    each attempt); device ops, busy ms, the five kernels with the most
+    device time and, for each name in ``matches``, the time of the
+    kernels whose name holds it."""
+    _, events, result = traced(torch, fn, before=before)
     by_name: dict = {}
     for e in events:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
@@ -1345,8 +1346,8 @@ SYNC_FREE_CELLS = 4096
 SMALL_TRAIN_CELLS = 64
 SMALL_TRAIN_HP = dict(epochs=2, n_direct=3, t_direct=6, n_world=6,
                       n_suggest=2, t_suggest=3, n_plan=6, k_best=3,
-                      batch=16, direct_cap=1024, world_cap=1024,
-                      plan_cap=512)
+                      batch=16, direct_cap=2048, world_cap=2048,
+                      plan_cap=512)  # D_direct holds its 1,536 rows unwrapped
 # the CPU tests' bars (tests/test_torch_trainer.py): buffers and metrics
 # 1e-5, parameters and moments 2e-6; a differing argmax only at a near-tie
 BUFFER_BAR, PARAM_BAR, NEAR_TIE = 1e-5, 2e-6, 1e-4
@@ -1382,9 +1383,14 @@ def step_profiles(torch, cfg, scn, key) -> dict:
     for name, kw in (("base", {}), ("direct", dict(t_direct=2)),
                      ("planning", dict(t_suggest=2))):
         trainer = make_hl_trainer(cfg, dataclasses.replace(base, **kw))
-        state = trainer.init(key, scn)
-        trainer.run(state, scn, 0, 1)  # warm
-        prof, _ = _device_time(torch, lambda: trainer.run(state, scn, 0, 1))
+        trainer.run(trainer.init(key, scn), scn, 0, 1)  # warm
+        carry = {}
+
+        def fresh():  # run consumes its carry: a new one for every trace
+            carry["state"] = trainer.init(key, scn)
+        prof, _ = _device_time(
+            torch, lambda: trainer.run(carry["state"], scn, 0, 1),
+            before=fresh)
         out[name] = prof
     return {name: dict(device_ops=out[name]["device_ops"]
                        - out["base"]["device_ops"],
@@ -1408,53 +1414,73 @@ def _carry_arrays(state) -> dict:
     return dict(leaves(hl_train_state_arrays(state)))
 
 
-def near_tie_gap(torch, params, obs) -> float:
-    """Gap between the two largest Q-values of ``obs`` under ``params``
-    (on the CPU)."""
-    with torch.no_grad():
-        q = params(torch.as_tensor(obs)[None])[0]
-    top = torch.topk(q, 2).values
-    return float(top[0] - top[1])
+def recording_make_dqn(record: list):
+    """A ``make_dqn`` for ``make_hl_trainer`` whose ``q_values`` also keeps,
+    in order, the Q-values of every direct step's greedy choice (a (C, D)
+    observation; planning passes (C, A, D) model states) on the host:
+    each step's Q under the weights that chose its actions."""
+    from repro_torch.core.dqn import make_dqn
+
+    def make(*args, **kw):
+        init, q_values, update, sync = make_dqn(*args, **kw)
+
+        def q(params, s):
+            out = q_values(params, s)
+            if s.dim() == 2:
+                record.append(out.cpu().numpy().copy())
+            return out
+        return init, q, update, sync
+    return make
 
 
 def train_cpu_vs_card(torch) -> dict:
     """The same key and fleet on the CPU and on the card, epoch by epoch:
     integers identical, floats within the CPU tests' bars; where a direct
-    action first differs, the CPU's Q gap there (under the epoch's
-    starting weights) must be a near-tie."""
-    import copy
-
+    action first differs (in time order: D_direct does not wrap), the
+    CPU's gap between its top two Q-values at that step, under the
+    weights that chose the action, must be a near-tie."""
     import numpy as np
     from repro_torch import random as rnd
     from repro_torch.fleet.env import FleetConfig
     from repro_torch.fleet.workload import random_fleet
+    from repro_torch.hltrain import trainer as trainer_mod
     from repro_torch.hltrain.trainer import FleetHLParams, make_hl_trainer
     cfg = FleetConfig(n_max=N_MAX, obs_spec="full", shared_cloud=True,
                       shared_edge=True)
     hp = FleetHLParams(**SMALL_TRAIN_HP)
-    trainer = make_hl_trainer(cfg, hp)
+    q_cpu: list = []  # (C, A) Q-values of each CPU direct step, in order
+    make_dqn = trainer_mod.make_dqn
+    trainer_mod.make_dqn = recording_make_dqn(q_cpu)
+    try:
+        trainers = {"cpu": make_hl_trainer(cfg, hp)}
+    finally:
+        trainer_mod.make_dqn = make_dqn
+    trainers["cuda"] = make_hl_trainer(cfg, hp)
     states, worst = {}, {"buffers": 0.0, "params": 0.0}
     for dev in ("cpu", "cuda"):
         k_fleet, k_init = rnd.split(rnd.PRNGKey(SEED + 7, dev), 2)
         scn = random_fleet(k_fleet, SMALL_TRAIN_CELLS, n_max=N_MAX,
                            cells_per_edge=CELLS_PER_EDGE)
-        states[dev] = (scn, trainer.init(k_init, scn))
+        states[dev] = (scn, trainers[dev].init(k_init, scn))
     tie = None
     for e in range(hp.epochs):
-        start_params = copy.deepcopy(states["cpu"][1].dqn.params)
         arrays = {}
         for dev, (scn, st) in states.items():
-            st, _ = trainer.run(st, scn, e, 1)
+            st, _ = trainers[dev].run(st, scn, e, 1)
             states[dev] = (scn, st)
             arrays[dev] = _carry_arrays(st)
         cpu, gpu = arrays["cpu"], arrays["cuda"]
+        rows = len(q_cpu) * SMALL_TRAIN_CELLS
+        check(rows == int(states["cpu"][1].d_direct.ring.size)
+              and rows <= hp.direct_cap,
+              f"D_direct holds its {rows} rows in time order (no wrap)")
         a_c, a_g = cpu[".d_direct.ring.a"], gpu[".d_direct.ring.a"]
         if not np.array_equal(a_c, a_g):
             slot = int(np.flatnonzero(a_c != a_g)[0])
-            gap = near_tie_gap(torch, start_params,
-                               cpu[".d_direct.ring.s"][slot])
-            tie = dict(epoch=e, step=slot // SMALL_TRAIN_CELLS,
-                       cell=slot % SMALL_TRAIN_CELLS, q_gap=gap)
+            step, cell = divmod(slot, SMALL_TRAIN_CELLS)
+            q = np.sort(q_cpu[step][cell])
+            gap = float(q[-1] - q[-2])
+            tie = dict(epoch=e, step=step, cell=cell, q_gap=gap)
             print(json.dumps({"hltrain_cpu_vs_card_first_difference": tie}),
                   flush=True)
             check(gap < NEAR_TIE, f"CPU and card actions differ at a Q gap "

@@ -325,7 +325,12 @@ def make_hl_trainer(cfg: FleetConfig, hp: FleetHLParams | None = None, *,
             n_epochs: int):
         """``n_epochs`` epochs from ``epoch_start``.  Returns (state,
         metrics): every metric stacked over the epochs as a device tensor
-        (``epoch`` an int64 tensor), with no host sync."""
+        (``epoch`` an int64 tensor), with no host sync.
+
+        The input ``state`` is consumed, as the reference's donated carry
+        is: its buffers, parameters and moments are written in place, its
+        cursors and counters are not, so only the returned state is a
+        consistent carry."""
         scenario = scenario.with_group_index()
         history = []
         for i in range(n_epochs):

@@ -67,10 +67,11 @@ def _zeros_fp32_like(params):
                                           device=p.device), params)
 
 
-def adam(lr: float | Callable[[torch.Tensor], torch.Tensor] = 1e-3,
-         b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-         weight_decay: float = 0.0) -> Optimizer:
-    """Adam / AdamW (decoupled weight decay when ``weight_decay`` > 0)."""
+def adam(lr: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-8, weight_decay: float = 0.0) -> Optimizer:
+    """Adam / AdamW (decoupled weight decay when ``weight_decay`` > 0)
+    at a constant learning rate; the reference's schedules wait for the
+    LM trainer."""
 
     def init(params) -> AdamState:
         dev = tree_leaves(params)[0].device
@@ -79,7 +80,6 @@ def adam(lr: float | Callable[[torch.Tensor], torch.Tensor] = 1e-3,
 
     def update(grads, state: AdamState, params=None):
         step = state.step + 1
-        lr_t = lr(step) if callable(lr) else lr
         mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g.float(),
                       state.mu, grads)
         nu = tree_map(lambda v, g: b2 * v + (1 - b2) * torch.square(
@@ -90,11 +90,11 @@ def adam(lr: float | Callable[[torch.Tensor], torch.Tensor] = 1e-3,
         c2 = 1 - torch.pow(b2, t)
         mu_hat = tree_map(lambda m: m / c1, mu)
         nu_hat = tree_map(lambda v: v / c2, nu)
-        updates = tree_map(lambda m, v: -lr_t * m / (torch.sqrt(v) + eps),
+        updates = tree_map(lambda m, v: -lr * m / (torch.sqrt(v) + eps),
                            mu_hat, nu_hat)
         if weight_decay and params is not None:
             updates = tree_map(
-                lambda u, p: u - lr_t * weight_decay * p.float(),
+                lambda u, p: u - lr * weight_decay * p.float(),
                 updates, params)
         return updates, AdamState(step, mu, nu)
 

@@ -32,6 +32,16 @@ CPU = torch.device("cpu")
 D, A = 12, 5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tensors this small gain nothing from intra-op threads, whose idle
+    pool spins on the cores that parallel test workers share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _key(seed):
     k = jax.random.PRNGKey(seed)
     return k, convert.key_from_data(np.asarray(k), CPU)

@@ -34,6 +34,16 @@ ARGS = ["--algo", "HL", "--fleet", "--cells", "8", "--n-max", "3",
         "--seed", "3", "--device", "cpu"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tensors this small gain nothing from intra-op threads, whose idle
+    pool spins on the cores that parallel test workers share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _assert_layers_equal(got, want):
     assert len(got) == len(want)
     for g, w in zip(got, want):

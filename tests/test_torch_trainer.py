@@ -10,10 +10,14 @@ against ``repro.hltrain``.
   per-epoch counts.  The only difference the rule allows is an argmax at
   a near-tie (top two Q-values within 1e-4, where the two libraries'
   float32 products may round apart).  Both run epoch by epoch; where a
-  direct action first differs, the carry is identical up to it and the
-  reference's Q gap at that step's state (under its weights at the
-  epoch's start) must be under 1e-4, and the test says so and stops
-  (this configuration has no such tie: every action is identical).
+  direct action first differs (in time order: D_direct does not wrap),
+  the carry is identical up to the epoch before, and the gap between the
+  top two Q-values at that step, under the weights that chose the action,
+  must be under 1e-4; the test says so and stops (this configuration has
+  no such tie: every action is identical).  Those weights are the port's,
+  recorded at every direct step: the reference's lie inside its compiled
+  epoch, and the port's match them within the parameter bar up to the
+  epoch that differs.
   Float buffers (states, rewards, priorities) within 1e-5; parameters and Adam moments within 2e-6 (measured on the CPU:
   4.8e-7 at most, in the system model's first moments); the metrics
   within 1e-5.
@@ -31,12 +35,10 @@ against ``repro.hltrain``.
 import warnings
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from repro.core.networks import apply_mlp_net as ref_apply_mlp_net
 from repro.fleet import FleetConfig as RefFleetConfig
 from repro.fleet import curriculum_fleets as ref_curriculum_fleets
 from repro.fleet import random_fleet as ref_random_fleet
@@ -53,6 +55,8 @@ from repro_torch.hltrain import (FleetHLParams, evaluate_vs_solver,
                                  history_to_dict, make_hl_trainer,
                                  real_step_budget, run_curriculum,
                                  session_schedule)
+from repro_torch.core.dqn import make_dqn
+from repro_torch.hltrain import trainer as trainer_mod
 from repro_torch.hltrain.trainer import train_telemetry_report
 
 CPU = torch.device("cpu")
@@ -66,6 +70,16 @@ PARAM_BAR = 2e-6
 # the two libraries may round a Q-value apart: an argmax may flip only
 # where the top two lie closer than this
 NEAR_TIE = 1e-4
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tensors this small gain nothing from intra-op threads, whose idle
+    pool spins on the cores that parallel test workers share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _key(seed):
@@ -105,26 +119,43 @@ def _bar(path: str):
     return 1e-5
 
 
-def _assert_carry(got: dict, want: dict, n_cells: int, start_params=None):
+def _recording_make_dqn(record: list):
+    """A ``make_dqn`` whose ``q_values`` also keeps, in order, the Q-values
+    of every direct step's greedy choice (a (C, D) observation; planning
+    passes (C, A, D) model states)."""
+    def make(*args, **kw):
+        init, q_values, update, sync = make_dqn(*args, **kw)
+
+        def q(params, s):
+            out = q_values(params, s)
+            if s.dim() == 2:
+                record.append(out.numpy().copy())
+            return out
+        return init, q, update, sync
+    return make
+
+
+def _assert_carry(got: dict, want: dict, n_cells: int, q_steps=None):
     """Every leaf of the port's carry against the reference's.  Where a
-    direct action differs, the reference's Q gap at its state under
-    ``start_params`` (its weights when the epoch began) must be a
-    near-tie, and the comparison stops there: past it the two runs train
-    apart.  Returns the first difference, or None."""
+    direct action differs, the gap between the top two of ``q_steps``
+    (the Q-values of each direct step, in order) at its step and cell
+    must be a near-tie, and the comparison stops there: past it the two
+    runs train apart.  Returns the first difference, or None."""
     g = dict(_leaves(got))
     w = dict(_leaves(want))
     assert g.keys() == w.keys()
     a_g, a_w = g[".d_direct.ring.a"], w[".d_direct.ring.a"]
     if not np.array_equal(a_g, a_w):
         slot = int(np.flatnonzero(a_g != a_w)[0])
-        assert start_params is not None, f"direct actions differ at {slot}"
-        q = np.sort(np.asarray(ref_apply_mlp_net(
-            start_params, jnp.asarray(w[".d_direct.ring.s"][slot]))))
+        assert q_steps is not None, f"direct actions differ at {slot}"
+        # time order: every direct row is still in its slot
+        assert len(q_steps) * n_cells == int(w[".d_direct.ring.size"])
+        step, cell = divmod(slot, n_cells)
+        q = np.sort(q_steps[step][cell])
         gap = float(q[-1] - q[-2])
         assert gap < NEAR_TIE, (f"direct actions differ first at step "
-                                f"{slot // n_cells}, cell {slot % n_cells}, "
-                                f"Q gap {gap}")
-        return dict(step=slot // n_cells, cell=slot % n_cells, q_gap=gap)
+                                f"{step}, cell {cell}, Q gap {gap}")
+        return dict(step=step, cell=cell, q_gap=gap)
     for path, want_v in w.items():
         got_v = g[path]
         assert got_v.shape == want_v.shape, path
@@ -166,7 +197,10 @@ def test_init_from_the_same_key_matches_reference():
             np.testing.assert_array_equal(g, w, err_msg=path)
 
 
-def test_carried_state_trains_as_the_reference():
+def test_carried_state_trains_as_the_reference(monkeypatch):
+    q_steps: list = []
+    monkeypatch.setattr(trainer_mod, "make_dqn",
+                        _recording_make_dqn(q_steps))
     ref_tr, tr = _trainers()
     ref_scn, scn = _fleet()
     ref_state = ref_tr.init(jax.random.PRNGKey(1), ref_scn)
@@ -175,11 +209,10 @@ def test_carried_state_trains_as_the_reference():
     _assert_carry(convert.hl_train_state_arrays(state), _tree(ref_state),
                   CELLS)
     for e in range(TINY["epochs"]):
-        start_params = ref_state.dqn.params
         ref_state, ref_m = ref_tr.run(ref_state, ref_scn, e, 1)
         state, m = tr.run(state, scn, e, 1)
         tie = _assert_carry(convert.hl_train_state_arrays(state),
-                            _tree(ref_state), CELLS, start_params)
+                            _tree(ref_state), CELLS, q_steps)
         if tie is not None:  # a near-tie: the runs part here
             warnings.warn(f"identical up to a near-tie at epoch {e}: {tie}")
             return
@@ -189,6 +222,20 @@ def test_carried_state_trains_as_the_reference():
                                        rtol=1e-6, err_msg=k)
     # the plan ring wrapped and both packages verified the same pairs
     assert int(state.verify_steps) > TINY["plan_cap"]
+
+
+def test_run_in_chunks_continues_from_the_returned_carry():
+    """``run`` consumes its input carry; the state it returns is the one
+    to continue from: two one-epoch calls leave the carry of one
+    two-epoch call, bit for bit."""
+    _, tr = _trainers()
+    _, scn = _fleet()
+    whole, _ = tr.run(tr.init(rnd.PRNGKey(1, CPU), scn), scn, 0, 2)
+    part, _ = tr.run(tr.init(rnd.PRNGKey(1, CPU), scn), scn, 0, 1)
+    part, _ = tr.run(part, scn, 1, 1)
+    got = dict(_leaves(convert.hl_train_state_arrays(part)))
+    for path, want in _leaves(convert.hl_train_state_arrays(whole)):
+        np.testing.assert_array_equal(got[path], want, err_msg=path)
 
 
 @pytest.mark.parametrize("hp", [
