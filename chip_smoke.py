@@ -103,7 +103,22 @@ CUDA toolkit's nvcc.  Phases, each printing one JSON line:
    (d) 64 cells, 2 tiny epochs from one key on the CPU and the card,
    epoch by epoch: integers identical (counters, ring pointers and
    sizes, actions, done flags, plan keys), floats within the CPU tests'
-   bars; a differing direct action only at a near-tie (Q gap < 1e-4).
+   bars; a differing direct action only at a near-tie (Q gap < 1e-4);
+11. economy: tier economics in the serving tick.  (a) Phase 4's
+   deployment under the ``spot`` profile through ``serve_fleet --economy
+   spot`` with a ``cost_greedy`` bundle (``full_economy``) the port
+   wrote and read back: queue_admit once a tick and group_occupancy 3
+   times a tick, read around the run; every billing total a
+   non-negative integer; preemptions > 0; ms per steady tick beside
+   phase 4's, and one tick's device ops and busy ms in the profiler.
+   (b) ``--economy local`` against no economy on the card, greedy and
+   quiet: records byte-identical, no spend, energy metered.  (c) 64
+   cells under ``spot`` with the ``cost_greedy`` bundle, 4 rounds,
+   background on, on the CPU and the card: integer records and the four
+   billing integers identical, float records within 1e-5.  (d) The
+   CLI's ``--quiet --tick-ms 40 --queue-cap 16 --out`` on the card: the
+   file holds the returned report; an unwritable ``--out`` exits
+   non-zero before any kernel launches.
 
 Any failed check raises, so the exit code is non-zero.  Ends with the
 ``nvidia-smi`` line, the kernels' JSON summary and, last,
@@ -1636,6 +1651,173 @@ def phase_hltrain(torch) -> dict:
     return out
 
 
+# ------------------------------------------------------- economy phase
+ECONOMY_PROFILE = "spot"
+# the billing totals of report["economy"], integers on both devices
+BILLING = ("spend_uusd_total", "energy_j_total", "cold_starts",
+           "preemptions")
+
+
+def cli_args(**kw) -> list:
+    """``serve_fleet`` command-line arguments for keyword settings."""
+    args = []
+    for k, v in kw.items():
+        flag = "--" + k.replace("_", "-")
+        if v is True:
+            args.append(flag)
+        elif v not in (False, None):
+            args += [flag, str(v)]
+    return args
+
+
+def cli_main(serve_fleet, argv: list) -> tuple[dict, str]:
+    """``serve_fleet.main(argv)``, its standard output kept out of this
+    run's: the report and the JSON line the CLI printed last."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rep = serve_fleet.main(argv)
+    return rep, buf.getvalue().splitlines()[-1]
+
+
+def phase_economy(torch) -> dict:
+    import numpy as np
+    from repro_torch.economy import builtin_profile, cost_greedy_policy
+    from repro_torch.kernels import orchestration as orch
+    from repro_torch.launch import serve_fleet
+    from repro_torch.policy.bundle import (PolicyBundle, load_bundle,
+                                           save_bundle)
+    from repro_torch.specs.observation import make_spec
+
+    # (a) the deployment under spot, through the CLI, with a cost_greedy
+    # bundle written and read back
+    path = OUT / "chip_smoke_cost_greedy.bundle.msgpack"
+    profile = builtin_profile(ECONOMY_PROFILE)
+    pol = cost_greedy_policy(make_spec("full_economy", N_MAX), profile)
+    save_bundle(str(path), PolicyBundle(
+        "cost_greedy", "full_economy", N_MAX, pol.init(SEED, "cpu"),
+        meta={"economy_profile": ECONOMY_PROFILE, "shared_cloud": True,
+              "shared_edge": True, "cells_per_edge": CELLS_PER_EDGE}))
+    check(load_bundle(str(path), expect_spec="full_economy").kind
+          == "cost_greedy", "the cost_greedy bundle reads back")
+    argv = (["--bundle", str(path), "--economy", ECONOMY_PROFILE]
+            + cli_args(**{k: v for k, v in SERVE_KW.items()
+                          if k not in ("shared_cloud", "shared_edge")}))
+    reset_all_counts()
+    rep, _ = cli_main(serve_fleet, argv)
+    launches = all_counts()
+    n_ticks = rep["n_ticks"]
+    check(launches == {"queue_admit": n_ticks,
+                       "group_occupancy": 3 * n_ticks,
+                       "flash_attention": 0, "wkv6": 0, "ssd": 0},
+          f"spot run: queue_admit once and group_occupancy 3 times a tick "
+          f"({launches} in {n_ticks} ticks)")
+    eco = rep["economy"]
+    check(eco["profile"] == ECONOMY_PROFILE, "the spot profile served")
+    for k in ("spend_uusd_total", "cold_starts", "preemptions"):
+        check(isinstance(eco[k], int) and eco[k] >= 0,
+              f"{k} a non-negative integer ({eco[k]!r})")
+    energy_mj = eco["energy_j_total"] * 1e3
+    check(energy_mj >= 0 and energy_mj == round(energy_mj),
+          f"energy a non-negative integer of mJ ({eco['energy_j_total']})")
+    check(eco["preemptions"] > 0,
+          f"spot preempts at 2e-3 a tick over {CELLS} cells "
+          f"({eco['preemptions']} preemptions)")
+    check(rep["served_requests"] > 0, "the spot run served")
+
+    # one tick's device ops and busy time: a short profiled run
+    short_argv = (argv[:4] + cli_args(**dict(
+        {k: v for k, v in SERVE_KW.items()
+         if k not in ("shared_cloud", "shared_edge")},
+        rounds=1, epochs=1)))
+    _, dev_events, (short, _) = traced(
+        torch, lambda: cli_main(serve_fleet, short_argv),
+        before=reset_all_counts)
+    first = min((e.time_range.start for e in dev_events
+                 if "queue_admit_kernel" in e.name), default=None)
+    check(first is not None, "profiler saw the admission kernel")
+    dev_events = [e for e in dev_events if e.time_range.start >= first]
+    busy_ms = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3
+    prof_ticks = short["n_ticks"]
+    spot = dict(
+        _summary(rep), economy=eco, launches=launches,
+        launches_per_tick={k: v / n_ticks for k, v in launches.items()},
+        ms_per_tick_no_economy=results["serve"]["greedy"]["ms_per_tick"],
+        profile=dict(ticks=prof_ticks, device_events=len(dev_events),
+                     device_events_per_tick=len(dev_events) / prof_ticks,
+                     device_busy_ms_per_tick=busy_ms / prof_ticks,
+                     device_busy_share=(busy_ms / prof_ticks
+                                        / rep["ms_per_tick"])))
+
+    # (b) local against no economy: greedy, quiet, on the card
+    kw = dict(SERVE_KW, greedy=True, quiet=True, device="cuda",
+              verbose=False)
+    off = serve_fleet.serve(**kw)
+    loc = serve_fleet.serve(economy="local", **kw)
+    check("economy" not in off, "no economy, no economy report")
+    for k, v in off["records"].items():
+        check(np.array_equal(v, loc["records"][k]),
+              f"local records[{k}] byte-identical to no economy")
+    check(loc["economy"]["spend_uusd_total"] == 0, "local spends nothing")
+    check(loc["economy"]["energy_j_total"] > 0, "local meters energy")
+    local = dict(served=loc["served_requests"],
+                 energy_j_total=loc["economy"]["energy_j_total"],
+                 ms_per_tick=loc["ms_per_tick"],
+                 ms_per_tick_no_economy=off["ms_per_tick"])
+
+    # (c) CPU against the card: 64 cells, spot, cost_greedy, background on
+    small = dict(bundle=str(path), economy=ECONOMY_PROFILE, cells=64,
+                 rounds=4, seed=1, epochs=2, verbose=False)
+    cpu = serve_fleet.serve(device="cpu", **small)
+    gpu = serve_fleet.serve(device="cuda", **small)
+    for k in ("dropped", "served", "violated", "action"):
+        check(np.array_equal(cpu["records"][k], gpu["records"][k]),
+              f"spot {k} identical on the CPU and the card")
+    errs = {k: float(np.abs(cpu["records"][k] - gpu["records"][k]).max())
+            for k in ("wait_ms", "service_ms", "art_ms")}
+    check(max(errs.values()) <= 1e-5, f"spot floats within 1e-5: {errs}")
+    for k in BILLING:
+        check(cpu["economy"][k] == gpu["economy"][k],
+              f"spot {k} identical on the CPU and the card "
+              f"({cpu['economy'][k]} vs {gpu['economy'][k]})")
+    cpu_vs_card = dict(errs, economy=gpu["economy"],
+                       n_served=int(gpu["records"]["served"].sum()))
+
+    # (d) the CLI's four options on the card
+    out_path = OUT / "chip_smoke_cli_options.json"
+    opt, printed = cli_main(serve_fleet, [
+        "--greedy", "--quiet", "--tick-ms", "40", "--queue-cap", "16",
+        "--out", str(out_path)] + cli_args(
+            cells=4096, rounds=4, seed=SEED, cells_per_edge=CELLS_PER_EDGE,
+            shared_cloud=True, shared_edge=True))
+    check(out_path.read_text() == printed == json.dumps(
+        {k: v for k, v in opt.items() if k != "records"}),
+          "--out holds the returned report")
+    check({k: opt["config"][k] for k in ("quiet", "tick_ms", "queue_cap")}
+          == {"quiet": True, "tick_ms": 40.0, "queue_cap": 16},
+          f"the config records the options ({opt['config']})")
+    reset_all_counts()
+    code = None
+    try:
+        cli_main(serve_fleet, ["--greedy", "--out",
+                               str(OUT / "missing" / "serve.json")])
+    except SystemExit as e:
+        code = e.code
+    check(code not in (None, 0), f"an unwritable --out exits non-zero "
+          f"({code!r})")
+    check(not any(all_counts().values()),
+          "an unwritable --out exits before any kernel launch")
+    cli = dict(served=opt["served_requests"],
+               dropped=opt["dropped_requests"], tick_ms=opt["tick_ms"],
+               unwritable_out_exit=str(code))
+
+    out = dict(spot=spot, local_vs_off=local, cpu_vs_card=cpu_vs_card,
+               cli_options=cli)
+    emit("economy", **out)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1659,6 +1841,7 @@ def main() -> int:
     lm_serve = phase_lm_serve(torch)
     phase_lm_parity(torch)
     phase_hltrain(torch)
+    phase_economy(torch)
     for name, k in kernels.items():
         k["launches"] = serve["greedy"]["launches"][name]
     kernels["flash_attention"] = dict(

@@ -13,7 +13,9 @@ by name, so this module imports nothing of the reference:
     request_stream      RequestStream arrays → port RequestStream
     key_from_data       a (2,) uint32 key_data pair → port threefry key
     lm_params           an LM params pytree → the port's LM module
-    fleet_state         a FleetState (env carry) → port FleetState
+    tier_economy_state  a TierEconomyState → the port's
+    fleet_state         a FleetState (env carry, its ``econ`` included) →
+                        port FleetState
     hl_train_state      the fleet trainer's whole carry (HLTrainState) →
                         the port's; ``hl_train_state_arrays`` is its
                         inverse, to numpy in the reference's layout
@@ -27,6 +29,7 @@ from repro_torch.core.dqn import DQNState
 from repro_torch.core.networks import MLP
 from repro_torch.core.system_model import SystemModelState
 from repro_torch.device import resolve_device
+from repro_torch.economy.tiers import TierEconomyState
 from repro_torch.fleet.env import FleetBackground, FleetState
 from repro_torch.fleet.workload import FleetScenario
 from repro_torch.hltrain.buffers import PlanRing, PrioRing, Ring
@@ -131,20 +134,29 @@ def _array(x, dtype=None, device="cpu") -> torch.Tensor:
     return torch.as_tensor(np.array(x, dtype=dtype), device=device)
 
 
-def fleet_state(state, device="cuda") -> FleetState:
-    """The reference's ``FleetState`` (fields read by name; its ``econ``
-    must be None)."""
+def tier_economy_state(econ, device="cuda") -> TierEconomyState:
+    """The reference's ``TierEconomyState`` (fields read by name)."""
     dev = resolve_device(device)
-    if getattr(state, "econ", None) is not None:
-        raise ValueError("economy state arrives with the economy slice")
+    return TierEconomyState(*(
+        _array(getattr(econ, f),
+               np.float32 if f == "slot_penalty_ms" else np.int32, dev)
+        for f in TierEconomyState._fields))
+
+
+def fleet_state(state, device="cuda") -> FleetState:
+    """The reference's ``FleetState`` (fields read by name), its tier
+    economy state included when it has one."""
+    dev = resolve_device(device)
     bg = state.bg
+    econ = getattr(state, "econ", None)
     return FleetState(
         key_from_data(state.key, dev),
         _array(state.actions, np.int32, dev),
         _array(state.user, np.int32, dev),
         _array(state.charged, np.float32, dev),
         FleetBackground(*(_array(getattr(bg, f), None, dev)
-                          for f in FleetBackground._fields)))
+                          for f in FleetBackground._fields)),
+        None if econ is None else tier_economy_state(econ, dev))
 
 
 def _flat_layers(layers, dev) -> list:

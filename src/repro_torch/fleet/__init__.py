@@ -2,7 +2,8 @@
 
     latency   the latency model batched over a leading cell axis
     env       FleetEnv: init / observe / transition / step over stacked
-              cell state
+              cell state, with the tier economy's state on
+              ``FleetState.econ`` under ``FleetConfig.economy``
     workload  Table-IV fleets, random topologies, curriculum stages,
               Poisson round traces
     solver    the exact occupancy-count optimizer (numpy, host-side)

@@ -5,6 +5,10 @@ key schedule identical, test-enforced): ``init`` / ``observe`` /
 ``transition`` / ``step`` / ``rollout`` are plain functions on a
 ``FleetState`` of stacked tensors, with the ``shared_cloud`` (fleet-wide
 cloud pool) and ``shared_edge`` (edge-group co-location) couplings.
+With ``FleetConfig.economy`` set, ``init`` seeds a per-cell
+``TierEconomyState`` on ``FleetState.econ`` and ``observe`` feeds the
+spec's ``economy`` block from it; the env carries the state through its
+transitions unchanged (the serving engine advances it, once a tick).
 ``step`` is ``transition`` then ``observe``; a caller that discards the
 next observation (the serving tick) calls ``transition`` alone, which
 the reference's jitted scan gets from XLA dropping an unused output.
@@ -33,6 +37,9 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch import random as rnd
+from repro_torch.economy.tiers import (EconomyProfile, TierEconomyState,
+                                       init_economy, profile_tables,
+                                       ticks_to_warm)
 from repro_torch.fleet import latency
 from repro_torch.fleet.workload import FleetScenario
 from repro_torch.specs.observation import (ObsInputs, ObservationSpec,
@@ -57,6 +64,9 @@ class FleetConfig:
     # cells with the same ``scenario.edge_group`` share one edge server
     shared_edge: bool = False
     obs_spec: str = "base"
+    # tier economics (repro_torch.economy): ``init`` seeds FleetState.econ
+    # and ``observe`` encodes it; the serving engine advances it
+    economy: EconomyProfile | None = None
 
     def spec(self) -> ObservationSpec:
         return make_spec(self.obs_spec, self.n_max)
@@ -81,6 +91,8 @@ class FleetState(NamedTuple):
     user: torch.Tensor      # (C,) int32 — requesting-user cursor
     charged: torch.Tensor   # (C,) float32 — dense reward charged so far
     bg: FleetBackground
+    # tier-economy state (None unless FleetConfig.economy is set)
+    econ: TierEconomyState | None = None
 
 
 class FleetEnvFns(NamedTuple):
@@ -153,7 +165,9 @@ def make_fleet_env(cfg: FleetConfig) -> FleetEnvFns:
                                device=dev),
             user=torch.zeros((n_cells,), dtype=torch.int32, device=dev),
             charged=torch.zeros((n_cells,), dtype=torch.float32, device=dev),
-            bg=sample_background(keys[1], n_cells))
+            bg=sample_background(keys[1], n_cells),
+            econ=(init_economy(cfg.economy, n_cells, n_max, dev)
+                  if cfg.economy is not None else None))
 
     def _count(actions, mask, a) -> torch.Tensor:
         return ((actions == a) & mask).sum(-1, dtype=torch.int32)
@@ -190,7 +204,8 @@ def make_fleet_env(cfg: FleetConfig) -> FleetEnvFns:
     def observe(scenario: FleetScenario, state: FleetState) -> torch.Tensor:
         """(C, spec.dim) observation: the semantic inputs of the spec's
         blocks (occupancies with couplings, committed accuracy, fleet and
-        group load aggregates, constraint targets), encoded by the spec."""
+        group load aggregates, constraint targets, the tiers' economy
+        state), encoded by the spec."""
         mask = scenario.user_mask()
         own_edge = _count(state.actions, mask, latency.A_EDGE)
         own_cloud = _count(state.actions, mask, latency.A_CLOUD)
@@ -214,6 +229,13 @@ def make_fleet_env(cfg: FleetConfig) -> FleetEnvFns:
             edge_occ = own_edge + state.bg.bg_edge
             edge_group = (latency.group_occupancy(edge_occ, index)
                           / index.size)
+        eco = {}
+        if cfg.economy is not None and state.econ is not None:
+            price = profile_tables(cfg.economy, state.user.device)
+            eco = dict(econ_state=state.econ.tier_state,
+                       econ_warm_ticks=ticks_to_warm(cfg.economy,
+                                                     state.econ),
+                       econ_price=price["route_price"].expand(n_cells, -1))
         return spec.encode(ObsInputs(
             user=state.user, n_users=scenario.n_users,
             busy_p_s=state.bg.busy_p_s, busy_m_s=state.bg.busy_m_s,
@@ -222,7 +244,7 @@ def make_fleet_env(cfg: FleetConfig) -> FleetEnvFns:
             k_edge=k_edge, k_cloud=k_cloud, acc_sum=acc_sum,
             cloud_fleet=cloud_fleet, edge_group=edge_group,
             constraint=scenario.constraint,
-            latency_target=scenario.latency_targets()))
+            latency_target=scenario.latency_targets(), **eco))
 
     def transition(scenario: FleetScenario, state: FleetState, actions_in):
         """One orchestration decision per cell, without the next
@@ -264,7 +286,8 @@ def make_fleet_env(cfg: FleetConfig) -> FleetEnvFns:
             user=torch.where(done, 0, user2),
             charged=torch.where(done, 0.0, charged),
             bg=FleetBackground(*(_pick(done, new, old)
-                                 for new, old in zip(bg_new, state.bg))))
+                                 for new, old in zip(bg_new, state.bg))),
+            econ=state.econ)  # advanced by the serving engine, not here
         info = {"art": art, "acc": acc, "violated": violated,
                 "t_ms": torch.where(done, t_i + settle.clamp(min=0.0), t_i),
                 # (C, n_max) per-slot response times; at ``done`` the

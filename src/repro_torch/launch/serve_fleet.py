@@ -5,7 +5,9 @@ replay as compat.
         (--bundle hl.bundle.msgpack | --greedy) [--guard] \
         [--cells 64] [--rate 3.0] [--rounds 50] [--seed 0] [--epochs 5] \
         [--cells-per-edge 1] [--shared-cloud] [--shared-edge] \
-        [--round-replay] [--device cuda]
+        [--quiet] [--tick-ms 50] [--queue-cap 64] \
+        [--economy local|serverless|spot] [--round-replay] \
+        [--out serve.json] [--device cuda]
 
 Serves ``rounds`` round-durations of open-loop Poisson traffic from a
 random fleet through a PolicyBundle's policy (``--bundle``, written by
@@ -21,6 +23,20 @@ either package) or the latency-greedy baseline (``--greedy``, at the
   the share of burst mass the round abstraction clipped.  ``--epochs``
   does not apply to it.
 
+``--quiet`` turns the background fluctuations off (both paths);
+``--tick-ms`` and ``--queue-cap`` set the request-level engine's decision
+tick and per-cell ring capacity.  ``--economy <profile>`` (``local`` /
+``serverless`` / ``spot``, see ``repro_torch.economy``) gives every tier
+a price, an energy cost and a warm/cold/warming startup state machine
+advanced every tick: cold starts and spot preemptions delay recorded
+service, and the report gains ``"economy"`` (spend, joules, cost per 1k
+requests, joules per request, cold starts, preemptions).  It serves the
+policy the user names (a ``cost_greedy`` bundle routes on the economy
+block; ``--greedy`` ignores it) and is request-level only: with
+``--round-replay`` it exits before any work.  ``--out`` writes the
+report as JSON (records left out); its directory is checked for
+writability before any work.
+
 ``--guard`` wraps the policy in the ``slo_guarded`` combinator.  A
 bundle's recorded coupling regime (``shared_cloud`` / ``shared_edge`` /
 ``cells_per_edge`` in its metadata) applies unless the flags set it.
@@ -32,9 +48,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 
 from repro_torch import random as rnd
 from repro_torch.device import resolve_device
+from repro_torch.economy import PROFILE_NAMES, builtin_profile
 from repro_torch.fleet.env import FleetConfig
 from repro_torch.fleet.workload import poisson_round_trace, random_fleet
 from repro_torch.policy.adapters import (heuristic_greedy_policy,
@@ -50,11 +68,28 @@ from repro_torch.specs.observation import make_spec
 GREEDY_SPEC, GREEDY_N_MAX = "full", 5
 
 
+def require_writable(path, flag: str) -> None:
+    """Fail fast on an output path whose parent directory does not exist
+    or is not writable, before any work.  ``None`` and ``"-"`` (stdout)
+    pass."""
+    if path is None or path == "-":
+        return
+    parent = os.path.dirname(os.path.abspath(path))
+    if not os.path.isdir(parent):
+        raise SystemExit(f"{flag} {path!r}: parent directory {parent!r} "
+                         "does not exist")
+    if not os.access(parent, os.W_OK):
+        raise SystemExit(f"{flag} {path!r}: parent directory {parent!r} "
+                         "is not writable")
+
+
 def serve(*, bundle: str | None = None, greedy: bool = False,
           guard: bool = False, cells: int = 64, rate: float = 3.0,
           rounds: int = 50, seed: int = 0, epochs: int = 5,
           cells_per_edge: int | None = None, shared_cloud: bool = False,
-          shared_edge: bool = False, round_replay: bool = False,
+          shared_edge: bool = False, quiet: bool = False,
+          tick_ms: float = 50.0, queue_cap: int = 64,
+          economy: str | None = None, round_replay: bool = False,
           device="cuda", verbose: bool = True) -> dict:
     """Serve one run and return its report (request-level: raw
     per-request arrays under ``"records"``; round replay: per-round rows
@@ -65,6 +100,17 @@ def serve(*, bundle: str | None = None, greedy: bool = False,
     reference's fleet and traffic."""
     if (bundle is None) == (not greedy):
         raise SystemExit("give exactly one of --bundle or --greedy")
+    profile = None
+    if economy:
+        if round_replay:
+            raise SystemExit("--economy prices the request-level tick "
+                             "clock (cold starts, preemptions, per-tick "
+                             "billing); the round gateway has none: drop "
+                             "--round-replay to use it")
+        try:
+            profile = builtin_profile(economy)
+        except ValueError as e:
+            raise SystemExit(str(e))
     dev = resolve_device(device)
     meta = {}
     if bundle is not None:
@@ -91,15 +137,17 @@ def serve(*, bundle: str | None = None, greedy: bool = False,
     config = dict(bundle=bundle, greedy=greedy, guard=guard, cells=cells,
                   rate=rate, rounds=rounds, seed=seed, epochs=epochs,
                   cells_per_edge=cells_per_edge, shared_cloud=shared_cloud,
-                  shared_edge=shared_edge, round_replay=round_replay,
-                  device=str(dev), obs_spec=spec.name, n_max=spec.n_max,
-                  kind=policy.kind)
+                  shared_edge=shared_edge, quiet=quiet, tick_ms=tick_ms,
+                  queue_cap=queue_cap, economy=economy,
+                  round_replay=round_replay, device=str(dev),
+                  obs_spec=spec.name, n_max=spec.n_max, kind=policy.kind)
     if verbose:
         print("config: " + " ".join(f"{k}={v}"
                                     for k, v in sorted(config.items())))
     if round_replay:
         cfg = FleetConfig(n_max=spec.n_max, obs_spec=spec.name,
-                          shared_cloud=shared_cloud, shared_edge=shared_edge)
+                          quiet=quiet, shared_cloud=shared_cloud,
+                          shared_edge=shared_edge)
         trace, stats = poisson_round_trace(k_trace, scenario, rounds,
                                            rate=rate, with_stats=True)
         report = replay_trace(policy, params, scenario, trace, cfg,
@@ -122,8 +170,10 @@ def serve(*, bundle: str | None = None, greedy: bool = False,
                   + (f", {dps:,.0f} decisions/s" if dps else ""))
         return report
 
-    cfg = ServeConfig(n_max=spec.n_max, obs_spec=spec.name,
-                      shared_cloud=shared_cloud, shared_edge=shared_edge)
+    cfg = ServeConfig(n_max=spec.n_max, obs_spec=spec.name, quiet=quiet,
+                      tick_ms=tick_ms, queue_cap=queue_cap,
+                      shared_cloud=shared_cloud, shared_edge=shared_edge,
+                      economy=profile)
     horizon_ms = rounds * cfg.round_ms
     stream = poisson_request_stream(
         k_trace, scenario, horizon_ms, rate=rate, round_ms=cfg.round_ms,
@@ -148,6 +198,17 @@ def serve(*, bundle: str | None = None, greedy: bool = False,
               + f"SLO attainment {report['slo_attainment']:.1%}, accuracy "
               f"violations {report['violation_rate']:.1%}"
               + (f", {mpt:.2f} ms per steady tick" if mpt else ""))
+        if profile is not None:
+            eco = report["economy"]
+            c1k = eco["cost_per_1k_requests"]
+            jpr = eco["joules_per_request"]
+            print(f"economy [{eco['profile']}]: "
+                  f"${eco['cost_usd_total']:.4f} total"
+                  + (f" (${c1k:.4f}/1k req)" if c1k is not None else "")
+                  + f", {eco['energy_j_total']:.0f} J"
+                  + (f" ({jpr:.2f} J/req)" if jpr is not None else "")
+                  + f", {eco['cold_starts']} cold starts, "
+                  f"{eco['preemptions']} preemptions")
     return report
 
 
@@ -169,19 +230,37 @@ def main(argv=None) -> dict:
     ap.add_argument("--cells-per-edge", type=int, default=None)
     ap.add_argument("--shared-cloud", action="store_true")
     ap.add_argument("--shared-edge", action="store_true")
+    ap.add_argument("--quiet", action="store_true",
+                    help="disable background fluctuations")
+    ap.add_argument("--tick-ms", type=float, default=50.0)
+    ap.add_argument("--queue-cap", type=int, default=64)
+    ap.add_argument("--economy", default=None, choices=PROFILE_NAMES,
+                    help="tier-economy profile (repro_torch.economy): "
+                         "per-tier prices, energy, cold starts, "
+                         "preemption, scale-to-zero; the report gains "
+                         "spend and joules (request-level only)")
     ap.add_argument("--round-replay", action="store_true",
                     help="round-synchronous trace replay with round-mean "
                          "metrics beside the solver oracle")
+    ap.add_argument("--out", default=None,
+                    help="write the report as JSON (records left out)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    require_writable(args.out, "--out")
     report = serve(bundle=args.bundle, greedy=args.greedy, guard=args.guard,
                    cells=args.cells, rate=args.rate, rounds=args.rounds,
                    seed=args.seed, epochs=args.epochs,
                    cells_per_edge=args.cells_per_edge,
                    shared_cloud=args.shared_cloud,
-                   shared_edge=args.shared_edge,
-                   round_replay=args.round_replay, device=args.device)
-    print(json.dumps({k: v for k, v in report.items() if k != "records"}))
+                   shared_edge=args.shared_edge, quiet=args.quiet,
+                   tick_ms=args.tick_ms, queue_cap=args.queue_cap,
+                   economy=args.economy, round_replay=args.round_replay,
+                   device=args.device)
+    text = json.dumps({k: v for k, v in report.items() if k != "records"})
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(text)
+    print(text)
     return report
 
 

@@ -5,7 +5,9 @@
               tabular Q baseline, the latency-greedy heuristic, the
               exact solver oracle, epsilon-greedy, the SLO guard
     bundle    versioned checkpoints (params + spec name + n_max + schema
-              version), byte-compatible with the reference's
+              version), byte-compatible with the reference's; the
+              ``cost_greedy`` kind loads the router of
+              ``repro_torch.economy``
 """
 from repro_torch.policy.api import Policy, act_batch, refresh_params
 from repro_torch.policy.adapters import (dqn_policy, epsilon_greedy,

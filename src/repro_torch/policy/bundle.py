@@ -1,14 +1,17 @@
 """Versioned PolicyBundle checkpoints, byte-compatible with the reference.
 
 Counterpart of ``repro.policy.bundle`` for the ``dqn``, ``greedy``,
-``oracle`` and ``qtable`` kinds: a bundle is the policy's params plus
+``oracle``, ``qtable`` and ``cost_greedy`` kinds: a bundle is the policy's params plus
 what they are (adapter kind, observation spec, ``n_max``, schema
 version, metadata), written in the reference's checkpoint format, so a
 bundle written by either package loads in the other.  An ``oracle``
 bundle holds one fleet's action table (``{"table", "n_users"}``); a
-``qtable`` bundle holds the table dict, its bytes keys as they are.  Load is defensive: a non-bundle file, a newer
-schema, an unknown spec or kind, or params whose width contradicts the
-declared spec raise.
+``qtable`` bundle holds the table dict, its bytes keys as they are; a
+``cost_greedy`` bundle names its economy profile (and any of
+``lam_cost``, ``lam_energy``, ``tick_ms``) in its metadata.  Load is
+defensive: a non-bundle file, a newer schema, an unknown spec or kind,
+params whose width contradicts the declared spec, or a ``cost_greedy``
+bundle without an economy spec or profile raise.
 
     save_bundle("hl.bundle.msgpack", PolicyBundle("dqn", "full", 5, mlp))
     policy, params = policy_from_bundle(load_bundle(path), device="cuda")
@@ -30,9 +33,7 @@ from repro_torch.specs.observation import SPEC_NAMES, make_spec
 
 BUNDLE_FORMAT = "repro.policy.bundle"
 BUNDLE_VERSION = 1
-KINDS = ("dqn", "greedy", "oracle", "qtable")
-# the kind the reference writes that waits for the port's economy slice
-LATER_KINDS = ("cost_greedy",)
+KINDS = ("dqn", "greedy", "oracle", "qtable", "cost_greedy")
 
 
 class BundleError(ValueError):
@@ -67,11 +68,18 @@ def _validate(bundle: PolicyBundle) -> None:
                           f"{bundle.obs_spec!r}; known: {SPEC_NAMES}")
     if bundle.n_max < 1:
         raise BundleError(f"bundle n_max must be >= 1, got {bundle.n_max}")
-    if bundle.kind in LATER_KINDS:
-        raise BundleError(f"{bundle.kind!r} bundles arrive with a later "
-                          f"slice of the port (served: {KINDS})")
     if bundle.kind not in KINDS:
         raise BundleError(f"unknown policy kind {bundle.kind!r}")
+    if bundle.kind == "cost_greedy":
+        if "economy" not in bundle.spec().blocks:
+            raise SpecMismatchError(
+                f"cost_greedy bundles route on the 'economy' feature "
+                f"block, absent from spec {bundle.obs_spec!r}; use the "
+                f"'economy' or 'full_economy' variants")
+        if "economy_profile" not in bundle.meta:
+            raise BundleError(
+                "cost_greedy bundle must record its economy profile "
+                "under meta['economy_profile']")
     if bundle.kind == "dqn":
         try:
             width = int(np.asarray(_layers(bundle.params)[0]["w"]).shape[0])
@@ -145,6 +153,17 @@ def policy_from_bundle(bundle: PolicyBundle,
         if bundle.kind == "greedy":
             return adapters.heuristic_greedy_policy(spec), params
         return adapters.oracle_policy(spec), params
+    if bundle.kind == "cost_greedy":
+        # lazy import: repro_torch.economy imports the policy adapters
+        from repro_torch.economy import builtin_profile, cost_greedy_policy
+        meta = bundle.meta  # _validate guarantees the profile record
+        profile = builtin_profile(str(meta["economy_profile"]))
+        kw = {k: float(meta[k]) for k in
+              ("lam_cost", "lam_energy", "tick_ms") if k in meta}
+        policy = cost_greedy_policy(spec, profile, **kw)
+        params = params_to({k: torch.as_tensor(v)
+                            for k, v in bundle.params.items()}, dev)
+        return policy, params
     if bundle.kind == "qtable":
         # host-side: the rows stay numpy arrays under their bytes keys
         params = {k: np.asarray(v) for k, v in bundle.params.items()}

@@ -2,7 +2,8 @@
 
     stream    RequestStream traces: Poisson request streams, and round
               traces as round-synchronous streams
-    engine    the request-level tick over per-cell ring queues
+    engine    the request-level tick over per-cell ring queues, with
+              the tier economy of ``ServeConfig.economy``
     metrics   per-request accounting: latency percentiles, SLO
               attainment, drop / defer counts
     compat    the round-synchronous replay gateway (``replay_trace``)

@@ -14,6 +14,12 @@ advances in decision ticks of ``tick_ms``; per tick it
     4. scatters per-request records (wait, service, round ART, accuracy
        violation, action) for rounds that completed.
 
+With ``ServeConfig.economy`` set, step 3 is followed by one tick of the
+tier economy (``repro_torch.economy.advance_economy``): cold starts and
+preemptions add their warmup wait to the completed requests' service
+latency and their round's ART, and µ$ / mJ accrue per cell on the
+device; ``serve_stream`` reports the totals under ``"economy"``.
+
 A tick launches the ``group_occupancy`` kernel at most three times, over
 the scenario's group index (built once, at ``serve_stream``'s set-up):
 in its ``observe``, for the edge coupling under ``shared_edge`` and for
@@ -25,10 +31,11 @@ The ring queues and the record arrays are updated in place (the
 reference's functional scan copied them every tick); everything else is
 rebuilt per tick.  Keys follow the reference's schedule exactly — one
 split for the engine's init key, one for the env's, one per tick for the
-policy and one per env step for the background — so with the same
-scenario, stream, params and key the records equal the reference's.
-Telemetry, the economy, live streaming and the cells mesh arrive with
-later slices; asking for them raises.
+policy, one per tick for the preemption draws under an economy and one
+per env step for the background — so with the same scenario, stream,
+params and key the records equal the reference's.  Telemetry, live
+streaming and the cells mesh arrive with later slices; asking for them
+raises.
 """
 from __future__ import annotations
 
@@ -41,7 +48,9 @@ import torch
 
 from repro_torch import random as rnd
 from repro_torch.device import resolve_device, synchronize
+from repro_torch.economy.tiers import EconomyProfile, advance_economy
 from repro_torch.fleet.env import FleetConfig, FleetState, make_fleet_env
+from repro_torch.fleet.latency import row_sum
 from repro_torch.fleet.workload import FleetScenario
 from repro_torch.kernels.orchestration import queue_admit
 from repro_torch.policy.api import (Policy, act_batch, params_to,
@@ -54,7 +63,9 @@ from repro_torch.serve.stream import RequestStream
 class ServeConfig:
     """Engine configuration.  ``tick_ms`` is one decision tick's wall
     clock; a full round spans ``round_ms = n_max * tick_ms``.
-    ``queue_cap`` bounds each cell's backlog; arrivals beyond it drop."""
+    ``queue_cap`` bounds each cell's backlog; arrivals beyond it drop.
+    ``economy`` is an optional tier-economy profile
+    (``repro_torch.economy.builtin_profile``)."""
     n_max: int = 5
     obs_spec: str = "base"
     tick_ms: float = 50.0
@@ -63,15 +74,17 @@ class ServeConfig:
     shared_cloud: bool = False
     shared_edge: bool = False
     telemetry: bool = False
-    economy: object = None
+    economy: Optional[EconomyProfile] = None
 
     def __post_init__(self):
         if self.telemetry:
             raise NotImplementedError("serving telemetry arrives with the "
                                       "port's telemetry slice")
-        if self.economy is not None:
-            raise NotImplementedError("tier economics arrive with the "
-                                      "port's economy slice")
+        if not (self.economy is None
+                or isinstance(self.economy, EconomyProfile)):
+            raise TypeError(f"ServeConfig.economy takes an EconomyProfile "
+                            f"(builtin_profile(name)), got "
+                            f"{self.economy!r}")
 
     @property
     def round_ms(self) -> float:
@@ -81,7 +94,8 @@ class ServeConfig:
         return FleetConfig(n_max=self.n_max, obs_spec=self.obs_spec,
                            quiet=self.quiet,
                            shared_cloud=self.shared_cloud,
-                           shared_edge=self.shared_edge)
+                           shared_edge=self.shared_edge,
+                           economy=self.economy)
 
 
 class RequestRecords(NamedTuple):
@@ -162,6 +176,7 @@ def make_serve_engine(policy: Policy, cfg: ServeConfig, live=None,
         dev = scenario.device
         scratch = stream_t.shape[0] - 1
         slot = torch.arange(n_max, device=dev)
+        cell_ids = torch.arange(scenario.n_cells, device=dev)
         params = refresh_params(policy, params, scenario)
 
         def live_tick(st: EngineState, ids, now: float):
@@ -203,13 +218,33 @@ def make_serve_engine(policy: Policy, cfg: ServeConfig, live=None,
             # -- 4. scatter per-request records of completed rounds --
             fin = done & active
             rec_mask = fin[:, None] & (slot[None, :] < cur_n[:, None])
+            service, art = info["times"], info["art"]
+            if cfg.economy is not None:
+                # one tick of the tier economy: this tick's decisions may
+                # start a cold tier (its wait charged to the slot), idle
+                # tiers scale to zero, spot tiers preempt, µ$ / mJ accrue
+                key, k_pre = rnd.split(key)
+                in_round = active[:, None] & (slot[None, :] < cur_n[:, None])
+                econ2, pen, _ = advance_economy(
+                    cfg.economy, st.env.econ, tick_ms=cfg.tick_ms,
+                    action=a, cursor=st.env.user.clamp(max=n_max - 1),
+                    active=active, now=now, round_start=round_start,
+                    round_actions=info["actions"], in_round=in_round,
+                    rec_mask=rec_mask, times=info["times"], fin=fin,
+                    key=k_pre, cell_ids=cell_ids)
+                env2 = env2._replace(econ=econ2)
+                # completed requests waited out their tier's warmup: the
+                # wait lands in their service latency and the round's ART
+                pen_rec = torch.where(rec_mask, pen, 0.0)
+                service = service + pen_rec
+                art = art + row_sum(pen_rec) / n_eff.to(torch.float32)
             rid = torch.where(rec_mask, cur_ids, scratch)
             flat = rid.reshape(-1)
             spread = lambda v: v[:, None].expand(rid.shape).reshape(-1)
             rec.wait_ms[flat] = (round_start[:, None]
                                  - stream_t[rid]).reshape(-1)
-            rec.service_ms[flat] = info["times"].reshape(-1)
-            rec.art_ms[flat] = spread(info["art"])
+            rec.service_ms[flat] = service.reshape(-1)
+            rec.art_ms[flat] = spread(art)
             rec.served[flat] = True
             rec.violated[flat] = spread(info["violated"])
             rec.action[flat] = info["actions"].reshape(-1)
@@ -332,4 +367,22 @@ def serve_stream(policy: Policy, params, scenario: FleetScenario,
     report["active_decisions_per_s"] = (active / wall
                                         if active and wall > 0 else None)
     report["records"] = records
+    if cfg.economy is not None:
+        # lifetime per-cell integer totals (µ$ / mJ) summed over the fleet
+        econ = state.env.econ
+        tot = lambda v: int(v.sum(dtype=torch.int64))
+        spend_uusd, energy_mj = tot(econ.spend_uusd), tot(econ.energy_mj)
+        n_served = int(report["served_requests"])
+        report["economy"] = {
+            "profile": cfg.economy.name,
+            "spend_uusd_total": spend_uusd,
+            "cost_usd_total": spend_uusd / 1e6,
+            "energy_j_total": energy_mj / 1e3,
+            "cold_starts": tot(econ.cold_starts),
+            "preemptions": tot(econ.preemptions),
+            "cost_per_1k_requests": (spend_uusd / 1e3 / n_served
+                                     if n_served else None),
+            "joules_per_request": (energy_mj / 1e3 / n_served
+                                   if n_served else None),
+        }
     return report

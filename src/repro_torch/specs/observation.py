@@ -7,10 +7,12 @@ n_max)`` semantic inputs into ``(C, width)`` float32 columns.
 Blocks: ``base`` (the paper's Table-II state plus round context, width
 4·n_max + 8), ``cloud_load`` (fleet-wide mean cloud occupancy, 1),
 ``edge_load`` (edge-group mean edge occupancy, 1), ``constraint``
-(accuracy threshold and latency target, 2).  Variants: ``base``,
-``contention``, ``constraint``, ``full``.  The ``economy`` block — and
-with it the ``economy`` / ``full_economy`` variants — arrives with the
-economy slice; asking for it raises.
+(accuracy threshold and latency target, 2), ``economy`` (per tier of
+local, edge and cloud: startup state, ticks until it can serve and
+routing price, 3·3 = 9; with no economy state given it encodes the
+neutral fleet, every tier warm, instant and free).  Variants: ``base``,
+``contention``, ``constraint``, ``full``, ``economy`` (base + economy)
+and ``full_economy`` (full + economy).
 """
 from __future__ import annotations
 
@@ -24,6 +26,10 @@ LOAD_CAP = 8.0              # cap for the per-cell mean load features
 ACC_NORM = 100.0            # accuracy features are % / 100
 LATENCY_NORM = 1000.0       # latency-target feature is ms / 1000
 DEFAULT_LATENCY_TARGET_MS = 400.0
+# Economy-block normalization: warmup-remaining is clipped at WARMUP_NORM
+# ticks; routing prices ($/request-second) are clipped at ECON_PRICE_NORM.
+WARMUP_NORM = 64.0
+ECON_PRICE_NORM = 0.01
 # Per-cell latency-target pool for procedural fleets (ms).
 LATENCY_TARGET_POOL = (150.0, 250.0, 400.0, 600.0, 800.0)
 
@@ -47,6 +53,10 @@ class ObsInputs(NamedTuple):
     edge_group: torch.Tensor | None    # edge-group mean edge occupancy
     constraint: torch.Tensor | None    # accuracy threshold (%)
     latency_target: torch.Tensor | None  # latency target (ms)
+    # economy-block inputs; None encodes the neutral always-warm, free fleet
+    econ_state: torch.Tensor | None = None       # (C, 3) 0 cold .. 2 warm
+    econ_warm_ticks: torch.Tensor | None = None  # (C, 3) ticks until served
+    econ_price: torch.Tensor | None = None       # (C, 3) $/req-s
 
 
 def _col(v: torch.Tensor) -> torch.Tensor:
@@ -84,6 +94,22 @@ def _constraint(x: ObsInputs, n_max: int) -> torch.Tensor:
                       _col(x.latency_target) / LATENCY_NORM], dim=-1)
 
 
+def _economy(x: ObsInputs, n_max: int) -> torch.Tensor:
+    if x.econ_state is None:
+        out = torch.zeros((x.user.shape[0], 9), dtype=torch.float32,
+                          device=x.user.device)
+        out[:, 0::3] = 1.0  # neutral: every tier warm, instant, free
+        return out
+    # each division by a constant is the product with its reciprocal,
+    # as the reference's compiled observe evaluates it
+    st = x.econ_state.to(torch.float32) * 0.5
+    wu = (x.econ_warm_ticks.to(torch.float32).clamp(max=WARMUP_NORM)
+          * (1.0 / WARMUP_NORM))
+    pr = (x.econ_price.to(torch.float32).clamp(max=ECON_PRICE_NORM)
+          * (1.0 / ECON_PRICE_NORM))
+    return torch.stack([st, wu, pr], dim=-1).reshape(st.shape[0], -1)
+
+
 @dataclasses.dataclass(frozen=True)
 class Block:
     name: str
@@ -96,6 +122,8 @@ BLOCKS: dict[str, Block] = {
     "cloud_load": Block("cloud_load", lambda n: 1, _cloud_load),
     "edge_load": Block("edge_load", lambda n: 1, _edge_load),
     "constraint": Block("constraint", lambda n: 2, _constraint),
+    # 3 tiers × (startup state, ticks-to-warm, routing price)
+    "economy": Block("economy", lambda n: 9, _economy),
 }
 
 SPEC_VARIANTS: dict[str, tuple[str, ...]] = {
@@ -103,10 +131,11 @@ SPEC_VARIANTS: dict[str, tuple[str, ...]] = {
     "contention": ("base", "cloud_load", "edge_load"),
     "constraint": ("base", "constraint"),
     "full": ("base", "cloud_load", "edge_load", "constraint"),
+    "economy": ("base", "economy"),
+    "full_economy": ("base", "cloud_load", "edge_load", "constraint",
+                     "economy"),
 }
-# variants the reference knows that wait for a later slice of the port
-LATER_VARIANTS = ("economy", "full_economy")
-SPEC_NAMES = tuple(SPEC_VARIANTS) + LATER_VARIANTS
+SPEC_NAMES = tuple(SPEC_VARIANTS)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,6 +149,15 @@ class ObservationSpec:
     def dim(self) -> int:
         return sum(BLOCKS[b].width(self.n_max) for b in self.blocks)
 
+    def block_slices(self) -> dict[str, slice]:
+        """Feature-index slice of every block."""
+        out, lo = {}, 0
+        for b in self.blocks:
+            hi = lo + BLOCKS[b].width(self.n_max)
+            out[b] = slice(lo, hi)
+            lo = hi
+        return out
+
     def encode(self, x: ObsInputs) -> torch.Tensor:
         """Batched observation: (C, dim) float32."""
         return torch.cat([BLOCKS[b].encode(x, self.n_max)
@@ -127,11 +165,7 @@ class ObservationSpec:
 
 
 def make_spec(name: str, n_max: int) -> ObservationSpec:
-    """Spec by variant name (``base|contention|constraint|full``)."""
-    if name in LATER_VARIANTS:
-        raise NotImplementedError(
-            f"observation spec {name!r} needs the 'economy' block, which "
-            f"arrives with the port's economy slice")
+    """Spec by variant name (one of ``SPEC_NAMES``)."""
     if name not in SPEC_VARIANTS:
         raise ValueError(f"unknown observation spec {name!r}; "
                          f"choose from {SPEC_NAMES}")

@@ -44,7 +44,9 @@ def test_port_files_found():
                 "models/attention.py", "models/rwkv6.py",
                 "models/transformer.py", "serving/engine.py",
                 "launch/serve.py", "configs/shapes.py", "kernels/ssd.py",
-                "models/mamba2.py", "configs/zamba2_1p2b.py"):
+                "models/mamba2.py", "configs/zamba2_1p2b.py",
+                "economy/__init__.py", "economy/tiers.py",
+                "economy/routing.py"):
         assert (PORT / rel) in FILES, rel
 
 

@@ -25,7 +25,7 @@ from repro_torch import convert
 from repro_torch import random as rnd
 from repro_torch.core import dqn, networks, system_model
 from repro_torch.fleet.env import FleetConfig
-from repro_torch.specs.observation import LATER_VARIANTS, SPEC_VARIANTS
+from repro_torch.specs.observation import SPEC_VARIANTS
 from repro_torch.training import optimizer as opt
 
 CPU = torch.device("cpu")
@@ -248,6 +248,9 @@ def test_fleet_config_state_dim_matches_reference(n_max):
     for name in SPEC_VARIANTS:
         assert FleetConfig(n_max=n_max, obs_spec=name).state_dim == \
             RefFleetConfig(n_max=n_max, obs_spec=name).state_dim
-    for name in LATER_VARIANTS:  # the economy specs wait for their slice
-        with pytest.raises(NotImplementedError, match="economy"):
-            FleetConfig(n_max=n_max, obs_spec=name).state_dim
+    for name in ("economy", "full_economy"):  # 9 economy features on top
+        assert FleetConfig(n_max=n_max, obs_spec=name).state_dim == \
+            RefFleetConfig(n_max=n_max, obs_spec=name).state_dim == \
+            RefFleetConfig(n_max=n_max,
+                           obs_spec=name.replace("economy", "base")
+                           .replace("full_base", "full")).state_dim + 9

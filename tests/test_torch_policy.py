@@ -7,7 +7,7 @@
   oracle and the tabular Q policy give identical actions for the same
   key and observations; ``obs_table_key`` writes the reference's bytes.
 * Bundles cross-load both ways (``dqn``, ``greedy``, ``oracle`` and
-  ``qtable``), and the port's msgpack-free encoder writes the bytes
+  ``qtable``; ``cost_greedy`` in ``tests/test_torch_economy.py``), and the port's msgpack-free encoder writes the bytes
   ``msgpack.packb`` writes.
 """
 import jax
@@ -307,9 +307,17 @@ def test_bundle_validation(tmp_path):
     with pytest.raises(bundle.SpecMismatchError):
         bundle.save_bundle(str(tmp_path / "x"), bundle.PolicyBundle(
             "dqn", "full", N_MAX, net))
-    with pytest.raises(bundle.BundleError, match="later slice"):
+    # cost_greedy bundles load (on an economy spec, with their profile)
+    with pytest.raises(bundle.SpecMismatchError, match="economy"):
         bundle.save_bundle(str(tmp_path / "x"), bundle.PolicyBundle(
-            "cost_greedy", "base", N_MAX, {}))
+            "cost_greedy", "base", N_MAX, {},
+            meta={"economy_profile": "spot"}))
+    cg = str(tmp_path / "cg")
+    bundle.save_bundle(cg, bundle.PolicyBundle(
+        "cost_greedy", "economy", N_MAX, {},
+        meta={"economy_profile": "spot"}))
+    assert bundle.policy_from_bundle(bundle.load_bundle(cg),
+                                     CPU)[0].kind == "cost_greedy"
     ckpt.save(str(tmp_path / "bare"), {"w": np.zeros(3)})
     with pytest.raises(bundle.BundleError, match="not a PolicyBundle"):
         bundle.load_bundle(str(tmp_path / "bare"))

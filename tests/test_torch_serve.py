@@ -26,6 +26,7 @@ from repro.serve.stream import RequestStream as RefRequestStream
 from repro.specs.observation import make_spec as ref_make_spec
 from repro_torch import convert
 from repro_torch import random as rnd
+from repro_torch.economy import builtin_profile
 from repro_torch.launch import serve_fleet
 from repro_torch.fleet.workload import random_fleet
 from repro_torch.policy import adapters
@@ -162,10 +163,16 @@ def test_tick_buckets_match_reference(tick_ms, epoch_ms):
 def test_later_slices_raise():
     with pytest.raises(NotImplementedError, match="telemetry"):
         ServeConfig(telemetry=True)
-    with pytest.raises(NotImplementedError, match="economy"):
+    # the economy slice is in: a profile builds, the economy specs build,
+    # and telemetry beside an economy still raises
+    spot = builtin_profile("spot")
+    assert ServeConfig(economy=spot).fleet().economy is spot
+    assert make_spec("full_economy", 5).dim == \
+        ref_make_spec("full_economy", 5).dim
+    with pytest.raises(NotImplementedError, match="telemetry"):
+        ServeConfig(telemetry=True, economy=spot)
+    with pytest.raises(TypeError, match="EconomyProfile"):
         ServeConfig(economy="spot")
-    with pytest.raises(NotImplementedError, match="economy"):
-        make_spec("full_economy", 5)
     pol = adapters.heuristic_greedy_policy(5)
     with pytest.raises(NotImplementedError, match="sharded"):
         make_serve_engine(pol, ServeConfig(), mesh=object())
@@ -268,6 +275,49 @@ def test_cli_serves_the_reference_cli_draws(seed, cells_per_edge, shared):
                             device="cpu", verbose=False)
     _assert_reports_match(rep, ref)
     assert rep["served_requests"] > 0
+
+
+def test_cli_quiet_tick_and_queue_options_serve_the_reference(tmp_path):
+    """``--quiet --tick-ms 40 --queue-cap 16`` serve what the reference's
+    ``serve_stream`` serves on its CLI's draws with those settings, and
+    the report's config records them as the reference CLI does; ``--out``
+    writes the report, and an unwritable ``--out`` exits before any
+    work."""
+    seed, cells, rounds, epochs, rate = 3, 16, 5, 2, 12.0
+    cfg_kw = dict(n_max=N_MAX, obs_spec=SPEC, quiet=True, tick_ms=40.0,
+                  queue_cap=16, shared_cloud=True, shared_edge=True)
+    k_fleet, k_trace, k_serve, _ = jax.random.split(jax.random.PRNGKey(seed),
+                                                    4)
+    scn = ref_random_fleet(k_fleet, cells, n_max=N_MAX, cells_per_edge=4)
+    ref_cfg = RefServeConfig(**cfg_kw)
+    horizon = rounds * ref_cfg.round_ms
+    stream = ref_poisson_stream(k_trace, scn, horizon, rate=rate,
+                                round_ms=ref_cfg.round_ms,
+                                epoch_ms=horizon / epochs)
+    ref_pol = ref_adapters.heuristic_greedy_policy(ref_make_spec(SPEC, N_MAX))
+    ref = ref_serve_stream(ref_pol, ref_pol.init(None), scn, stream, ref_cfg,
+                           key=k_serve)
+    out = tmp_path / "serve.json"
+    rep = serve_fleet.main(["--greedy", "--seed", str(seed), "--cells",
+                            str(cells), "--rate", str(rate), "--rounds",
+                            str(rounds), "--epochs", str(epochs),
+                            "--cells-per-edge", "4", "--shared-cloud",
+                            "--shared-edge", "--quiet", "--tick-ms", "40",
+                            "--queue-cap", "16", "--out", str(out),
+                            "--device", "cpu"])
+    _assert_reports_match(rep, ref)
+    assert rep["dropped_requests"] > 0  # 16-request rings overflow
+    assert {k: rep["config"][k] for k in ("quiet", "tick_ms", "queue_cap")} \
+        == {"quiet": True, "tick_ms": 40.0, "queue_cap": 16}
+    assert rep["tick_ms"] == 40.0
+    import json
+    written = json.loads(out.read_text())
+    assert written["config"] == rep["config"]
+    assert written["served_requests"] == rep["served_requests"]
+    with pytest.raises(SystemExit, match="does not exist"):
+        serve_fleet.main(["--greedy", "--out",
+                          str(tmp_path / "missing" / "x.json"),
+                          "--device", "cpu", "--cells", "4"])
 
 
 def test_tick_calls_group_occupancy_three_times(monkeypatch):
