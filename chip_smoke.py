@@ -120,6 +120,32 @@ CUDA toolkit's nvcc.  Phases, each printing one JSON line:
    file holds the returned report; an unwritable ``--out`` exits
    non-zero before any kernel launches.
 
+12. telemetry: the per-window metric buffer in the tick and the trainer.
+   (a) Phase 4's deployment through ``serve_fleet --greedy --telemetry
+   --window-ms 250 --live --live-out --trace-out --trace-sample 0.05
+   --out``: records byte-identical to the same call without telemetry,
+   queue_admit once and group_occupancy 3 times a tick, one live
+   ``window`` record per window and the summary last, the audit
+   (``repro_torch.telemetry.audit_serve_report``) passing on the written
+   report and the sampled trace, ``validate_trace`` passing; device ops
+   and busy ms per tick of a short run with telemetry off and on (same
+   call) and the kernels telemetry adds, ms per steady tick in four
+   runs (off, on, on, off); host syncs counted with
+   ``set_sync_debug_mode("warn")`` over epoch 1 of a 5-epoch run, by
+   source line: equal with telemetry off and on, and with live export at
+   most one more per window it closed plus one for its epoch record.
+   (b) Phase 11's ``spot`` run with ``--telemetry``: the audit's four
+   economy conservation laws hold exactly (Σ window µ$, mJ, cold starts
+   and preemptions = ``report["economy"]``).  (c) One 4,096-cell epoch with
+   ``FleetHLParams(telemetry=True)`` under ``set_sync_debug_mode("error")``,
+   then two with a ``TrainLiveEmitter``: one ``train_session`` record per
+   direct session and ``audit_train_report`` passing.  (d) 64 cells on
+   the CPU and the card with telemetry, serving greedy and under ``spot``
+   (counters and histograms identical, gauges within 1e-5 with the same
+   unwritten windows, the live NDJSON identical but for ``wall_s``) and 2
+   tiny training epochs (counts and the |TD| histogram identical, gauges
+   within 1e-5).
+
 Any failed check raises, so the exit code is non-zero.  Ends with the
 ``nvidia-smi`` line, the kernels' JSON summary and, last,
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -127,6 +153,7 @@ Any failed check raises, so the exit code is non-zero.  Ends with the
 """
 from __future__ import annotations
 
+import io
 import json
 import subprocess
 import sys
@@ -1817,6 +1844,371 @@ def phase_economy(torch) -> dict:
     emit("economy", **out)
     return out
 
+# ----------------------------------------------------- telemetry phase
+TEL_WINDOW_MS, TEL_TRACE_SAMPLE = 250.0, 0.05
+# the sync count's run: 5 epochs of 5 ticks, the window counted is
+# epoch 1's
+SYNC_EPOCHS = 4
+
+
+def telemetry_parity(got: dict, want: dict, what: str) -> dict:
+    """Two ``telemetry_report``s: counters, histogram and edges
+    identical; gauges within 1e-5 with the same unwritten windows.
+    Returns the largest gauge difference."""
+    import numpy as np
+    check(got.keys() == want.keys() and got["series"].keys()
+          == want["series"].keys(), f"{what}: the same telemetry fields")
+    for k in ("window_ms", "n_windows", "latency_hist",
+              "latency_hist_edges_ms", "hist_p50_latency_ms",
+              "hist_p95_latency_ms", "hist_p99_latency_ms"):
+        check(got[k] == want[k], f"{what}: {k} identical")
+    worst = 0.0
+    for name, w in want["series"].items():
+        g = got["series"][name]
+        if all(isinstance(v, int) for v in w):
+            check(g == w, f"{what}: counter {name} identical")
+            continue
+        ga = np.array([np.nan if v is None else v for v in g], np.float64)
+        wa = np.array([np.nan if v is None else v for v in w], np.float64)
+        check(np.array_equal(np.isnan(ga), np.isnan(wa)),
+              f"{what}: {name} unwritten in the same windows")
+        ok = ~np.isnan(wa)
+        err = float(np.abs(ga[ok] - wa[ok]).max()) if ok.any() else 0.0
+        check(err <= 1e-5, f"{what}: gauge {name} within 1e-5 ({err})")
+        worst = max(worst, err)
+    return dict(max_gauge_err=worst)
+
+
+def ndjson(path) -> list:
+    return [json.loads(line) for line in Path(path).read_text().splitlines()]
+
+
+def without_wall(events: list) -> list:
+    return [{k: v for k, v in e.items() if k != "wall_s"} for e in events]
+
+
+def tick_profile(torch, serve_fleet, argv: list) -> dict:
+    """Device ops and busy ms per tick of one short CLI run, counted from
+    its first admission kernel on, and by kernel name."""
+    _, dev_events, (short, _) = traced(
+        torch, lambda: cli_main(serve_fleet, argv), before=reset_all_counts)
+    first = min((e.time_range.start for e in dev_events
+                 if "queue_admit_kernel" in e.name), default=None)
+    check(first is not None, "profiler saw the admission kernel")
+    dev_events = [e for e in dev_events if e.time_range.start >= first]
+    ticks = short["n_ticks"]
+    busy = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3
+    by_name: dict = {}
+    for e in dev_events:
+        n, us = by_name.get(e.name[:70], (0, 0.0))
+        by_name[e.name[:70]] = (n + 1, us + e.time_range.elapsed_us())
+    return dict(ticks=ticks, device_events_per_tick=len(dev_events) / ticks,
+                device_busy_ms_per_tick=busy / ticks, by_name=by_name)
+
+
+def profile_added(off: dict, on: dict, top: int = 8) -> list:
+    """The kernels telemetry adds a tick, by busy time: (name, launches
+    per tick, µs per tick)."""
+    names = set(off["by_name"]) | set(on["by_name"])
+    diff = []
+    for name in names:
+        n0, us0 = off["by_name"].get(name, (0, 0.0))
+        n1, us1 = on["by_name"].get(name, (0, 0.0))
+        diff.append((name, (n1 - n0) / on["ticks"], (us1 - us0) / on["ticks"]))
+    return sorted(diff, key=lambda d: -d[2])[:top]
+
+
+def count_syncs(torch, run_epochs, on: int) -> tuple[dict, object]:
+    """Host syncs (``set_sync_debug_mode("warn")`` warnings) between the
+    start of epoch ``on`` and the start of the next, in a run driven by
+    ``run_epochs(on_epoch)``, by the source line that made them.  Returns
+    the counts and the run's result."""
+    import warnings
+    marks: dict = {}
+
+    def on_epoch(e, params):
+        if e == on:
+            torch.cuda.synchronize()
+            marks["start"] = len(caught)
+            torch.cuda.set_sync_debug_mode("warn")
+        elif e == on + 1:
+            torch.cuda.set_sync_debug_mode(0)
+            marks["end"] = len(caught)
+        return params
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        try:
+            result = run_epochs(on_epoch)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    where: dict = {}
+    for w in caught[marks["start"]:marks["end"]]:
+        if "synchroniz" in str(w.message):
+            line = f"{Path(w.filename).relative_to(ROOT)}:{w.lineno}" \
+                if Path(w.filename).is_relative_to(ROOT) else \
+                f"{Path(w.filename).name}:{w.lineno}"
+            where[line] = where.get(line, 0) + 1
+    return where, result
+
+
+def phase_telemetry(torch) -> dict:
+    import dataclasses
+    import numpy as np
+    from repro_torch import random as rnd
+    from repro_torch.fleet.env import FleetConfig
+    from repro_torch.fleet.workload import random_fleet
+    from repro_torch.hltrain.trainer import (FleetHLParams, make_hl_trainer,
+                                             train_telemetry_report)
+    from repro_torch.kernels import orchestration as orch
+    from repro_torch.launch import serve_fleet
+    from repro_torch.launch.rl_train import fleet_params
+    from repro_torch.policy.adapters import heuristic_greedy_policy
+    from repro_torch.serve.engine import (TEL_COUNTERS, TEL_GAUGES,
+                                          ServeConfig, serve_stream)
+    from repro_torch.serve.stream import poisson_request_stream
+    from repro_torch.specs.observation import make_spec
+    from repro_torch.telemetry import (BurnRateAlerter, LiveEmitter,
+                                       NdjsonSink, TrainLiveEmitter,
+                                       audit_serve_report,
+                                       audit_train_report, read_trace,
+                                       validate_trace)
+
+    # (a) the deployment with telemetry, live export and a sampled trace,
+    # through the CLI, beside the same call without telemetry
+    paths = {k: OUT / f"chip_smoke_telemetry.{k}" for k in
+             ("live.ndjson", "trace.jsonl", "serve.json")}
+    base = ["--greedy"] + cli_args(**SERVE_KW)
+    tel_args = ["--telemetry", "--window-ms", str(TEL_WINDOW_MS), "--live",
+                "--live-out", str(paths["live.ndjson"]), "--trace-out",
+                str(paths["trace.jsonl"]), "--trace-sample",
+                str(TEL_TRACE_SAMPLE), "--out", str(paths["serve.json"])]
+    reset_all_counts()
+    rep, _ = cli_main(serve_fleet, base + tel_args)
+    launches = all_counts()
+    off, _ = cli_main(serve_fleet, base)
+    n_ticks = rep["n_ticks"]
+    check(launches == {"queue_admit": n_ticks,
+                       "group_occupancy": 3 * n_ticks,
+                       "flash_attention": 0, "wkv6": 0, "ssd": 0},
+          f"telemetry run: queue_admit once and group_occupancy 3 times a "
+          f"tick ({launches} in {n_ticks} ticks)")
+    for k, v in off["records"].items():
+        check(v.tobytes() == rep["records"][k].tobytes(),
+              f"records[{k}] byte-identical with telemetry on and off")
+    tel = rep["telemetry"]
+    events = ndjson(paths["live.ndjson"])
+    windows = [e["window"] for e in events if e["event"] == "window"]
+    check(windows == list(range(tel["n_windows"]))
+          and events[-1]["event"] == "summary"
+          and events[-1]["n_windows"] == tel["n_windows"],
+          f"one window record per window ({len(windows)} of "
+          f"{tel['n_windows']}) and the summary last")
+    written = json.loads(paths["serve.json"].read_text())
+    trace = read_trace(str(paths["trace.jsonl"]))
+    audit = audit_serve_report(written, trace=trace)
+    check(audit.ok, "the deployment's audit passes:\n" + audit.render())
+    summary = validate_trace(trace)
+    check(0 < summary["n_events"] < rep["n_requests"],
+          f"a sampled trace ({summary['n_events']} events)")
+    # device ops and busy ms per tick, telemetry on and off, one call
+    short = cli_args(**dict(SERVE_KW, rounds=1, epochs=1))
+    prof = {"off": tick_profile(torch, serve_fleet, ["--greedy"] + short),
+            "on": tick_profile(torch, serve_fleet, ["--greedy"] + short + [
+                "--telemetry", "--window-ms", str(TEL_WINDOW_MS)])}
+    # host syncs over one epoch: off, on, and on with live export
+    dev = torch.device("cuda")
+    k_fleet, k_trace, k_serve, _ = rnd.split(rnd.PRNGKey(SEED, dev), 4)
+    scn = random_fleet(k_fleet, CELLS, n_max=N_MAX,
+                       cells_per_edge=CELLS_PER_EDGE)
+    spec = make_spec("full", N_MAX)
+    pol = heuristic_greedy_policy(spec)
+    syncs, sync_lines, live_lines = {}, {}, {}
+    for name in ("off", "on", "live"):
+        cfg = ServeConfig(n_max=N_MAX, obs_spec="full", shared_cloud=True,
+                          shared_edge=True, telemetry=name != "off",
+                          window_ms=TEL_WINDOW_MS)
+        horizon = ROUNDS * cfg.round_ms
+        stream = poisson_request_stream(k_trace, scn, horizon, rate=RATE,
+                                        round_ms=cfg.round_ms,
+                                        epoch_ms=horizon / SYNC_EPOCHS)
+        sink = NdjsonSink(io.StringIO())
+        live = (LiveEmitter(sink, TEL_COUNTERS, TEL_GAUGES,
+                            window_ms=TEL_WINDOW_MS)
+                if name == "live" else None)
+        lines = []
+
+        def run(on_epoch):
+            def hook(e, params):  # the live lines written by each boundary
+                lines.append(sink.n_events)
+                return on_epoch(e, params)
+            return serve_stream(pol, pol.init(SEED, dev), scn, stream, cfg,
+                                key=k_serve, device=dev, live=live,
+                                on_epoch=hook)
+        sync_lines[name], _ = count_syncs(torch, run, on=1)
+        syncs[name] = sum(sync_lines[name].values())
+        live_lines[name] = lines
+    out_lines = sink._out.getvalue().splitlines()
+    epoch1 = [json.loads(x) for x in
+              out_lines[live_lines["live"][1]:live_lines["live"][2]]]
+    closed = sum(e["event"] == "window" for e in epoch1)
+    check(syncs["off"] >= 1, f"the count sees the epoch's own sync "
+          f"(its decision count read back): {syncs}")
+    check(syncs["on"] == syncs["off"],
+          f"telemetry adds no host sync to an epoch ({syncs})")
+    check(syncs["live"] - syncs["off"] <= closed + 1,
+          f"live export adds at most one sync per closed window ({closed}) "
+          f"and one per epoch ({syncs})")
+    # ms per steady tick, telemetry off and on in turns
+    turns = []
+    for on in (False, True, True, False):
+        r = serve_fleet.serve(greedy=True, device="cuda", verbose=False,
+                              telemetry=on, window_ms=TEL_WINDOW_MS,
+                              **SERVE_KW)
+        turns.append(("on" if on else "off", r["ms_per_tick"]))
+    deployment = dict(
+        n_ticks=n_ticks, launches=launches, n_windows=tel["n_windows"],
+        live_events=len(events), alerts=sum(e["event"] == "alert"
+                                            for e in events),
+        trace=summary, audit=audit.summary(),
+        hist_p99_latency_ms=tel["hist_p99_latency_ms"],
+        p99_latency_ms=rep["p99_latency_ms"],
+        ms_per_tick=rep["ms_per_tick"], ms_per_tick_off=off["ms_per_tick"],
+        ms_per_tick_turns=turns,
+        profile={k: {f: v[f] for f in ("ticks", "device_events_per_tick",
+                                       "device_busy_ms_per_tick")}
+                 for k, v in prof.items()},
+        added_kernels_per_tick=profile_added(prof["off"], prof["on"]),
+        syncs_epoch1=syncs, sync_lines_epoch1=sync_lines,
+        closed_windows_epoch1=closed)
+
+    # (b) phase 11's spot run with telemetry: the economy's conservation
+    path = OUT / "chip_smoke_cost_greedy.bundle.msgpack"
+    argv = (["--bundle", str(path), "--economy", ECONOMY_PROFILE,
+             "--telemetry"]
+            + cli_args(**{k: v for k, v in SERVE_KW.items()
+                          if k not in ("shared_cloud", "shared_edge")}))
+    reset_all_counts()
+    spot, _ = cli_main(serve_fleet, argv)
+    spot_launches = all_counts()
+    check(spot_launches["queue_admit"] == spot["n_ticks"]
+          and spot_launches["group_occupancy"] == 3 * spot["n_ticks"],
+          f"spot with telemetry: the tick's launches ({spot_launches})")
+    spot_audit = audit_serve_report(
+        {k: v for k, v in spot.items() if k != "records"})
+    laws = {c["check"]: c for c in spot_audit.checks}
+    for law in ("spend_conservation", "energy_conservation",
+                "cold_start_conservation", "preemption_conservation"):
+        check(law in laws and laws[law]["ok"],
+              f"spot: {law} ({laws.get(law)})")
+    check(spot_audit.ok, "the spot audit passes:\n" + spot_audit.render())
+    s = spot["telemetry"]["series"]
+    economy = dict(audit=spot_audit.summary(), economy=spot["economy"],
+                   window_spend_uusd=s["spend_uusd"],
+                   max_window_spend_uusd=max(s["spend_uusd"]),
+                   int32_max=2 ** 31 - 1, launches=spot_launches)
+
+    # (c) trainer telemetry: an epoch under the sync check, then live
+    cfg = FleetConfig(n_max=N_MAX, obs_spec="full", shared_cloud=True,
+                      shared_edge=True)
+    hp = dataclasses.replace(fleet_params(SYNC_FREE_CELLS, 4, SEED),
+                             telemetry=True)
+    k_fleet, k_init = rnd.split(rnd.PRNGKey(SEED, dev), 3)[:2]
+    small = random_fleet(k_fleet, SYNC_FREE_CELLS, n_max=N_MAX,
+                         cells_per_edge=CELLS_PER_EDGE)
+    trainer = make_hl_trainer(cfg, hp)
+    st, _ = trainer.run(trainer.init(k_init, small), small, 0, 1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st, m = trainer.run(st, small, 1, 1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(m["q_loss"]).all()),
+          "the sync-free telemetry epoch trained")
+    rep_c = train_telemetry_report(st)
+    sink = NdjsonSink(io.StringIO())
+    live_tr = make_hl_trainer(cfg, hp, live=TrainLiveEmitter(sink))
+    st2, _ = live_tr.run(live_tr.init(k_init, small), small, 0, 2)
+    sessions = [json.loads(x) for x in sink._out.getvalue().splitlines()]
+    rep_live = train_telemetry_report(st2)
+    check(len(sessions) == int(st2.sessions) == rep_live["n_sessions"]
+          and all(e["event"] == "train_session" for e in sessions),
+          f"one train_session record per direct session ({len(sessions)})")
+    tr_audit = audit_train_report(rep_live,
+                                  direct_steps=int(st2.direct_steps),
+                                  sessions=int(st2.sessions))
+    check(tr_audit.ok, "the trainer's audit passes:\n" + tr_audit.render())
+    trainer_out = dict(cells=SYNC_FREE_CELLS, sync_free_epoch_sessions=
+                       rep_c["n_sessions"], td_p50=rep_c["td_p50"],
+                       td_p99=rep_c["td_p99"], live_sessions=len(sessions),
+                       audit=tr_audit.summary())
+
+    # (d) CPU against the card at 64 cells: serving greedy and spot, and
+    # two tiny training epochs, all with telemetry
+    parity = {}
+    small_kw = dict(cells=64, rounds=4, seed=1, epochs=2, telemetry=True,
+                    window_ms=TEL_WINDOW_MS, live=True, verbose=False)
+    for name, kw in (("greedy", dict(greedy=True, cells_per_edge=4,
+                                     shared_cloud=True, shared_edge=True)),
+                     ("spot", dict(bundle=str(path),
+                                   economy=ECONOMY_PROFILE))):
+        reps, lives = {}, {}
+        for d in ("cpu", "cuda"):
+            lp = OUT / f"chip_smoke_telemetry_{name}_{d}.ndjson"
+            reps[d] = serve_fleet.serve(device=d, live_out=str(lp),
+                                        **kw, **small_kw)
+            lives[d] = ndjson(lp)
+        for k in ("dropped", "served", "violated", "action"):
+            check(np.array_equal(reps["cpu"]["records"][k],
+                                 reps["cuda"]["records"][k]),
+                  f"{name}: {k} identical on the CPU and the card")
+        parity[name] = telemetry_parity(reps["cuda"]["telemetry"],
+                                        reps["cpu"]["telemetry"],
+                                        f"{name} CPU vs card")
+        check(without_wall(lives["cpu"]) == without_wall(lives["cuda"]),
+              f"{name}: the live NDJSON identical on the CPU and the card "
+              f"apart from wall_s")
+        parity[name]["live_events"] = len(lives["cpu"])
+    hp_small = FleetHLParams(**SMALL_TRAIN_HP, telemetry=True)
+    tr_reps, tr_lives = {}, {}
+    for d in ("cpu", "cuda"):
+        k_fleet, k_init = rnd.split(rnd.PRNGKey(SEED + 7, d), 2)
+        scn_d = random_fleet(k_fleet, SMALL_TRAIN_CELLS, n_max=N_MAX,
+                             cells_per_edge=CELLS_PER_EDGE)
+        sink = NdjsonSink(io.StringIO())
+        tr = make_hl_trainer(cfg, hp_small, live=TrainLiveEmitter(sink))
+        st_d, _ = tr.run(tr.init(k_init, scn_d), scn_d, 0, hp_small.epochs)
+        tr_reps[d] = train_telemetry_report(st_d)
+        tr_lives[d] = [json.loads(x) for x in
+                       sink._out.getvalue().splitlines()]
+    c, g = tr_reps["cpu"], tr_reps["cuda"]
+    for k in ("n_sessions", "direct_steps", "td_hist", "td_hist_edges",
+              "td_p50", "td_p95", "td_p99"):
+        check(c[k] == g[k], f"trainer {k} identical on the CPU and the card")
+    gauges = [(a, b) for k in ("epsilon", "mean_reward", "q_loss")
+              for a, b in zip(c[k], g[k], strict=True)]
+    check(all((a is None) == (b is None) for a, b in gauges),
+          "trainer gauges written in the same sessions")
+    tr_err = max(abs(a - b) for a, b in gauges if a is not None)
+    check(tr_err <= BUFFER_BAR, f"trainer gauges within {BUFFER_BAR} "
+          f"({tr_err})")
+    for ec, eg in zip(tr_lives["cpu"], tr_lives["cuda"], strict=True):
+        check(all(ec[k] == eg[k] for k in ("event", "epoch", "session"))
+              and all((ec[k] is None) == (eg[k] is None)
+                      and (ec[k] is None or abs(ec[k] - eg[k]) <= BUFFER_BAR)
+                      for k in ("mean_reward", "q_loss", "epsilon")),
+              f"train_session records alike on the CPU and the card "
+              f"({ec} vs {eg})")
+    parity["trainer"] = dict(max_gauge_err=tr_err, sessions=c["n_sessions"],
+                             td_updates=sum(c["td_hist"]))
+
+    out = dict(deployment=deployment, economy=economy, trainer=trainer_out,
+               cpu_vs_card=parity)
+    emit("telemetry", **out)
+    return out
+
 
 def main() -> int:
     import torch
@@ -1842,6 +2234,7 @@ def main() -> int:
     phase_lm_parity(torch)
     phase_hltrain(torch)
     phase_economy(torch)
+    phase_telemetry(torch)
     for name, k in kernels.items():
         k["launches"] = serve["greedy"]["launches"][name]
     kernels["flash_attention"] = dict(

@@ -16,9 +16,12 @@ by name, so this module imports nothing of the reference:
     tier_economy_state  a TierEconomyState → the port's
     fleet_state         a FleetState (env carry, its ``econ`` included) →
                         port FleetState
-    hl_train_state      the fleet trainer's whole carry (HLTrainState) →
-                        the port's; ``hl_train_state_arrays`` is its
-                        inverse, to numpy in the reference's layout
+    metric_buffer       a telemetry MetricBuffer (edges, hist, counters
+                        and gauges dicts) → the port's
+    hl_train_state      the fleet trainer's whole carry (HLTrainState),
+                        its telemetry buffer included → the port's;
+                        ``hl_train_state_arrays`` is its inverse, to numpy
+                        in the reference's layout
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig
 from repro_torch.random import MASK32
 from repro_torch.serve.stream import RequestStream
+from repro_torch.telemetry.metrics import MetricBuffer
 from repro_torch.training.optimizer import AdamState
 
 
@@ -196,15 +200,33 @@ def _prio(buf, dev) -> PrioRing:
                     _array(buf.max_prio, np.float32, dev))
 
 
+def metric_buffer(buf, device="cuda") -> MetricBuffer:
+    """The reference's ``MetricBuffer``: its counters and gauges dicts
+    become the port's (W, K) and (W, G) matrices, columns in dict
+    order."""
+    dev = resolve_device(device)
+    n_windows = int(np.asarray(next(iter(
+        {**buf.counters, **buf.gauges}.values()))).shape[0])
+
+    def cols(d: dict, dtype):
+        return _array(np.stack([np.array(v, dtype) for v in d.values()], 1)
+                      if d else np.zeros((n_windows, 0), dtype), None, dev)
+
+    return MetricBuffer(
+        edges=_array(buf.edges, np.float32, dev),
+        hist=_array(buf.hist, np.int32, dev),
+        counts=cols(buf.counters, np.int64),
+        snaps=cols(buf.gauges, np.float32),
+        counter_names=tuple(buf.counters), gauge_names=tuple(buf.gauges))
+
+
 def hl_train_state(state, device="cuda") -> HLTrainState:
     """The reference's ``HLTrainState`` — key, DQN (online, target, Adam
     moments), system model and moments, the three buffers, env state,
-    observations, ε scales and counters — as the port's, on
-    ``device``.  Telemetry (``tel``) must be off."""
+    observations, ε scales, counters and the telemetry buffer when it
+    has one — as the port's, on ``device``."""
     dev = resolve_device(device)
-    if getattr(state, "tel", None) is not None:
-        raise ValueError("training telemetry arrives with the port's "
-                         "telemetry slice")
+    tel = getattr(state, "tel", None)
     i32 = lambda x: _array(x, np.int32, dev)
     mlp = lambda layers: mlp_from_layers(
         [{k: np.array(v, np.float32) for k, v in layer.items()}
@@ -228,7 +250,8 @@ def hl_train_state(state, device="cuda") -> HLTrainState:
         eps_scale=_array(state.eps_scale, np.float32, dev),
         steps_per_cell=i32(state.steps_per_cell),
         direct_steps=i32(state.direct_steps),
-        verify_steps=i32(state.verify_steps), sessions=i32(state.sessions))
+        verify_steps=i32(state.verify_steps), sessions=i32(state.sessions),
+        tel=None if tel is None else metric_buffer(tel, dev))
 
 
 def hl_train_state_arrays(state: HLTrainState) -> dict:
@@ -254,7 +277,7 @@ def hl_train_state_arrays(state: HLTrainState) -> dict:
                 "max_prio": host(b.max_prio)}
 
     dqn, sm, env = state.dqn, state.sm, state.env
-    return {
+    out = {
         "key": u32(state.key),
         "dqn": {"params": dqn.params.to_layers(),
                 "target_params": dqn.target_params.to_layers(),
@@ -274,3 +297,15 @@ def hl_train_state_arrays(state: HLTrainState) -> dict:
         "verify_steps": host(state.verify_steps),
         "sessions": host(state.sessions),
     }
+    if state.tel is not None:
+        out["tel"] = metric_buffer_arrays(state.tel)
+    return out
+
+
+def metric_buffer_arrays(buf: MetricBuffer) -> dict:
+    """A port ``MetricBuffer`` as numpy in the reference's layout: edges,
+    hist, and the counters and gauges as dicts of (W,) columns."""
+    host = lambda t: t.detach().cpu().numpy()
+    return {"edges": host(buf.edges), "hist": host(buf.hist),
+            "counters": dict(zip(buf.counter_names, host(buf.counts).T)),
+            "gauges": dict(zip(buf.gauge_names, host(buf.snaps).T))}

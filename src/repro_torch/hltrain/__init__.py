@@ -9,8 +9,8 @@
     metrics   Table-VI real-step accounting and reward-vs-exact-optimum
               evaluation against fleet.solver
 
-Per-session training telemetry (``train_telemetry_report``) waits for
-the port's telemetry slice.
+With ``FleetHLParams.telemetry`` the trainer keeps per-session metric
+series on the device (``train_telemetry_report``).
 """
 from repro_torch.hltrain.buffers import (Ring, PrioRing, PlanRing, ring_init,
                                          ring_add, ring_sample, prio_init,
@@ -19,7 +19,8 @@ from repro_torch.hltrain.buffers import (Ring, PrioRing, PlanRing, ring_init,
                                          hash_state_action)
 from repro_torch.hltrain.trainer import (FleetHLParams, FleetHLTrainer,
                                          HLTrainState, make_hl_trainer,
-                                         run_curriculum, session_schedule)
+                                         run_curriculum, session_schedule,
+                                         train_telemetry_report)
 from repro_torch.hltrain.metrics import (real_step_budget, optimal_rewards,
                                          reward_from_round,
                                          evaluate_vs_solver, history_to_dict)
@@ -29,7 +30,7 @@ __all__ = [
     "prio_init", "prio_add", "prio_sample", "prio_update",
     "plan_init", "plan_contains", "plan_add", "hash_state_action",
     "FleetHLParams", "FleetHLTrainer", "HLTrainState", "make_hl_trainer",
-    "run_curriculum", "session_schedule",
+    "run_curriculum", "session_schedule", "train_telemetry_report",
     "real_step_budget", "optimal_rewards", "reward_from_round",
     "evaluate_vs_solver", "history_to_dict",
 ]

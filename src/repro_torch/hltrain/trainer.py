@@ -33,8 +33,13 @@ come back as device tensors (``history_to_dict`` brings them to the
 host).  Real-step accounting is Table VI's: C per direct step, one per
 novel verified pair.
 
-Per-session telemetry (``FleetHLParams.telemetry``, ``live=`` and
-``train_telemetry_report``) waits for the port's telemetry slice.
+With ``FleetHLParams.telemetry`` a ``repro_torch.telemetry`` buffer rides
+in the carry: one window per direct session (its global index, a device
+value) with the session's real direct steps and its epsilon, mean reward
+and TD-loss gauges, and a log-spaced histogram of |TD error| over every
+applied update, direct and planning; ``train_telemetry_report`` reads it.
+A ``live`` ``TrainLiveEmitter`` gets each epoch's direct sessions after
+they ran, in one device-to-host copy an epoch.
 """
 from __future__ import annotations
 
@@ -58,9 +63,11 @@ from repro_torch.hltrain.buffers import (PlanRing, PrioRing, Ring,
                                          ring_add, ring_init, ring_sample)
 from repro_torch.policy.adapters import dqn_policy
 from repro_torch.policy.api import Policy
-
-TELEMETRY_LATER = ("training telemetry arrives with the port's telemetry "
-                   "slice (ROADMAP.md queue 1 item 6)")
+from repro_torch.telemetry.metrics import (MetricBuffer, buffer_series,
+                                           count_event,
+                                           histogram_percentiles,
+                                           metrics_init, observe_values,
+                                           set_gauge)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,7 +101,9 @@ class FleetHLParams:
     plan_cap: int = 4096
     hidden: tuple = (128, 128)
     seed: int = 0
-    telemetry: bool = False       # raises: see TELEMETRY_LATER
+    # per-direct-session telemetry (epsilon / reward / TD-loss gauges, a
+    # |TD-error| histogram); read back with ``train_telemetry_report``
+    telemetry: bool = False
 
 
 class HLTrainState(NamedTuple):
@@ -112,6 +121,7 @@ class HLTrainState(NamedTuple):
     direct_steps: torch.Tensor    # () int32 — real direct transitions
     verify_steps: torch.Tensor    # () int32 — real verifications
     sessions: torch.Tensor        # () int32 — direct sessions completed
+    tel: MetricBuffer | None = None  # per-session metrics (None = off)
 
     @property
     def real_steps(self) -> torch.Tensor:
@@ -151,9 +161,14 @@ def _nanmean(xs: list) -> torch.Tensor:
 
 def make_hl_trainer(cfg: FleetConfig, hp: FleetHLParams | None = None, *,
                     live=None) -> FleetHLTrainer:
+    """``live`` is an optional ``repro_torch.telemetry.TrainLiveEmitter``
+    (requires ``hp.telemetry``): each epoch hands it the metrics of its
+    direct sessions, so they stream out as NDJSON while training runs."""
     hp = hp or FleetHLParams()
-    if hp.telemetry or live is not None:
-        raise NotImplementedError(TELEMETRY_LATER)
+    if live is not None and not hp.telemetry:
+        raise ValueError("live training export requires "
+                         "FleetHLParams.telemetry (the per-session "
+                         "gauges it streams)")
     env = make_fleet_env(cfg)
     spec = cfg.spec()  # observation width comes from the spec
     state_dim = spec.dim
@@ -175,6 +190,13 @@ def make_hl_trainer(cfg: FleetConfig, hp: FleetHLParams | None = None, *,
         jitter = hp.eps_cell_jitter * (
             2.0 * rnd.uniform(k_eps, (n_cells,)) - 1.0)
         zero = lambda: torch.zeros((), dtype=torch.int32, device=dev)
+        # one telemetry window per direct-session slot; |TD| magnitudes
+        # live well inside [1e-3, 1e3] at the reward scale
+        tel = (metrics_init(hp.epochs * hp.n_direct,
+                            counters=("direct_steps",),
+                            gauges=("epsilon", "mean_reward", "q_loss"),
+                            lo=1e-3, hi=1e3, bins=128, device=dev)
+               if hp.telemetry else None)
         return HLTrainState(
             key=key, dqn=dqn_init(k_dqn), sm=sm_init(k_sm),
             d_direct=prio_init(hp.direct_cap, state_dim, dev),
@@ -182,7 +204,8 @@ def make_hl_trainer(cfg: FleetConfig, hp: FleetHLParams | None = None, *,
             d_plan=plan_init(hp.plan_cap, state_dim, dev),
             env=env_state, obs=env.observe(scenario, env_state),
             eps_scale=1.0 + jitter, steps_per_cell=zero(),
-            direct_steps=zero(), verify_steps=zero(), sessions=zero())
+            direct_steps=zero(), verify_steps=zero(), sessions=zero(),
+            tel=tel)
 
     def resume(state: HLTrainState, scenario: FleetScenario) -> HLTrainState:
         """Re-anchor the carry after a scenario swap (user counts only):
@@ -227,6 +250,8 @@ def make_hl_trainer(cfg: FleetConfig, hp: FleetHLParams | None = None, *,
         # pre-warm-up minibatches gather unwritten slots: their loss stays
         # out of the metrics
         loss = torch.where(ready, loss, float("nan"))
+        if st.tel is not None:  # |TD error| over every applied update
+            observe_values(st.tel, td.abs(), ready.expand(hp.batch))
         return st._replace(key=key, dqn=dqn), buf, loss
 
     def direct_session(st: HLTrainState, scenario: FleetScenario):
@@ -239,10 +264,18 @@ def make_hl_trainer(cfg: FleetConfig, hp: FleetHLParams | None = None, *,
             st, d_direct, loss = dqn_train(st, st.d_direct)
             st = st._replace(d_direct=d_direct)
             losses.append(loss)
+        mean_r, loss = torch.stack(rs).mean(), torch.stack(losses).mean()
+        if st.tel is not None:
+            # window = this direct session's global index (on the device)
+            w = st.sessions.clamp(max=hp.epochs * hp.n_direct - 1)
+            count_event(st.tel, "direct_steps", w,
+                        hp.t_direct * scenario.n_cells)
+            set_gauge(st.tel, "epsilon", w, epsilon(st).mean())
+            set_gauge(st.tel, "mean_reward", w, mean_r)
+            set_gauge(st.tel, "q_loss", w, loss)
         sessions = st.sessions + 1
         dqn_sync(st.dqn, where=(sessions % hp.target_sync_every) == 0)
-        return (st._replace(sessions=sessions), torch.stack(rs).mean(),
-                torch.stack(losses).mean())
+        return st._replace(sessions=sessions), mean_r, loss
 
     # ------------------------------------------------------------ phase (2)
     def world_session(st: HLTrainState):
@@ -294,10 +327,24 @@ def make_hl_trainer(cfg: FleetConfig, hp: FleetHLParams | None = None, *,
     def epoch(st: HLTrainState, scenario: FleetScenario, epoch_idx: int):
         e = min(epoch_idx, hp.epochs - 1)
         mean_r, q_loss, sm_loss, p_loss = [], [], [], []
+        sessions0 = st.sessions  # global index of the epoch's first session
         for _ in range(int(schedule["direct"][e])):
             st, r, loss = direct_session(st, scenario)
             mean_r.append(r)
             q_loss.append(loss)
+        if live is not None:
+            # one device-to-host copy an epoch: the first session's index,
+            # each session's mean reward and TD loss, the epoch's epsilon
+            lanes = torch.cat([sessions0.to(torch.float64).reshape(1),
+                               torch.stack(mean_r).to(torch.float64),
+                               torch.stack(q_loss).to(torch.float64),
+                               epsilon(st).mean().to(torch.float64)
+                               .reshape(1)]).cpu().numpy()
+            n = len(mean_r)
+            live.on_epoch(epoch_idx, n, int(lanes[0]),
+                          lanes[1:1 + n].astype(np.float32),
+                          lanes[1 + n:1 + 2 * n].astype(np.float32),
+                          np.float32(lanes[-1]))
         for _ in range(int(schedule["world"][e])):
             st, loss = world_session(st)
             sm_loss.append(loss)
@@ -325,7 +372,8 @@ def make_hl_trainer(cfg: FleetConfig, hp: FleetHLParams | None = None, *,
             n_epochs: int):
         """``n_epochs`` epochs from ``epoch_start``.  Returns (state,
         metrics): every metric stacked over the epochs as a device tensor
-        (``epoch`` an int64 tensor), with no host sync.
+        (``epoch`` an int64 tensor), with no host sync but the live
+        emitter's one copy an epoch.
 
         The input ``state`` is consumed, as the reference's donated carry
         is: its buffers, parameters and moments are written in place, its
@@ -346,7 +394,24 @@ def make_hl_trainer(cfg: FleetConfig, hp: FleetHLParams | None = None, *,
 
 
 def train_telemetry_report(state: HLTrainState) -> dict:
-    raise NotImplementedError(TELEMETRY_LATER)
+    """A telemetry-enabled trainer's metric buffer on the host:
+    per-direct-session series (epsilon, mean reward, TD loss, real direct
+    steps) cut to the sessions run, and the |TD-error| histogram with its
+    p50/p95/p99."""
+    if state.tel is None:
+        raise ValueError("trainer ran with FleetHLParams.telemetry=False; "
+                         "no metric buffer to report")
+    s = buffer_series(state.tel)
+    n = int(state.sessions)
+    out = {"n_sessions": n,
+           "direct_steps": s["counters"]["direct_steps"][:n].tolist(),
+           "td_hist": s["hist"].tolist(),
+           "td_hist_edges": np.round(s["edges"], 6).tolist()}
+    for name, v in s["gauges"].items():
+        out[name] = [None if np.isnan(x) else float(x) for x in v[:n]]
+    for p, v in histogram_percentiles(s["hist"], s["edges"]).items():
+        out[f"td_{p}"] = v
+    return out
 
 
 def run_curriculum(trainer: FleetHLTrainer, stages, epochs: int,

@@ -6,6 +6,10 @@ replay as compat.
         [--cells 64] [--rate 3.0] [--rounds 50] [--seed 0] [--epochs 5] \
         [--cells-per-edge 1] [--shared-cloud] [--shared-edge] \
         [--quiet] [--tick-ms 50] [--queue-cap 64] \
+        [--telemetry] [--window-ms 1000] \
+        [--trace-out trace.jsonl] [--trace-sample 1.0] \
+        [--live] [--live-out live.ndjson] [--slo-target 0.9] \
+        [--canary other.bundle.msgpack] \
         [--economy local|serverless|spot] [--round-replay] \
         [--out serve.json] [--device cuda]
 
@@ -37,6 +41,23 @@ block; ``--greedy`` ignores it) and is request-level only: with
 report as JSON (records left out); its directory is checked for
 writability before any work.
 
+Observability (request-level only: with ``--round-replay`` they exit
+before any work): ``--telemetry`` carries a ``repro_torch.telemetry``
+metric buffer through the tick (per-``--window-ms`` counters, window-end
+gauges and a latency histogram, under ``"telemetry"`` in the report; the
+economy's spend, energy, cold-start and preemption counters ride in it
+under ``--economy``).  ``--trace-out`` writes a per-request lifecycle
+trace as JSONL (``--trace-sample``: the deterministic id-hash sampling
+rate), which ``python -m repro_torch.telemetry.report`` renders and
+``python -m repro_torch.telemetry.audit --trace`` checks beside the
+``--out`` report.  ``--live`` (requires ``--telemetry``) streams each
+closed window as NDJSON while the run executes, to stdout or
+``--live-out``, with SLO burn-rate ``alert`` events against the
+``--slo-target`` attainment objective.  ``--canary other.bundle`` serves
+a second bundle on the bit-identical stream (same fleet, stream and
+serving key) and adds the paired per-window diff under ``"canary"``.
+The trace and live paths are checked for writability before any work.
+
 ``--guard`` wraps the policy in the ``slo_guarded`` combinator.  A
 bundle's recorded coupling regime (``shared_cloud`` / ``shared_edge`` /
 ``cells_per_edge`` in its metadata) applies unless the flags set it.
@@ -60,9 +81,14 @@ from repro_torch.policy.adapters import (heuristic_greedy_policy,
                                          solve_oracle)
 from repro_torch.policy.bundle import load_bundle, policy_from_bundle
 from repro_torch.serve.compat import replay_trace
-from repro_torch.serve.engine import ServeConfig, serve_stream
+from repro_torch.serve.engine import (ECON_COUNTERS, ECON_GAUGES,
+                                      TEL_COUNTERS, TEL_GAUGES, ServeConfig,
+                                      serve_stream)
 from repro_torch.serve.stream import poisson_request_stream
 from repro_torch.specs.observation import make_spec
+from repro_torch.telemetry import (BurnRateAlerter, BurnRateConfig,
+                                   LiveEmitter, build_trace, canary_diff,
+                                   open_sink, render_canary, write_trace)
 
 # the baseline's serving configuration when no bundle names one
 GREEDY_SPEC, GREEDY_N_MAX = "full", 5
@@ -83,12 +109,24 @@ def require_writable(path, flag: str) -> None:
                          "is not writable")
 
 
+def guarded(policy, params, spec, seed: int, dev) -> tuple:
+    """(policy, params) wrapped in the ``slo_guarded`` combinator with
+    the latency-greedy fallback."""
+    fallback = heuristic_greedy_policy(spec)
+    return (slo_guarded(policy, spec, fallback),
+            slo_guarded_params(params, fallback.init(seed, dev), dev))
+
+
 def serve(*, bundle: str | None = None, greedy: bool = False,
           guard: bool = False, cells: int = 64, rate: float = 3.0,
           rounds: int = 50, seed: int = 0, epochs: int = 5,
           cells_per_edge: int | None = None, shared_cloud: bool = False,
           shared_edge: bool = False, quiet: bool = False,
           tick_ms: float = 50.0, queue_cap: int = 64,
+          telemetry: bool = False, window_ms: float = 1000.0,
+          trace_out: str | None = None, trace_sample: float = 1.0,
+          live: bool = False, live_out: str | None = None,
+          slo_target: float = 0.9, canary: str | None = None,
           economy: str | None = None, round_replay: bool = False,
           device="cuda", verbose: bool = True) -> dict:
     """Serve one run and return its report (request-level: raw
@@ -97,9 +135,22 @@ def serve(*, bundle: str | None = None, greedy: bool = False,
     k_trace, k_serve, k_guard = split(PRNGKey(seed), 4)`` draw the fleet,
     the request stream or round trace and the serving noise (the guard's
     greedy fallback draws nothing from ``k_guard``), so a seed serves the
-    reference's fleet and traffic."""
+    reference's fleet and traffic.  ``canary`` serves a second bundle on
+    the same stream and key and adds the paired diff under ``"canary"``."""
     if (bundle is None) == (not greedy):
         raise SystemExit("give exactly one of --bundle or --greedy")
+    # output paths and flag combinations fail before any work
+    require_writable(trace_out, "--trace-out")
+    require_writable(live_out, "--live-out")
+    if live and not telemetry:
+        raise SystemExit("--live streams the telemetry windows; "
+                         "add --telemetry")
+    if round_replay and canary:
+        raise SystemExit("--canary is a request-level feature; drop "
+                         "--round-replay to use it")
+    if round_replay and (trace_out or telemetry):
+        raise SystemExit("--telemetry/--trace-out are request-level "
+                         "features; drop --round-replay to use them")
     profile = None
     if economy:
         if round_replay:
@@ -123,9 +174,7 @@ def serve(*, bundle: str | None = None, greedy: bool = False,
         policy = heuristic_greedy_policy(spec)
         params = policy.init(seed, dev)
     if guard:
-        fallback = heuristic_greedy_policy(spec)
-        params = slo_guarded_params(params, fallback.init(seed, dev), dev)
-        policy = slo_guarded(policy, spec, fallback)
+        policy, params = guarded(policy, params, spec, seed, dev)
     shared_cloud = shared_cloud or bool(meta.get("shared_cloud", False))
     shared_edge = shared_edge or bool(meta.get("shared_edge", False))
     if cells_per_edge is None:
@@ -138,8 +187,11 @@ def serve(*, bundle: str | None = None, greedy: bool = False,
                   rate=rate, rounds=rounds, seed=seed, epochs=epochs,
                   cells_per_edge=cells_per_edge, shared_cloud=shared_cloud,
                   shared_edge=shared_edge, quiet=quiet, tick_ms=tick_ms,
-                  queue_cap=queue_cap, economy=economy,
-                  round_replay=round_replay, device=str(dev),
+                  queue_cap=queue_cap, telemetry=telemetry,
+                  window_ms=window_ms, trace_sample=trace_sample, live=live,
+                  live_out=live_out, slo_target=slo_target, canary=canary,
+                  economy=economy, round_replay=round_replay,
+                  device=str(dev),
                   obs_spec=spec.name, n_max=spec.n_max, kind=policy.kind)
     if verbose:
         print("config: " + " ".join(f"{k}={v}"
@@ -173,6 +225,7 @@ def serve(*, bundle: str | None = None, greedy: bool = False,
     cfg = ServeConfig(n_max=spec.n_max, obs_spec=spec.name, quiet=quiet,
                       tick_ms=tick_ms, queue_cap=queue_cap,
                       shared_cloud=shared_cloud, shared_edge=shared_edge,
+                      telemetry=telemetry, window_ms=window_ms,
                       economy=profile)
     horizon_ms = rounds * cfg.round_ms
     stream = poisson_request_stream(
@@ -181,10 +234,40 @@ def serve(*, bundle: str | None = None, greedy: bool = False,
     if verbose:
         print(f"serving {stream.n_requests:,} requests to {cells} cells "
               f"over {horizon_ms:.0f} ms")
+    emitter = None
+    if live:
+        # the names of the engine's buffer: the economy's ride in it
+        emitter = LiveEmitter(
+            open_sink(live_out),
+            TEL_COUNTERS + (ECON_COUNTERS if profile else ()),
+            TEL_GAUGES + (ECON_GAUGES if profile else ()),
+            window_ms=window_ms,
+            alerter=BurnRateAlerter(BurnRateConfig(target=slo_target)))
     report = serve_stream(policy, params, scenario, stream, cfg,
-                          key=k_serve, verbose=verbose, device=dev)
+                          key=k_serve, verbose=verbose, device=dev,
+                          live=emitter)
     report["horizon_ms"] = horizon_ms
     report["config"] = config
+    if canary:
+        c_bundle = load_bundle(canary, expect_spec=spec.name,
+                               expect_n_max=spec.n_max)
+        c_policy, c_params = policy_from_bundle(c_bundle, dev)
+        if guard:
+            c_policy, c_params = guarded(c_policy, c_params, spec, seed, dev)
+        c_report = serve_stream(c_policy, c_params, scenario, stream, cfg,
+                                key=k_serve, device=dev)
+        report["canary"] = dict(
+            canary_diff(stream, report, c_report, window_ms),
+            bundle=canary, kind=c_bundle.kind)
+        if verbose:
+            print(render_canary(report["canary"]))
+    if trace_out:
+        events = build_trace(stream, report["records"], tick_ms,
+                             sample=trace_sample)
+        write_trace(trace_out, events)
+        if verbose:
+            print(f"wrote {len(events)} trace events "
+                  f"(sample={trace_sample:g}) to {trace_out}")
     if verbose:
         tail = (f"latency p50/p95/p99 {report['p50_latency_ms']:.0f}/"
                 f"{report['p95_latency_ms']:.0f}/"
@@ -234,6 +317,29 @@ def main(argv=None) -> dict:
                     help="disable background fluctuations")
     ap.add_argument("--tick-ms", type=float, default=50.0)
     ap.add_argument("--queue-cap", type=int, default=64)
+    ap.add_argument("--telemetry", action="store_true",
+                    help="carry a repro_torch.telemetry metric buffer "
+                         "through the tick (windowed series and a latency "
+                         "histogram under 'telemetry' in the report)")
+    ap.add_argument("--window-ms", type=float, default=1000.0,
+                    help="telemetry aggregation window")
+    ap.add_argument("--trace-out", default=None,
+                    help="write a sampled per-request lifecycle trace as "
+                         "JSONL (render with repro_torch.telemetry.report)")
+    ap.add_argument("--trace-sample", type=float, default=1.0,
+                    help="deterministic id-hash trace sampling rate")
+    ap.add_argument("--live", action="store_true",
+                    help="stream closed telemetry windows as NDJSON while "
+                         "the run executes (requires --telemetry), with "
+                         "SLO burn-rate alerts inline")
+    ap.add_argument("--live-out", default=None,
+                    help="NDJSON sink for --live ('-' or unset: stdout)")
+    ap.add_argument("--slo-target", type=float, default=0.9,
+                    help="attainment objective of the burn-rate alerter")
+    ap.add_argument("--canary", default=None,
+                    help="second PolicyBundle to serve on the "
+                         "bit-identical stream; adds the paired "
+                         "per-window diff under 'canary'")
     ap.add_argument("--economy", default=None, choices=PROFILE_NAMES,
                     help="tier-economy profile (repro_torch.economy): "
                          "per-tier prices, energy, cold starts, "
@@ -254,6 +360,10 @@ def main(argv=None) -> dict:
                    shared_cloud=args.shared_cloud,
                    shared_edge=args.shared_edge, quiet=args.quiet,
                    tick_ms=args.tick_ms, queue_cap=args.queue_cap,
+                   telemetry=args.telemetry, window_ms=args.window_ms,
+                   trace_out=args.trace_out, trace_sample=args.trace_sample,
+                   live=args.live, live_out=args.live_out,
+                   slo_target=args.slo_target, canary=args.canary,
                    economy=args.economy, round_replay=args.round_replay,
                    device=args.device)
     text = json.dumps({k: v for k, v in report.items() if k != "records"})

@@ -33,9 +33,21 @@ rebuilt per tick.  Keys follow the reference's schedule exactly — one
 split for the engine's init key, one for the env's, one per tick for the
 policy, one per tick for the preemption draws under an economy and one
 per env step for the background — so with the same scenario, stream,
-params and key the records equal the reference's.  Telemetry, live
-streaming and the cells mesh arrive with later slices; asking for them
-raises.
+params and key the records equal the reference's.
+
+With ``ServeConfig.telemetry`` on, a ``repro_torch.telemetry``
+``MetricBuffer`` rides in the engine state: per-``window_ms`` counters
+(admits, drops, served, violations, SLO attainment, decisions; and the
+economy's cold starts, preemptions, µ$ and mJ), window-end gauges
+(backlog, queue depth, in-flight requests, per-tier occupancy; warm and
+warming tiers) and a log-spaced end-to-end latency histogram accumulate
+on the device with no host sync in a tick; ``serve_stream`` reports
+them under ``"telemetry"`` (``telemetry_report``).  A ``live`` emitter
+(``repro_torch.telemetry.LiveEmitter``) gets each window on the tick
+that closes it, with one device-to-host copy of that window's row, an
+``epoch`` record at every epoch boundary and the run-end report once.
+With telemetry off the tick runs the ops it ran before.  The cells mesh
+arrives with the port's sharded slice; asking for it raises.
 """
 from __future__ import annotations
 
@@ -50,13 +62,29 @@ from repro_torch import random as rnd
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.economy.tiers import EconomyProfile, advance_economy
 from repro_torch.fleet.env import FleetConfig, FleetState, make_fleet_env
-from repro_torch.fleet.latency import row_sum
+from repro_torch.fleet.latency import A_CLOUD, A_EDGE, N_MODELS, row_sum
 from repro_torch.fleet.workload import FleetScenario
 from repro_torch.kernels.orchestration import queue_admit
 from repro_torch.policy.api import (Policy, act_batch, params_to,
                                     refresh_params, require_device_side)
 from repro_torch.serve.metrics import request_report
 from repro_torch.serve.stream import RequestStream
+from repro_torch.telemetry.metrics import (MetricBuffer, buffer_series,
+                                           count_events, metrics_init,
+                                           observe_values, set_gauges,
+                                           window_of)
+
+# per-window counters and gauges of the engine's telemetry; counters add
+# per tick, gauges keep the last (= window-end) snapshot
+TEL_COUNTERS = ("admitted", "dropped", "served", "violated", "attained",
+                "decisions")
+TEL_GAUGES = ("backlog", "queue_depth", "inflight",
+              "occ_local", "occ_edge", "occ_cloud")
+# appended when ServeConfig.economy is set: the economy's events (µ$ and
+# mJ as integers, so the audit's Σ window spend == run spend is exact)
+# and its tier-state gauges
+ECON_COUNTERS = ("cold_starts", "preemptions", "spend_uusd", "energy_mj")
+ECON_GAUGES = ("warm_tiers", "warming_tiers")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,8 +92,9 @@ class ServeConfig:
     """Engine configuration.  ``tick_ms`` is one decision tick's wall
     clock; a full round spans ``round_ms = n_max * tick_ms``.
     ``queue_cap`` bounds each cell's backlog; arrivals beyond it drop.
-    ``economy`` is an optional tier-economy profile
-    (``repro_torch.economy.builtin_profile``)."""
+    ``telemetry`` accumulates per-``window_ms`` metric series and a
+    latency histogram on the device.  ``economy`` is an optional
+    tier-economy profile (``repro_torch.economy.builtin_profile``)."""
     n_max: int = 5
     obs_spec: str = "base"
     tick_ms: float = 50.0
@@ -74,12 +103,10 @@ class ServeConfig:
     shared_cloud: bool = False
     shared_edge: bool = False
     telemetry: bool = False
+    window_ms: float = 1000.0
     economy: Optional[EconomyProfile] = None
 
     def __post_init__(self):
-        if self.telemetry:
-            raise NotImplementedError("serving telemetry arrives with the "
-                                      "port's telemetry slice")
         if not (self.economy is None
                 or isinstance(self.economy, EconomyProfile)):
             raise TypeError(f"ServeConfig.economy takes an EconomyProfile "
@@ -120,20 +147,21 @@ class EngineState(NamedTuple):
     cur_ids: torch.Tensor      # (C, n_max) int32 — ids in the round's slots
     round_start: torch.Tensor  # (C,) float32
     rec: RequestRecords
+    tel: Optional[MetricBuffer] = None  # per-window metrics (None = off)
 
 
 class ServeEngine(NamedTuple):
-    """``init(key, scenario, n_requests)`` and ``run_epoch(params,
-    scenario, state, tick_ids, tick_now, tick_live, stream_t,
-    stream_cell) -> (state', n_decisions)``."""
+    """``init(key, scenario, n_requests, n_windows=1)`` and
+    ``run_epoch(params, scenario, state, tick_ids, tick_now, tick_live,
+    stream_t, stream_cell, stream_slo=None) -> (state', n_decisions)``."""
     init: Callable
     run_epoch: Callable
 
 
-def _reject_later_slices(live, mesh) -> None:
-    if live is not None:
-        raise NotImplementedError("live window streaming arrives with the "
-                                  "port's telemetry slice")
+def _check_options(cfg: ServeConfig, live, mesh) -> None:
+    if live is not None and not cfg.telemetry:
+        raise ValueError("live streaming requires ServeConfig.telemetry "
+                         "(the window series it exports)")
     if mesh is not None:
         raise NotImplementedError("cells-mesh serving arrives with the "
                                   "port's sharded slice")
@@ -141,12 +169,20 @@ def _reject_later_slices(live, mesh) -> None:
 
 def make_serve_engine(policy: Policy, cfg: ServeConfig, live=None,
                       mesh=None) -> ServeEngine:
-    _reject_later_slices(live, mesh)
+    """``live`` is an optional ``repro_torch.telemetry.LiveEmitter``
+    (requires ``cfg.telemetry``): the tick that closes a telemetry window
+    hands it that window's counters and gauges, one device-to-host copy
+    a window."""
+    _check_options(cfg, live, mesh)
     require_device_side(policy, "the request-level serving engine")
     env = make_fleet_env(cfg.fleet())
     n_max, Q = cfg.n_max, cfg.queue_cap
+    # the economy's series ride in the same buffer when a profile is set
+    counters = TEL_COUNTERS + (ECON_COUNTERS if cfg.economy else ())
+    gauges = TEL_GAUGES + (ECON_GAUGES if cfg.economy else ())
 
-    def init(key, scenario: FleetScenario, n_requests: int) -> EngineState:
+    def init(key, scenario: FleetScenario, n_requests: int,
+             n_windows: int = 1) -> EngineState:
         C = scenario.n_cells
         dev = scenario.device
         k_env, key = rnd.split(key.to(dev))
@@ -163,23 +199,27 @@ def make_serve_engine(policy: Policy, cfg: ServeConfig, live=None,
             cur_ids=torch.full((C, n_max), -1, **i32),
             round_start=torch.zeros(C, dtype=torch.float32, device=dev),
             rec=RequestRecords(zf(), zf(), zf(), zb(), zb(), zb(),
-                               torch.full((n_requests + 1,), -1, **i32)))
+                               torch.full((n_requests + 1,), -1, **i32)),
+            tel=(metrics_init(n_windows, counters, gauges, device=dev)
+                 if cfg.telemetry else None))
 
     def run_epoch(params, scenario: FleetScenario, state: EngineState,
-                  tick_ids, tick_now, tick_live, stream_t, stream_cell):
+                  tick_ids, tick_now, tick_live, stream_t, stream_cell,
+                  stream_slo=None):
         """Serve one epoch's ticks.  ``tick_ids`` (T_e, A) int32 device
         tensor of arriving request ids, -1-padded; ``tick_now`` (T_e,)
         float32 and ``tick_live`` (T_e,) bool host arrays (dead padding
-        ticks are skipped); ``stream_t`` / ``stream_cell`` the (N+1,)
-        per-request device arrays.  Returns the state and the number of
-        real decisions (a device scalar)."""
+        ticks are skipped); ``stream_t`` / ``stream_cell`` / ``stream_slo``
+        the (N+1,) per-request device arrays (``stream_slo`` is read by
+        telemetry alone).  Returns the state and the number of real
+        decisions (a device scalar)."""
         dev = scenario.device
         scratch = stream_t.shape[0] - 1
         slot = torch.arange(n_max, device=dev)
         cell_ids = torch.arange(scenario.n_cells, device=dev)
         params = refresh_params(policy, params, scenario)
 
-        def live_tick(st: EngineState, ids, now: float):
+        def live_tick(st: EngineState, ids, now: np.float32):
             # -- 1. admit this tick's arrivals into the per-cell rings
             #       (q_ids and q_len in place) --
             valid = ids >= 0
@@ -187,7 +227,8 @@ def make_serve_engine(policy: Policy, cfg: ServeConfig, live=None,
             q_ids, q_len, admitted = queue_admit(
                 st.q_ids, st.q_head, st.q_len, ids, cell, valid)
             rec = st.rec
-            rec.dropped[torch.where(valid & ~admitted, ids, scratch)] = True
+            rejected = valid & ~admitted
+            rec.dropped[torch.where(rejected, ids, scratch)] = True
 
             # -- 2. form rounds at idle cells with backlog --
             start = (st.cur_n == 0) & (q_len > 0)
@@ -200,7 +241,7 @@ def make_serve_engine(policy: Policy, cfg: ServeConfig, live=None,
             q_head = (st.q_head + n_new) % Q
             q_len.sub_(n_new)
             cur_n = torch.where(start, n_new, st.cur_n)
-            round_start = torch.where(start, now, st.round_start)
+            round_start = torch.where(start, float(now), st.round_start)
 
             # -- 3. one fleet-wide micro-batched decision + env step --
             active = cur_n > 0
@@ -218,17 +259,20 @@ def make_serve_engine(policy: Policy, cfg: ServeConfig, live=None,
             # -- 4. scatter per-request records of completed rounds --
             fin = done & active
             rec_mask = fin[:, None] & (slot[None, :] < cur_n[:, None])
+            # the slots of this tick's active rounds (economy, telemetry)
+            in_round = (active[:, None] & (slot[None, :] < cur_n[:, None])
+                        if cfg.economy is not None or cfg.telemetry
+                        else None)
             service, art = info["times"], info["art"]
             if cfg.economy is not None:
                 # one tick of the tier economy: this tick's decisions may
                 # start a cold tier (its wait charged to the slot), idle
                 # tiers scale to zero, spot tiers preempt, µ$ / mJ accrue
                 key, k_pre = rnd.split(key)
-                in_round = active[:, None] & (slot[None, :] < cur_n[:, None])
-                econ2, pen, _ = advance_economy(
+                econ2, pen, econ_ev = advance_economy(
                     cfg.economy, st.env.econ, tick_ms=cfg.tick_ms,
                     action=a, cursor=st.env.user.clamp(max=n_max - 1),
-                    active=active, now=now, round_start=round_start,
+                    active=active, now=float(now), round_start=round_start,
                     round_actions=info["actions"], in_round=in_round,
                     rec_mask=rec_mask, times=info["times"], fin=fin,
                     key=k_pre, cell_ids=cell_ids)
@@ -241,28 +285,79 @@ def make_serve_engine(policy: Policy, cfg: ServeConfig, live=None,
             rid = torch.where(rec_mask, cur_ids, scratch)
             flat = rid.reshape(-1)
             spread = lambda v: v[:, None].expand(rid.shape).reshape(-1)
-            rec.wait_ms[flat] = (round_start[:, None]
-                                 - stream_t[rid]).reshape(-1)
+            wait_lanes = round_start[:, None] - stream_t[rid]
+            rec.wait_ms[flat] = wait_lanes.reshape(-1)
             rec.service_ms[flat] = service.reshape(-1)
             rec.art_ms[flat] = spread(art)
             rec.served[flat] = True
             rec.violated[flat] = spread(info["violated"])
             rec.action[flat] = info["actions"].reshape(-1)
+            n_decisions = active.sum()
+
+            tel = st.tel
+            if tel is not None:
+                # -- 5. per-window device accumulators (no host sync) --
+                w = window_of(tel, now, cfg.window_ms)
+                e2e = wait_lanes + service
+                attained = rec_mask & (e2e <= stream_slo[rid] + 1e-6)
+                acts = info["actions"]
+                # tiers count this tick's committed slots of active rounds
+                decided = in_round & (acts >= 0)
+                events = {
+                    "admitted": admitted.sum(), "dropped": rejected.sum(),
+                    "decisions": n_decisions, "served": rec_mask.sum(),
+                    "violated": (rec_mask
+                                 & info["violated"][:, None]).sum(),
+                    "attained": attained.sum()}
+                snaps = {
+                    "backlog": q_len.sum(),
+                    "queue_depth": q_len.to(torch.float32).mean(),
+                    "inflight": torch.where(active, cur_n, 0).sum(),
+                    "occ_local": (decided & (acts < N_MODELS)).sum(),
+                    "occ_edge": (decided & (acts == A_EDGE)).sum(),
+                    "occ_cloud": (decided
+                                  & (acts == A_CLOUD)).sum()}
+                if cfg.economy is not None:
+                    # the integers the run totals add: the audit's
+                    # conservation laws compare them exactly
+                    events.update((n, econ_ev[n]) for n in ECON_COUNTERS)
+                    snaps.update((n, econ_ev[n]) for n in ECON_GAUGES)
+                count_events(tel, w, events)
+                observe_values(tel, e2e, rec_mask)
+                set_gauges(tel, w, snaps)
+                # the window is closed (final) once the next tick falls
+                # past it; serve_stream's finish() call flushes the last one
+                if live is not None and window_of(
+                        tel, now + np.float32(cfg.tick_ms),
+                        cfg.window_ms) > w:
+                    _emit_window(live, tel, w, now)
 
             st2 = EngineState(
                 env=env2, key=key, q_ids=q_ids, q_head=q_head, q_len=q_len,
                 cur_n=torch.where(fin, 0, cur_n), cur_ids=cur_ids,
-                round_start=round_start, rec=rec)
-            return st2, active.sum()
+                round_start=round_start, rec=rec, tel=tel)
+            return st2, n_decisions
 
         n_decisions = torch.zeros((), dtype=torch.int64, device=dev)
-        for ids, now, live in zip(tick_ids, tick_now, tick_live):
-            if live:
-                state, n = live_tick(state, ids, float(now))
+        for ids, now, live_t in zip(tick_ids, tick_now, tick_live):
+            if live_t:
+                state, n = live_tick(state, ids, np.float32(now))
                 n_decisions += n
         return state, n_decisions
 
     return ServeEngine(init=init, run_epoch=run_epoch)
+
+
+def _emit_window(live, tel: MetricBuffer, w: int, now: np.float32) -> None:
+    """Hand window ``w``'s counters and gauges to ``live`` in one
+    device-to-host copy: the gauges' float32 bits ride as int64 beside
+    the counts."""
+    K = len(tel.counter_names)
+    row = torch.cat([tel.counts[w],
+                     tel.snaps[w].view(torch.int32).to(torch.int64)])
+    row = row.cpu().numpy()
+    live.on_window(w, True, float(now), row[:K],
+                   row[K:].astype(np.int32).view(np.float32))
 
 
 def _tick_buckets(stream: RequestStream, tick_ms: float,
@@ -304,8 +399,15 @@ def serve_stream(policy: Policy, params, scenario: FleetScenario,
     (``run_time_s``, ``steady_ticks``, ``ms_per_tick``, host clock
     around work ended by a device synchronize).  ``key`` is a threefry
     key (default ``PRNGKey(0)``); ``on_epoch(epoch, params) -> params``
-    runs at every epoch boundary (the bundle hot-swap point)."""
-    _reject_later_slices(live, mesh)
+    runs at every epoch boundary (the bundle hot-swap point).
+
+    With ``cfg.telemetry`` the report carries ``"telemetry"``
+    (``telemetry_report``).  ``live`` (a
+    ``repro_torch.telemetry.LiveEmitter``, requires ``cfg.telemetry``)
+    streams each closed window as the ticks run, gets an ``epoch`` record
+    at every epoch boundary (one device-to-host copy) and is finished
+    (final window, run summary) before this returns."""
+    _check_options(cfg, live, mesh)
     if scenario.n_cells != stream.n_cells:
         raise ValueError(f"stream built for {stream.n_cells} cells, "
                          f"scenario has {scenario.n_cells}")
@@ -313,7 +415,7 @@ def serve_stream(policy: Policy, params, scenario: FleetScenario,
     scenario = scenario.to(dev)  # with its group index, built once here
     params = params_to(params, dev)
     key = rnd.PRNGKey(0, dev) if key is None else key.to(dev)
-    engine = make_serve_engine(policy, cfg)
+    engine = make_serve_engine(policy, cfg, live=live)
     ticks_per_epoch = max(1, int(round(stream.epoch_ms / cfg.tick_ms)))
     ids, now, live_ticks, n_epochs = _tick_buckets(stream, cfg.tick_ms,
                                                    ticks_per_epoch)
@@ -324,9 +426,15 @@ def serve_stream(policy: Policy, params, scenario: FleetScenario,
                                device=dev)
     stream_cell = torch.as_tensor(
         np.append(stream.cell, 0).astype(np.int32), device=dev)
+    stream_slo = (torch.as_tensor(
+        np.append(stream.slo_ms, 0.0).astype(np.float32), device=dev)
+        if cfg.telemetry else None)
 
+    # windows cover the live ticks: the last live tick's clock decides the
+    # count, epoch padding never adds a window
+    n_windows = int((n_ticks - 1) * cfg.tick_ms // cfg.window_ms) + 1
     k_init, key = rnd.split(key)
-    state = engine.init(k_init, scenario, N)
+    state = engine.init(k_init, scenario, N, n_windows)
     params_t = params
     wall, compile_wall, lanes, active, steady = 0.0, 0.0, 0, 0, 0
     for e in range(n_epochs):
@@ -336,7 +444,7 @@ def serve_stream(policy: Policy, params, scenario: FleetScenario,
         t0 = time.perf_counter()
         state, n_act = engine.run_epoch(
             params_t, scenario, state, ids[lo:hi], now[lo:hi],
-            live_ticks[lo:hi], stream_t, stream_cell)
+            live_ticks[lo:hi], stream_t, stream_cell, stream_slo)
         synchronize(dev)
         dt = time.perf_counter() - t0
         if e > 0:
@@ -347,10 +455,17 @@ def serve_stream(policy: Policy, params, scenario: FleetScenario,
             active += int(n_act)
         else:
             compile_wall = dt
-        if verbose:
-            done = int(state.rec.served[:N].sum())
-            print(f"  epoch {e:3d}: ticks [{lo}, {hi}), {done:6d}/{N} "
-                  f"requests served, backlog {int(state.q_len.sum())}")
+        if verbose or live is not None:
+            done, backlog, dropped = torch.stack([
+                state.rec.served[:N].sum(), state.q_len.sum(),
+                state.rec.dropped[:N].sum()]).tolist()
+            if live is not None:
+                live.epoch(e, ticks=hi - lo, served=done, n_requests=N,
+                           backlog=backlog, dropped=dropped,
+                           wall_s=round(dt, 4))
+            if verbose:
+                print(f"  epoch {e:3d}: ticks [{lo}, {hi}), {done:6d}/{N} "
+                      f"requests served, backlog {backlog}")
 
     records = {k: v[:N].cpu().numpy()
                for k, v in state.rec._asdict().items()}
@@ -385,4 +500,33 @@ def serve_stream(policy: Policy, params, scenario: FleetScenario,
             "joules_per_request": (energy_mj / 1e3 / n_served
                                    if n_served else None),
         }
+    if cfg.telemetry:
+        report["telemetry"] = telemetry_report(state.tel, cfg.window_ms)
+        if live is not None:
+            live.finish(report["telemetry"])
     return report
+
+
+def telemetry_report(tel: MetricBuffer, window_ms: float) -> dict:
+    """The engine's metric buffer on the host, JSON-safe: per-window
+    series (counts, window-end gauges with None where unwritten, derived
+    attainment) and the latency histogram with its p50/p95/p99."""
+    s = buffer_series(tel)
+    served = s["counters"]["served"].astype(np.float64)
+    attained = s["counters"]["attained"].astype(np.float64)
+    attainment = [None if n == 0 else float(a / n)
+                  for a, n in zip(attained, served)]
+    series = {n: v.tolist() for n, v in s["counters"].items()}
+    series.update({n: [None if np.isnan(x) else float(x) for x in v]
+                   for n, v in s["gauges"].items()})
+    series["attainment"] = attainment
+    return {
+        "window_ms": window_ms,
+        "n_windows": tel.n_windows,
+        "series": series,
+        "latency_hist": s["hist"].tolist(),
+        "latency_hist_edges_ms": np.round(s["edges"], 4).tolist(),
+        "hist_p50_latency_ms": s["hist_percentiles"]["p50"],
+        "hist_p95_latency_ms": s["hist_percentiles"]["p95"],
+        "hist_p99_latency_ms": s["hist_percentiles"]["p99"],
+    }

@@ -161,23 +161,26 @@ def test_tick_buckets_match_reference(tick_ms, epoch_ms):
 
 
 def test_later_slices_raise():
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        ServeConfig(telemetry=True)
-    # the economy slice is in: a profile builds, the economy specs build,
-    # and telemetry beside an economy still raises
+    """Telemetry and the economy are in: both configurations build, with
+    the reference's window default, and live export without telemetry is
+    refused as the reference refuses it.  The cells mesh (the sharded
+    slice) still raises."""
+    assert ServeConfig(telemetry=True).window_ms == \
+        RefServeConfig(telemetry=True).window_ms == 1000.0
     spot = builtin_profile("spot")
     assert ServeConfig(economy=spot).fleet().economy is spot
     assert make_spec("full_economy", 5).dim == \
         ref_make_spec("full_economy", 5).dim
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        ServeConfig(telemetry=True, economy=spot)
+    both = ServeConfig(telemetry=True, economy=spot)
+    assert both.telemetry and both.fleet().economy is spot
     with pytest.raises(TypeError, match="EconomyProfile"):
         ServeConfig(economy="spot")
     pol = adapters.heuristic_greedy_policy(5)
     with pytest.raises(NotImplementedError, match="sharded"):
         make_serve_engine(pol, ServeConfig(), mesh=object())
-    with pytest.raises(NotImplementedError, match="telemetry"):
+    with pytest.raises(ValueError, match="requires ServeConfig.telemetry"):
         make_serve_engine(pol, ServeConfig(), live=object())
+    make_serve_engine(pol, ServeConfig(telemetry=True), live=object())
 
 
 def test_cli_serves_greedy_and_a_guarded_bundle(tmp_path, capsys):

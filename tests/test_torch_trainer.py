@@ -322,12 +322,20 @@ def test_trainer_derives_dims_from_spec_full():
 
 
 def test_telemetry_waits_for_its_slice():
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        make_hl_trainer(FleetConfig(), FleetHLParams(telemetry=True))
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    """The trainer's telemetry is in: a trainer with it builds and
+    carries a buffer of one window per direct-session slot; live export
+    without it and a report from a trainer without it raise the
+    reference's ``ValueError``."""
+    hp = _tiny_hp(epochs=2, telemetry=True)
+    trainer = make_hl_trainer(FleetConfig(n_max=N_MAX), hp)
+    scn = random_fleet(rnd.PRNGKey(0, CPU), 4, n_max=N_MAX)
+    state = trainer.init(rnd.PRNGKey(1, CPU), scn)
+    assert state.tel.n_windows == hp.epochs * hp.n_direct
+    with pytest.raises(ValueError, match="telemetry"):
         make_hl_trainer(FleetConfig(), FleetHLParams(), live=object())
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        train_telemetry_report(None)
+    off = make_hl_trainer(FleetConfig(n_max=N_MAX), _tiny_hp(epochs=2))
+    with pytest.raises(ValueError, match="telemetry"):
+        train_telemetry_report(off.init(rnd.PRNGKey(1, CPU), scn))
 
 
 def test_reward_band_one_cell():
