@@ -145,6 +145,23 @@ CUDA toolkit's nvcc.  Phases, each printing one JSON line:
    unwritten windows, the live NDJSON identical but for ``wall_s``) and 2
    tiny training epochs (counts and the |TD| histogram identical, gauges
    within 1e-5).
+13. sharded: the serving tick over a cells group of spawned ranks
+   (``repro_torch.sharding``).  (a) Phase 4's deployment through
+   ``serve_fleet.serve(mesh_cells=4)`` (gloo on one card, NCCL when each
+   rank has a card) and ``mesh_cells=1`` (NCCL), beside one device in the
+   same call: flags and actions identical, floats within 1e-5, each rank
+   launching queue_admit once and group_occupancy 3 times a tick (the
+   ranks' counts zeroed just before their run and read just after; the
+   parent launches nothing), two ``all_reduce`` a tick and one an epoch,
+   the backend, ms per steady tick by rank.  (b) 4,096 cells whose edge
+   groups span every rank (``cell % 1024``) over 4 ranks against one
+   device; then the deployment's host syncs in epoch 1 on each rank
+   (``set_sync_debug_mode("warn")``, by source line).  (c) Phase 11's
+   ``spot`` run with telemetry over 4 ranks: billing integers identical
+   to one device's, counters and histogram identical, gauges within 1e-5
+   with the same unwritten windows, the audit passing.  (d) 64 cells over
+   2 ranks on the CPU and on the card: records identical.  Prints its
+   seconds.
 
 Any failed check raises, so the exit code is non-zero.  Ends with the
 ``nvidia-smi`` line, the kernels' JSON summary and, last,
@@ -354,7 +371,7 @@ def deployment_burst(torch, dev):
     stream = poisson_request_stream(k_trace, scn, horizon, rate=RATE,
                                     round_ms=cfg.round_ms,
                                     epoch_ms=horizon / EPOCHS)
-    ids, _, _, _ = _tick_buckets(stream, cfg.tick_ms, 10)
+    ids = _tick_buckets(stream, cfg.tick_ms, 10)[0][:, 0]  # one shard
     row = ids[int((ids >= 0).sum(1).argmax())]
     rid = torch.as_tensor(row, device=dev)
     cell = torch.as_tensor(stream.cell[np.maximum(row, 0)], device=dev)
@@ -2210,6 +2227,200 @@ def phase_telemetry(torch) -> dict:
     return out
 
 
+# ------------------------------------------------------- sharded phase
+# ranks of the deployment's cells group (gloo on one card, NCCL when each
+# rank has a card), and the cells of the layout whose groups span ranks
+SHARDS, SPAN_CELLS = 4, 4096
+# the CPU-against-card group: cells, ranks
+SMALL_SHARD_CELLS, SMALL_SHARDS = 64, 2
+# per tick: the observation's totals and the transition's; per epoch: the
+# decision count
+ALL_REDUCE_PER_TICK = 2
+
+
+def records_parity(got: dict, want: dict, what: str) -> dict:
+    """Flags and actions identical, float records within 1e-5; returns
+    the largest float difference by record."""
+    import numpy as np
+    for k in ("dropped", "served", "violated", "action"):
+        check(np.array_equal(got[k], want[k]), f"{what}: {k} identical")
+    errs = {k: float(np.abs(got[k] - want[k]).max())
+            for k in ("wait_ms", "service_ms", "art_ms")}
+    check(max(errs.values()) <= 1e-5, f"{what}: floats within 1e-5 {errs}")
+    return errs
+
+
+def sharded_rank(group, jobs: list) -> tuple:
+    """One rank of phase 13b: ``jobs`` through the package's
+    ``serve_rank``, then the deployment served again with the host syncs
+    of its epoch 1 counted (``set_sync_debug_mode("warn")``, by source
+    line).  Returns the jobs' results and this rank's sync count."""
+    import torch
+    from repro_torch import random as rnd
+    from repro_torch.fleet.workload import random_fleet
+    from repro_torch.policy.adapters import heuristic_greedy_policy
+    from repro_torch.serve.engine import ServeConfig, serve_stream
+    from repro_torch.serve.sharded import serve_rank
+    from repro_torch.serve.stream import poisson_request_stream
+    from repro_torch.specs.observation import make_spec
+
+    out = serve_rank(group, jobs)
+    dev = group.device
+    k_fleet, k_trace, k_serve, _ = rnd.split(rnd.PRNGKey(SEED, dev), 4)
+    scn = random_fleet(k_fleet, CELLS, n_max=N_MAX,
+                       cells_per_edge=CELLS_PER_EDGE)
+    cfg = ServeConfig(n_max=N_MAX, obs_spec="full", shared_cloud=True,
+                      shared_edge=True)
+    horizon = ROUNDS * cfg.round_ms
+    stream = poisson_request_stream(k_trace, scn, horizon, rate=RATE,
+                                    round_ms=cfg.round_ms,
+                                    epoch_ms=horizon / SYNC_EPOCHS)
+    pol = heuristic_greedy_policy(make_spec("full", N_MAX))
+    where, rep = count_syncs(torch, lambda on_epoch: serve_stream(
+        pol, pol.init(SEED, dev), scn, stream, cfg, key=k_serve, mesh=group,
+        on_epoch=on_epoch), on=1)
+    ticks = int(round(stream.epoch_ms / cfg.tick_ms))
+    return out, dict(rank=group.rank, syncs_epoch1=where, ticks_epoch1=ticks,
+                     ms_per_tick=rep["ms_per_tick"])
+
+
+def group_summary(rep: dict, what: str) -> dict:
+    """A sharded report's group: each rank's launches (queue_admit once and
+    group_occupancy 3 times a tick), the all_reduces a tick, the backend,
+    ms per steady tick by rank."""
+    n_ticks, n_epochs = rep["n_ticks"], rep["n_epochs"]
+    for r in rep["ranks"]:
+        check(r["launches"] == {"queue_admit": n_ticks,
+                                "group_occupancy": 3 * n_ticks},
+              f"{what}: each rank's launches ({r['launches']} in "
+              f"{n_ticks} ticks)")
+    reduces = rep["cells_group"]["collectives"]["all_reduce"]
+    check(reduces == ALL_REDUCE_PER_TICK * n_ticks + n_epochs,
+          f"{what}: {ALL_REDUCE_PER_TICK} all_reduces a tick and one an "
+          f"epoch ({reduces} in {n_ticks} ticks, {n_epochs} epochs)")
+    return dict(mesh_cells=rep["mesh_cells"],
+                backend=rep["cells_group"]["backend"],
+                launches_per_rank=[r["launches"] for r in rep["ranks"]],
+                all_reduce_per_tick=(reduces - n_epochs) / n_ticks,
+                collectives=rep["cells_group"]["collectives"],
+                ms_per_tick=rep["ms_per_tick"],
+                ms_per_tick_by_rank=[r["ms_per_tick"]
+                                     for r in rep["cells_group"]["ranks"]],
+                compile_time_s=rep["compile_time_s"])
+
+
+def phase_sharded(torch) -> dict:
+    from repro_torch import random as rnd
+    from repro_torch.fleet.workload import random_fleet
+    from repro_torch.kernels.orchestration import group_index
+    from repro_torch.launch import serve_fleet
+    from repro_torch.policy.adapters import heuristic_greedy_policy
+    from repro_torch.policy.bundle import PolicyBundle
+    from repro_torch.serve.engine import ServeConfig, serve_stream
+    from repro_torch.serve.sharded import ServeJob
+    from repro_torch.serve.stream import poisson_request_stream
+    from repro_torch.sharding import backend_for, spawn_cells
+    from repro_torch.specs.observation import make_spec
+    from repro_torch.telemetry import audit_serve_report
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()  # the ranks' contexts share the card
+    # (a) the deployment over 4 ranks and over 1, beside one device
+    kw = dict(SERVE_KW, greedy=True, verbose=False)
+    single = serve_fleet.serve(device="cuda", **kw)
+    reset_all_counts()
+    four = serve_fleet.serve(device="cuda", mesh_cells=SHARDS, **kw)
+    one = serve_fleet.serve(device="cuda", mesh_cells=1, **kw)
+    check(not any(all_counts().values()),
+          "the parent launches nothing: the ranks serve")
+    check(four["cells_group"]["backend"] == backend_for(SHARDS, "cuda")
+          and one["cells_group"]["backend"] == "nccl",
+          f"backends: {four['cells_group']['backend']} over {SHARDS} "
+          f"ranks, {one['cells_group']['backend']} over one")
+    deployment = {"single_ms_per_tick": single["ms_per_tick"]}
+    for name, rep in ((f"mesh_{SHARDS}", four), ("mesh_1", one)):
+        deployment[name] = dict(
+            group_summary(rep, name),
+            max_float_err=records_parity(rep["records"], single["records"],
+                                         f"{name} vs one device"))
+
+    # (b) 4,096 cells whose edge groups span every rank (cell % 1,024),
+    # and the deployment's host syncs in epoch 1 under the group
+    dev = torch.device("cuda")
+    k_fleet, k_trace, k_serve = rnd.split(rnd.PRNGKey(SEED + 5, dev), 3)
+    scn = random_fleet(k_fleet, SPAN_CELLS, n_max=N_MAX)
+    span = torch.arange(SPAN_CELLS, dtype=torch.int32,
+                        device=dev) % (SPAN_CELLS // 4)
+    scn = scn._replace(edge_group=span, group_index=group_index(span))
+    cfg = ServeConfig(n_max=N_MAX, obs_spec="full", shared_cloud=True,
+                      shared_edge=True)
+    horizon = ROUNDS * cfg.round_ms
+    stream = poisson_request_stream(k_trace, scn, horizon, rate=RATE,
+                                    round_ms=cfg.round_ms,
+                                    epoch_ms=horizon / EPOCHS)
+    pol = heuristic_greedy_policy(make_spec("full", N_MAX))
+    want = serve_stream(pol, pol.init(SEED, dev), scn, stream, cfg,
+                        key=k_serve, device=dev)
+    job = ServeJob(PolicyBundle("greedy", "full", N_MAX, {}),
+                   scn.to("cpu"), stream, cfg, k_serve.cpu())
+    ranks = spawn_cells(sharded_rank, SHARDS, "cuda", [job])
+    got = ranks[0][0][0][0]
+    got["ranks"] = [r[0][0][1] for r in ranks]
+    spanning = dict(group_summary(got, "spanning groups"),
+                    max_float_err=records_parity(
+                        got["records"], want["records"],
+                        "spanning groups vs one device"),
+                    served=got["served_requests"])
+    syncs = [r[1] for r in ranks]
+    for r in syncs:
+        r["syncs_per_tick"] = sum(r["syncs_epoch1"].values()) / \
+            r["ticks_epoch1"]
+
+    # (c) phase 11's spot run with telemetry over 4 ranks
+    path = OUT / "chip_smoke_cost_greedy.bundle.msgpack"
+    spot_kw = dict({k: v for k, v in SERVE_KW.items()
+                    if k not in ("shared_cloud", "shared_edge")},
+                   bundle=str(path), economy=ECONOMY_PROFILE, telemetry=True,
+                   verbose=False)
+    spot_one = serve_fleet.serve(device="cuda", **spot_kw)
+    spot_four = serve_fleet.serve(device="cuda", mesh_cells=SHARDS,
+                                  **spot_kw)
+    for k in BILLING:
+        check(spot_four["economy"][k] == spot_one["economy"][k],
+              f"spot {k} identical over {SHARDS} ranks "
+              f"({spot_four['economy'][k]} vs {spot_one['economy'][k]})")
+    tel = telemetry_parity(spot_four["telemetry"], spot_one["telemetry"],
+                           f"spot telemetry over {SHARDS} ranks")
+    audit = audit_serve_report(
+        {k: v for k, v in spot_four.items() if k != "records"})
+    check(audit.ok, "the sharded spot audit passes:\n" + audit.render())
+    spot = dict(group_summary(spot_four, "spot"), telemetry=tel,
+                economy=spot_four["economy"], audit=audit.summary(),
+                max_float_err=records_parity(
+                    spot_four["records"], spot_one["records"],
+                    "spot over 4 ranks vs one device"),
+                single_ms_per_tick=spot_one["ms_per_tick"])
+
+    # (d) the CPU against the card: 64 cells over 2 ranks
+    small = dict(greedy=True, cells=SMALL_SHARD_CELLS, rounds=4, seed=1,
+                 epochs=2, cells_per_edge=4, shared_cloud=True,
+                 shared_edge=True, mesh_cells=SMALL_SHARDS, verbose=False)
+    cpu = serve_fleet.serve(device="cpu", **small)
+    gpu = serve_fleet.serve(device="cuda", **small)
+    cpu_vs_card = dict(
+        backends=[cpu["cells_group"]["backend"],
+                  gpu["cells_group"]["backend"]],
+        max_float_err=records_parity(gpu["records"], cpu["records"],
+                                     "64 cells over 2 ranks, CPU vs card"),
+        served=gpu["served_requests"])
+
+    out = dict(deployment=deployment, spanning=spanning, syncs=syncs,
+               spot=spot, cpu_vs_card=cpu_vs_card,
+               seconds=time.perf_counter() - t_phase)
+    emit("sharded", **out)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2235,6 +2446,7 @@ def main() -> int:
     phase_hltrain(torch)
     phase_economy(torch)
     phase_telemetry(torch)
+    phase_sharded(torch)
     for name, k in kernels.items():
         k["launches"] = serve["greedy"]["launches"][name]
     kernels["flash_attention"] = dict(

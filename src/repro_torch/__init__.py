@@ -11,7 +11,10 @@ WKV6 kernel in every RWKV6 block, then decodes token by token.  Beside
 the tick, a round gateway (``repro_torch.serve.compat.replay_trace``)
 replays a round trace through a policy and scores it against the exact
 solver optimum (``repro_torch.fleet.solver``), as the paper judges its
-orchestration policies.
+orchestration policies.  The tick also runs sharded over a cells group
+(``repro_torch.sharding``, the reference's ``cells`` mesh): one process
+per block of cells, its cross-cell totals reduced across the group with
+``torch.distributed`` (``serve_fleet --mesh-cells``).
 
 Entry points take an explicit ``device`` that defaults to ``"cuda"`` and
 raise when no card is visible; the CPU runs only when asked for, and then

@@ -21,6 +21,13 @@ before it swaps a scenario's ``n_users``.  Background flags are drawn per global
 (``repro_torch.random``), so with background noise on the env draws the
 reference's exact bits.  Done cells auto-reset with a fresh background.
 
+With ``FleetConfig.cells_group`` set (``repro_torch.sharding``) the env
+steps one rank's block of a fleet (``FleetScenario.shard``): its
+background is drawn per global cell id, and its cross-cell couplings and
+load aggregates are totalled over the whole fleet, one ``all_reduce`` per
+``observe`` and one per ``transition`` (``latency.fleet_totals``), so the
+block's every value equals the same cells' on one device.
+
     env = make_fleet_env(FleetConfig(n_max=5))
     state = env.init(key, scenario)
     obs = env.observe(scenario, state)          # (C, cfg.spec().dim)
@@ -32,7 +39,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import torch
 
@@ -67,6 +74,10 @@ class FleetConfig:
     # tier economics (repro_torch.economy): ``init`` seeds FleetState.econ
     # and ``observe`` encodes it; the serving engine advances it
     economy: EconomyProfile | None = None
+    # a repro_torch.sharding.CellsGroup: the env steps this rank's block
+    # of the fleet and totals the couplings across the group (the
+    # reference's cell_axis); None steps the whole fleet
+    cells_group: Any = None
 
     def spec(self) -> ObservationSpec:
         return make_spec(self.obs_spec, self.n_max)
@@ -132,9 +143,36 @@ def make_fleet_env(cfg: FleetConfig) -> FleetEnvFns:
                            dtype=torch.int64, device=device)
         return sub, idx
 
-    def sample_background(key: torch.Tensor, n_cells: int) -> FleetBackground:
-        """Background flags keyed per global cell id (``fold_in``): a
-        cell's draws are a function of (key, its id) only."""
+    def _block(scenario: FleetScenario):
+        """The scenario's place in the fleet under a cells group (None off
+        a group)."""
+        if cfg.cells_group is None:
+            return None
+        if scenario.group_index is None or scenario.group_index.block is None:
+            raise ValueError("under a cells group the env steps one rank's "
+                             "block: scenario.shard(rank, size)")
+        return scenario.group_index.block
+
+    def _cell0(scenario: FleetScenario) -> int:
+        """Global id of the scenario's first cell (0 off a group)."""
+        block = _block(scenario)
+        return 0 if block is None else block.cell0
+
+    def _totals(scenario: FleetScenario, sums, group_sums):
+        """Fleet-wide and edge-group totals of (C,) int32 counts, across
+        the cells group when there is one (``latency.fleet_totals``)."""
+        if not (sums or group_sums):
+            return [], []
+        index = _group_index(scenario) if group_sums else None
+        return latency.fleet_totals(index, sums, group_sums,
+                                    group=cfg.cells_group,
+                                    block=_block(scenario))
+
+    def sample_background(key: torch.Tensor, n_cells: int,
+                          cell0: int = 0) -> FleetBackground:
+        """Background flags keyed per global cell id (``fold_in`` of
+        ``cell0 + i``): a cell's draws are a function of (key, its id)
+        only."""
         dev = key.device
         if cfg.quiet:
             zc = torch.zeros((n_cells, n_max), dtype=torch.bool, device=dev)
@@ -142,7 +180,7 @@ def make_fleet_env(cfg: FleetConfig) -> FleetEnvFns:
             zi = torch.zeros((n_cells,), dtype=torch.int32, device=dev)
             return FleetBackground(zc, zc, z, z, zi, zi)
         p = cfg.bg_busy_prob
-        cells = torch.arange(n_cells, device=dev)
+        cells = cell0 + torch.arange(n_cells, device=dev)
         ks = rnd.split(rnd.fold_in(key, cells), 6)        # (C, 6, 2)
         sub, idx = _draw_plan(dev)
         u = rnd.uniform_at(ks[:, sub], idx)               # (C, 2n+4)
@@ -165,36 +203,34 @@ def make_fleet_env(cfg: FleetConfig) -> FleetEnvFns:
                                device=dev),
             user=torch.zeros((n_cells,), dtype=torch.int32, device=dev),
             charged=torch.zeros((n_cells,), dtype=torch.float32, device=dev),
-            bg=sample_background(keys[1], n_cells),
+            bg=sample_background(keys[1], n_cells, _cell0(scenario)),
             econ=(init_economy(cfg.economy, n_cells, n_max, dev)
                   if cfg.economy is not None else None))
 
     def _count(actions, mask, a) -> torch.Tensor:
         return ((actions == a) & mask).sum(-1, dtype=torch.int32)
 
-    def _cloud_coupling(actions, mask):
-        """(C,) cloud occupancy from *other* cells' assigned cloud
-        requests."""
-        own = _count(actions, mask, latency.A_CLOUD)
-        return own.sum(dtype=torch.int32) - own
-
-    def _edge_coupling(scenario, actions, mask):
-        """(C,) edge occupancy from co-located cells' assigned edge
-        requests."""
-        own = _count(actions, mask, latency.A_EDGE)
-        return latency.group_coupling(own, _group_index(scenario))
-
     def _round_times(scenario, state, actions):
         """Per-slot response times under the partial assignment
-        (undecided slots run the d7 placeholder)."""
+        (undecided slots run the d7 placeholder).  Each cell's cloud
+        occupancy includes every other cell's assigned cloud requests
+        under ``shared_cloud``, and its edge occupancy its group peers'
+        assigned edge requests under ``shared_edge``."""
         a_eff = torch.where(actions >= 0, actions, latency.N_MODELS - 1)
         mask = scenario.user_mask()
+        own_cloud = (_count(a_eff, mask, latency.A_CLOUD)
+                     if cfg.shared_cloud else None)
+        own_edge = (_count(a_eff, mask, latency.A_EDGE)
+                    if cfg.shared_edge else None)
+        tot, group_tot = _totals(
+            scenario, [own_cloud] if cfg.shared_cloud else [],
+            [own_edge] if cfg.shared_edge else [])
         bg_cloud = state.bg.bg_cloud
         if cfg.shared_cloud:
-            bg_cloud = bg_cloud + _cloud_coupling(a_eff, mask)
+            bg_cloud = bg_cloud + (tot[0] - own_cloud)
         bg_edge = state.bg.bg_edge
         if cfg.shared_edge:
-            bg_edge = bg_edge + _edge_coupling(scenario, a_eff, mask)
+            bg_edge = bg_edge + (group_tot[0] - own_edge)
         return latency.response_times(
             a_eff, scenario.weak_s, scenario.weak_e,
             state.bg.busy_p_s, state.bg.busy_m_s,
@@ -209,26 +245,37 @@ def make_fleet_env(cfg: FleetConfig) -> FleetEnvFns:
         mask = scenario.user_mask()
         own_edge = _count(state.actions, mask, latency.A_EDGE)
         own_cloud = _count(state.actions, mask, latency.A_CLOUD)
+        cloud_load = "cloud_load" in spec.blocks
+        edge_load = "edge_load" in spec.blocks
+        # every total this observation needs, in one reduction under a
+        # cells group: the couplings' and the load blocks'
+        tot, group_tot = _totals(
+            scenario,
+            [own_cloud] * cfg.shared_cloud
+            + [own_cloud + state.bg.bg_cloud] * cloud_load,
+            [own_edge] * cfg.shared_edge
+            + [own_edge + state.bg.bg_edge] * edge_load)
         k_edge = own_edge + state.bg.bg_edge
         k_cloud = own_cloud + state.bg.bg_cloud
         if cfg.shared_cloud:
-            k_cloud = k_cloud + _cloud_coupling(state.actions, mask)
+            k_cloud = k_cloud + (tot[0] - own_cloud)
         if cfg.shared_edge:
-            k_edge = k_edge + _edge_coupling(scenario, state.actions, mask)
+            k_edge = k_edge + (group_tot[0] - own_edge)
         decided = (state.actions >= 0) & mask
         acc_sum = latency.row_sum(
             latency.action_accuracy(state.actions.clamp(min=0)) * decided)
         n_cells = scenario.n_cells
+        block = _block(scenario)
         cloud_fleet = edge_group = None
-        if "cloud_load" in spec.blocks:
+        if cloud_load:
             # fleet-wide mean cloud occupancy: one scalar for every cell
-            total = (own_cloud + state.bg.bg_cloud).sum(dtype=torch.int32)
-            cloud_fleet = (total / n_cells).expand(n_cells)
-        if "edge_load" in spec.blocks:
-            index = _group_index(scenario)
-            edge_occ = own_edge + state.bg.bg_edge
-            edge_group = (latency.group_occupancy(edge_occ, index)
-                          / index.size)
+            n_fleet = n_cells if block is None else block.n_cells
+            cloud_fleet = (tot[-1] / n_fleet).expand(n_cells)
+        if edge_load:
+            # each cell's group mean edge occupancy
+            size = (_group_index(scenario).size if block is None
+                    else block.group_size)
+            edge_group = group_tot[-1] / size
         eco = {}
         if cfg.economy is not None and state.econ is not None:
             price = profile_tables(cfg.economy, state.user.device)
@@ -279,7 +326,8 @@ def make_fleet_env(cfg: FleetConfig) -> FleetEnvFns:
 
         # auto-reset finished cells: fresh background, cleared round
         keys = rnd.split(state.key)
-        bg_new = sample_background(keys[1], scenario.n_cells)
+        bg_new = sample_background(keys[1], scenario.n_cells,
+                                   _cell0(scenario))
         state2 = FleetState(
             key=keys[0],
             actions=torch.where(done[:, None], -1, acts),

@@ -7,10 +7,16 @@ written out instead of ``vmap``.  An optional boolean ``mask`` marks the
 real slots of padded rounds: masked slots add neither contention nor
 response time.
 
-``group_occupancy`` launches the hand-written CUDA kernel on CUDA
-tensors (``repro_torch.kernels.orchestration``), over the group index a
-scenario carries.  The cells-mesh branch of the reference (a ``psum``
-over sharded segment totals) arrives with the sharded slice.
+``fleet_totals`` gives a step's cross-cell totals: fleet-wide sums and
+edge-group totals (the reference's ``group_occupancy``), the latter by
+the hand-written ``group_occupancy`` kernel on CUDA tensors
+(``repro_torch.kernels.orchestration``) over the group index a scenario
+carries.  Under a cells group (``repro_torch.sharding``) the cells are
+one rank's block and edge groups may span ranks: it runs the kernel over
+the block's own index, writes each local group's total at its global id
+and sums every total across the ranks in one ``all_reduce`` (the
+reference's ``axis`` branch: segment totals ``psum``-reduced over the
+cells axis, then gathered).
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ import torch
 
 from repro_torch.env import latency_model as lm
 from repro_torch.kernels import orchestration
+from repro_torch.sharding import runtime
 
 N_MODELS = lm.N_MODELS
 N_ACTIONS = lm.N_ACTIONS
@@ -42,19 +49,40 @@ def tables(device: torch.device, dtype: torch.dtype = torch.float32) -> dict:
     }
 
 
-def group_occupancy(own: torch.Tensor,
-                    index: orchestration.GroupIndex) -> torch.Tensor:
-    """(C,) total occupancy of each cell's group, own contribution
-    included: ``out[i] = sum_j own[j] * [groups[j] == groups[i]]`` over
-    the groups of ``index`` (the scenario's ``group_index``)."""
-    return orchestration.group_occupancy(own, index)
+def fleet_totals(index: orchestration.GroupIndex, sums=(), group_sums=(),
+                 *, group=None, block=None) -> tuple[list, list]:
+    """One step's cross-cell totals: each (C,) int32 tensor of ``sums``
+    summed over every cell of the fleet (a 0-d int32), and each of
+    ``group_sums`` over every cell's edge group (a (C,) int32: ``out[i]
+    = sum_j x[j] * [groups[j] == groups[i]]``, own contribution
+    included).  Returns ``(sums, group_sums)`` totals.
 
-
-def group_coupling(own: torch.Tensor,
-                   index: orchestration.GroupIndex) -> torch.Tensor:
-    """(C,) extra occupancy each cell sees from co-located cells (its
-    group total minus its own contribution); zero for singleton groups."""
-    return group_occupancy(own, index) - own
+    Off a cells group: a sum and one ``group_occupancy`` launch over
+    ``index`` each (``index`` may be None when there are no
+    ``group_sums``).  Under a cells ``group`` the cells are the rank's
+    block (``block``, the scenario's ``CellBlock``): the kernel runs over
+    the block's index, each local group's total (at its first member) is
+    written at its global id into a zeroed ``(K, n_groups)`` int32 buffer
+    that ends with the local sums, one ``all_reduce`` adds the ranks'
+    buffers, and each cell reads its group's total back.  int32
+    throughout, so every total is exact."""
+    if group is None:
+        return ([x.sum(dtype=torch.int32) for x in sums],
+                [orchestration.group_occupancy(x, index)
+                 for x in group_sums])
+    G, K = block.n_groups, len(group_sums)
+    buf = torch.zeros(K * G + len(sums), dtype=torch.int32,
+                      device=(*group_sums, *sums)[0].device)
+    if K:
+        local = torch.stack([orchestration.group_occupancy(x, index)
+                             for x in group_sums])
+        buf[:K * G].view(K, G)[:, block.group_ids] = \
+            local[:, block.group_first]
+    if sums:
+        buf[K * G:] = torch.stack([x.sum(dtype=torch.int32) for x in sums])
+    runtime.all_reduce(buf, group)
+    totals = buf[:K * G].view(K, G)[:, block.cell_group]
+    return list(buf[K * G:]), list(totals)
 
 
 def action_accuracy(actions: torch.Tensor) -> torch.Tensor:

@@ -13,6 +13,11 @@ Counterpart of ``repro.fleet.workload``:
 The random draws use the port's threefry keys (``repro_torch.random``)
 in the reference's order, so one key gives the reference's fleet and
 trace bit for bit.
+
+``FleetScenario.shard(rank, size)`` is one rank's block of a fleet for a
+cells group (``repro_torch.sharding``): its cells, and its own group
+index over compacted local group ids, which carries a :class:`CellBlock`
+that says where the block sits in the fleet.
 """
 from __future__ import annotations
 
@@ -28,6 +33,25 @@ from repro_torch.env.scenarios import (CONSTRAINT_ORDER, CONSTRAINTS,
 from repro_torch.kernels.orchestration import GroupIndex, group_index
 from repro_torch.specs.observation import (DEFAULT_LATENCY_TARGET_MS,
                                            LATENCY_TARGET_POOL)
+
+
+class CellBlock(NamedTuple):
+    """Where one rank's block of cells sits in the whole fleet: what its
+    cross-cell totals need, built once per deployment.  Edge groups carry
+    global ids compacted to ``[0, n_groups)``; a block's local groups
+    (compacted to ``[0, G_local)``, the ids its group index takes) map to
+    them through ``group_ids``."""
+    cell0: int                 # global id of the block's first cell
+    n_cells: int               # cells in the whole fleet
+    n_groups: int              # edge groups in the whole fleet
+    group_ids: torch.Tensor    # (G_local,) int64 global id of each local group
+    group_first: torch.Tensor  # (G_local,) int64 its first local member
+    cell_group: torch.Tensor   # (C_local,) int64 each cell's global group id
+    group_size: torch.Tensor   # (C_local,) int32 its group's global size
+
+    def to(self, device) -> "CellBlock":
+        return CellBlock(*(v.to(device) if isinstance(v, torch.Tensor)
+                           else v for v in self))
 
 
 class FleetScenario(NamedTuple):
@@ -96,6 +120,34 @@ class FleetScenario(NamedTuple):
         """The scenario on ``device``, with its group index."""
         return FleetScenario(*(None if v is None else v.to(device)
                                for v in self)).with_group_index()
+
+    def shard(self, rank: int, size: int) -> "FleetScenario":
+        """Rank ``rank``'s block of ``size`` equal blocks: cells
+        ``[rank·C/size, (rank+1)·C/size)`` with their edge groups
+        compacted to local ids (its group index built over them) and the
+        :class:`CellBlock` of global ids and sizes its cross-cell totals
+        need (``group_index.block``).  Build it once per deployment."""
+        C = self.n_cells
+        if not 0 <= rank < size or C % size:
+            raise ValueError(f"{C} cells do not divide into block {rank} "
+                             f"of {size}")
+        lo, hi = rank * (C // size), (rank + 1) * (C // size)
+        dev = self.device
+        _, glob = torch.unique(self.edge_groups(), return_inverse=True)
+        sizes = torch.bincount(glob)
+        glob = glob[lo:hi]
+        group_ids, local = torch.unique(glob, return_inverse=True)
+        pos = torch.arange(hi - lo, device=dev)
+        first = torch.full((group_ids.shape[0],), hi - lo, dtype=torch.int64,
+                           device=dev).scatter_reduce_(0, local, pos, "amin")
+        local = local.to(torch.int32)
+        cut = lambda v: None if v is None else v[lo:hi]
+        return FleetScenario(
+            cut(self.weak_s), cut(self.weak_e), cut(self.n_users),
+            cut(self.constraint), cut(self.latency_target), edge_group=local,
+            group_index=group_index(local)._replace(block=CellBlock(
+                lo, C, int(sizes.shape[0]), group_ids, first, glob,
+                sizes[glob].to(torch.int32))))
 
 
 def random_fleet(key: torch.Tensor, n_cells: int, n_max: int = 5, *,

@@ -5,7 +5,9 @@ Each ``csrc/*.cu`` file has a plain C interface and is compiled by
 file that includes no PyTorch header builds in seconds.  Libraries go to
 ``_build/`` beside this module (listed in ``.gitignore``), named by a
 hash of the source and flags, so a changed source is rebuilt and an
-unchanged one is loaded as it is.  A missing ``nvcc`` raises.  The
+unchanged one is loaded as it is; processes that build one source at
+once (the ranks of a cells group) take turns on a file lock, so it is
+compiled once.  A missing ``nvcc`` raises.  The
 wrappers' shared checks (``check``, ``route``, ``raise_on``) live here
 too, with the 16-byte alignment helpers of the kernels that copy with
 ``cp.async`` or TMA (``row_strides``, ``aligned``).
@@ -13,6 +15,7 @@ too, with the 16-byte alignment helpers of the kernels that copy with
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -57,14 +60,19 @@ def build(source: Path, force: bool = False) -> tuple[Path, str]:
     if out.exists() and not force:
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    proc = subprocess.run(
-        [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
-        capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {source.name} "
-                           f"(exit {proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: concurrent builders race harmlessly
+    with open(BUILD_DIR / f"{out.stem}.lock", "w") as lock:
+        # one builder at a time; the others find its library
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists() and not force:
+            return out, ""
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        proc = subprocess.run(
+            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {source.name} "
+                               f"(exit {proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, out)  # atomic: a loader never sees a partial file
     return out, proc.stdout + proc.stderr
 
 

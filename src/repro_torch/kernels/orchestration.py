@@ -145,7 +145,9 @@ class GroupIndex(NamedTuple):
     the group's tile count) for a tile of a group larger than a tile,
     else (-1, 0).  Python values: the group count, the largest group's
     size, the tile, and whether a group spans tiles (so a call adds the
-    combining launch)."""
+    combining launch).  The index of one rank's block of a fleet
+    (``FleetScenario.shard``) also carries where its groups sit in the
+    fleet (``block``, a ``repro_torch.fleet.workload.CellBlock``)."""
     groups: torch.Tensor      # (C,) int32 group ids in [0, C)
     members: torch.Tensor     # (C,) int32
     offsets: torch.Tensor     # (G+1,) int32
@@ -157,14 +159,15 @@ class GroupIndex(NamedTuple):
     max_size: int
     tile: int
     chunked: bool
+    block: object = None
 
     @property
     def n_tiles(self) -> int:
         return self.tile_chunk.shape[0]
 
     def to(self, device) -> "GroupIndex":
-        return GroupIndex(*(v.to(device) if isinstance(v, torch.Tensor)
-                            else v for v in self))
+        return GroupIndex(*(v.to(device) if hasattr(v, "to") else v
+                            for v in self))
 
 
 def _tile_plan(offsets: list, n: int, tile: int) -> tuple[list, list]:

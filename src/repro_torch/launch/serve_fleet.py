@@ -11,7 +11,7 @@ replay as compat.
         [--live] [--live-out live.ndjson] [--slo-target 0.9] \
         [--canary other.bundle.msgpack] \
         [--economy local|serverless|spot] [--round-replay] \
-        [--out serve.json] [--device cuda]
+        [--mesh-cells N] [--out serve.json] [--device cuda]
 
 Serves ``rounds`` round-durations of open-loop Poisson traffic from a
 random fleet through a PolicyBundle's policy (``--bundle``, written by
@@ -58,6 +58,18 @@ a second bundle on the bit-identical stream (same fleet, stream and
 serving key) and adds the paired per-window diff under ``"canary"``.
 The trace and live paths are checked for writability before any work.
 
+``--mesh-cells N`` shards the request-level engine over a cells group of
+N spawned ranks (``repro_torch.sharding``): rank r serves cells
+``[r·C/N, (r+1)·C/N)`` on ``cuda:(r % device_count)`` (or the CPU), over
+NCCL when every rank has a card of its own and gloo otherwise.  Each rank
+draws the fleet and the stream from ``--seed``; the report is the one a
+single device gives (records identical, floats within 1e-5), with
+``mesh_cells``, the group's backend and collectives under
+``cells_group``, and each rank's kernel launches and collectives under
+``ranks``.  Rank 0 alone prints and writes the trace; the parent writes
+``--out``.  ``--cells`` must divide by N; ``--round-replay`` and
+``--live`` refuse it.
+
 ``--guard`` wraps the policy in the ``slo_guarded`` combinator.  A
 bundle's recorded coupling regime (``shared_cloud`` / ``shared_edge`` /
 ``cells_per_edge`` in its metadata) applies unless the flags set it.
@@ -76,6 +88,7 @@ from repro_torch.device import resolve_device
 from repro_torch.economy import PROFILE_NAMES, builtin_profile
 from repro_torch.fleet.env import FleetConfig
 from repro_torch.fleet.workload import poisson_round_trace, random_fleet
+from repro_torch.kernels import orchestration
 from repro_torch.policy.adapters import (heuristic_greedy_policy,
                                          slo_guarded, slo_guarded_params,
                                          solve_oracle)
@@ -84,7 +97,11 @@ from repro_torch.serve.compat import replay_trace
 from repro_torch.serve.engine import (ECON_COUNTERS, ECON_GAUGES,
                                       TEL_COUNTERS, TEL_GAUGES, ServeConfig,
                                       serve_stream)
+from repro_torch.serve.sharded import rank_counts
 from repro_torch.serve.stream import poisson_request_stream
+from repro_torch.sharding.runtime import (get_mesh_info,
+                                          reset_collective_counts,
+                                          set_mesh_info, spawn_cells)
 from repro_torch.specs.observation import make_spec
 from repro_torch.telemetry import (BurnRateAlerter, BurnRateConfig,
                                    LiveEmitter, build_trace, canary_diff,
@@ -128,7 +145,8 @@ def serve(*, bundle: str | None = None, greedy: bool = False,
           live: bool = False, live_out: str | None = None,
           slo_target: float = 0.9, canary: str | None = None,
           economy: str | None = None, round_replay: bool = False,
-          device="cuda", verbose: bool = True) -> dict:
+          mesh_cells: int = 0, device="cuda",
+          verbose: bool = True) -> dict:
     """Serve one run and return its report (request-level: raw
     per-request arrays under ``"records"``; round replay: per-round rows
     under ``"rounds"``).  Keys as the reference CLI's: ``k_fleet,
@@ -136,7 +154,9 @@ def serve(*, bundle: str | None = None, greedy: bool = False,
     the request stream or round trace and the serving noise (the guard's
     greedy fallback draws nothing from ``k_guard``), so a seed serves the
     reference's fleet and traffic.  ``canary`` serves a second bundle on
-    the same stream and key and adds the paired diff under ``"canary"``."""
+    the same stream and key and adds the paired diff under ``"canary"``.
+    ``mesh_cells > 0`` serves over that many spawned ranks of a cells
+    group and returns rank 0's report."""
     if (bundle is None) == (not greedy):
         raise SystemExit("give exactly one of --bundle or --greedy")
     # output paths and flag combinations fail before any work
@@ -162,7 +182,34 @@ def serve(*, bundle: str | None = None, greedy: bool = False,
             profile = builtin_profile(economy)
         except ValueError as e:
             raise SystemExit(str(e))
-    dev = resolve_device(device)
+    if mesh_cells:
+        if round_replay:
+            raise SystemExit("--mesh-cells shards the request-level "
+                             "engine; drop --round-replay to use it")
+        if live:
+            raise SystemExit("--live is not supported under a cells "
+                             "group; drop --mesh-cells or --live")
+        if mesh_cells < 0 or cells % mesh_cells:
+            raise SystemExit(f"--cells {cells} must divide evenly over "
+                             f"--mesh-cells {mesh_cells}")
+        kw = dict(bundle=bundle, greedy=greedy, guard=guard, cells=cells,
+                  rate=rate, rounds=rounds, seed=seed, epochs=epochs,
+                  cells_per_edge=cells_per_edge, shared_cloud=shared_cloud,
+                  shared_edge=shared_edge, quiet=quiet, tick_ms=tick_ms,
+                  queue_cap=queue_cap, telemetry=telemetry,
+                  window_ms=window_ms, trace_out=trace_out,
+                  trace_sample=trace_sample, slo_target=slo_target,
+                  canary=canary, economy=economy, verbose=verbose)
+        ranks = spawn_cells(_serve_rank, mesh_cells, resolve_device(device),
+                            kw)
+        report = ranks[0][0]
+        report["ranks"] = [counts for _, counts in ranks]
+        return report
+    # a rank of a cells group (registered by _serve_rank) serves its block
+    # on its own device
+    info = get_mesh_info()
+    group = None if info is None else info.group
+    dev = resolve_device(device) if group is None else group.device
     meta = {}
     if bundle is not None:
         b = load_bundle(bundle)
@@ -191,8 +238,8 @@ def serve(*, bundle: str | None = None, greedy: bool = False,
                   window_ms=window_ms, trace_sample=trace_sample, live=live,
                   live_out=live_out, slo_target=slo_target, canary=canary,
                   economy=economy, round_replay=round_replay,
-                  device=str(dev),
-                  obs_spec=spec.name, n_max=spec.n_max, kind=policy.kind)
+                  mesh_cells=(0 if group is None else group.size),
+                  device=str(dev), obs_spec=spec.name, n_max=spec.n_max, kind=policy.kind)
     if verbose:
         print("config: " + " ".join(f"{k}={v}"
                                     for k, v in sorted(config.items())))
@@ -261,7 +308,7 @@ def serve(*, bundle: str | None = None, greedy: bool = False,
             bundle=canary, kind=c_bundle.kind)
         if verbose:
             print(render_canary(report["canary"]))
-    if trace_out:
+    if trace_out and (group is None or group.rank == 0):
         events = build_trace(stream, report["records"], tick_ms,
                              sample=trace_sample)
         write_trace(trace_out, events)
@@ -293,6 +340,21 @@ def serve(*, bundle: str | None = None, greedy: bool = False,
                   + f", {eco['cold_starts']} cold starts, "
                   f"{eco['preemptions']} preemptions")
     return report
+
+
+def _serve_rank(group, kw: dict) -> tuple:
+    """One rank of ``serve(mesh_cells=N)``: the run with ``group``
+    registered, so each ``serve_stream`` serves this rank's block; rank 0
+    alone prints and writes the trace.  Returns rank 0's report (None on
+    the others) and this rank's kernel launches and collectives."""
+    set_mesh_info(group)
+    try:
+        orchestration.reset_launch_counts()
+        reset_collective_counts()
+        report = serve(**dict(kw, verbose=kw["verbose"] and group.rank == 0))
+        return report if group.rank == 0 else None, rank_counts()
+    finally:
+        set_mesh_info(None)
 
 
 def main(argv=None) -> dict:
@@ -345,6 +407,11 @@ def main(argv=None) -> dict:
                          "per-tier prices, energy, cold starts, "
                          "preemption, scale-to-zero; the report gains "
                          "spend and joules (request-level only)")
+    ap.add_argument("--mesh-cells", type=int, default=0,
+                    help="shard the request-level engine over a cells "
+                         "group of N spawned ranks (--cells must divide "
+                         "by N; NCCL when every rank has a card, else "
+                         "gloo)")
     ap.add_argument("--round-replay", action="store_true",
                     help="round-synchronous trace replay with round-mean "
                          "metrics beside the solver oracle")
@@ -365,7 +432,7 @@ def main(argv=None) -> dict:
                    live=args.live, live_out=args.live_out,
                    slo_target=args.slo_target, canary=args.canary,
                    economy=args.economy, round_replay=args.round_replay,
-                   device=args.device)
+                   mesh_cells=args.mesh_cells, device=args.device)
     text = json.dumps({k: v for k, v in report.items() if k != "records"})
     if args.out:
         with open(args.out, "w") as f:

@@ -46,8 +46,20 @@ them under ``"telemetry"`` (``telemetry_report``).  A ``live`` emitter
 (``repro_torch.telemetry.LiveEmitter``) gets each window on the tick
 that closes it, with one device-to-host copy of that window's row, an
 ``epoch`` record at every epoch boundary and the run-end report once.
-With telemetry off the tick runs the ops it ran before.  The cells mesh
-arrives with the port's sharded slice; asking for it raises.
+With telemetry off the tick runs the ops it ran before.
+
+Under a cells group (``mesh=``, a ``repro_torch.sharding.CellsGroup``:
+the reference's ``cells`` mesh) each rank serves its block of ``C / S``
+cells (``FleetScenario.shard``): their queues, env and economy state, and
+its own copies of the records and the telemetry buffer.  Only the
+cross-cell couplings (one ``all_reduce`` in the observation and one in
+the transition, ``fleet.latency.fleet_totals``) and the epoch's decision
+count cross ranks.  At run end the ranks' copies are merged as the
+reference merges its shards' (records: floats sum, flags any, actions
+max; telemetry through ``merge_shard_buffers``; economy totals sum), so
+every rank returns the report one device would: the same scenario,
+stream, params and key give the same records for any group size, for
+policies that act per cell (greedy, dqn, cost_greedy).
 """
 from __future__ import annotations
 
@@ -69,10 +81,13 @@ from repro_torch.policy.api import (Policy, act_batch, params_to,
                                     refresh_params, require_device_side)
 from repro_torch.serve.metrics import request_report
 from repro_torch.serve.stream import RequestStream
+from repro_torch.sharding.runtime import (CELLS_AXIS, COLLECTIVES, CellsGroup,
+                                          all_gather_object, all_reduce,
+                                          get_mesh_info)
 from repro_torch.telemetry.metrics import (MetricBuffer, buffer_series,
-                                           count_events, metrics_init,
-                                           observe_values, set_gauges,
-                                           window_of)
+                                           count_events, merge_shard_buffers,
+                                           metrics_init, observe_values,
+                                           set_gauges, window_of)
 
 # per-window counters and gauges of the engine's telemetry; counters add
 # per tick, gauges keep the last (= window-end) snapshot
@@ -117,12 +132,13 @@ class ServeConfig:
     def round_ms(self) -> float:
         return self.n_max * self.tick_ms
 
-    def fleet(self) -> FleetConfig:
+    def fleet(self, cells_group: Optional[CellsGroup] = None
+              ) -> FleetConfig:
         return FleetConfig(n_max=self.n_max, obs_spec=self.obs_spec,
                            quiet=self.quiet,
                            shared_cloud=self.shared_cloud,
                            shared_edge=self.shared_edge,
-                           economy=self.economy)
+                           economy=self.economy, cells_group=cells_group)
 
 
 class RequestRecords(NamedTuple):
@@ -162,9 +178,15 @@ def _check_options(cfg: ServeConfig, live, mesh) -> None:
     if live is not None and not cfg.telemetry:
         raise ValueError("live streaming requires ServeConfig.telemetry "
                          "(the window series it exports)")
-    if mesh is not None:
-        raise NotImplementedError("cells-mesh serving arrives with the "
-                                  "port's sharded slice")
+    if mesh is None:
+        return
+    if not isinstance(mesh, CellsGroup):
+        raise TypeError(f"mesh takes a repro_torch.sharding.CellsGroup "
+                        f"(cells_group(), or a rank of spawn_cells), got "
+                        f"{mesh!r}")
+    if live is not None:
+        raise ValueError("live streaming is not supported under a cells "
+                         "group — run the live serve single-device")
 
 
 def make_serve_engine(policy: Policy, cfg: ServeConfig, live=None,
@@ -172,10 +194,13 @@ def make_serve_engine(policy: Policy, cfg: ServeConfig, live=None,
     """``live`` is an optional ``repro_torch.telemetry.LiveEmitter``
     (requires ``cfg.telemetry``): the tick that closes a telemetry window
     hands it that window's counters and gauges, one device-to-host copy
-    a window."""
+    a window.  ``mesh`` is a cells group (not with ``live``): ``init`` and
+    ``run_epoch`` then take this rank's block of the scenario
+    (``scenario.shard(rank, size)``), ``run_epoch`` its rows of arrivals
+    and ``stream_cell`` as cell ids within the block."""
     _check_options(cfg, live, mesh)
     require_device_side(policy, "the request-level serving engine")
-    env = make_fleet_env(cfg.fleet())
+    env = make_fleet_env(cfg.fleet(mesh))
     n_max, Q = cfg.n_max, cfg.queue_cap
     # the economy's series ride in the same buffer when a profile is set
     counters = TEL_COUNTERS + (ECON_COUNTERS if cfg.economy else ())
@@ -212,11 +237,13 @@ def make_serve_engine(policy: Policy, cfg: ServeConfig, live=None,
         ticks are skipped); ``stream_t`` / ``stream_cell`` / ``stream_slo``
         the (N+1,) per-request device arrays (``stream_slo`` is read by
         telemetry alone).  Returns the state and the number of real
-        decisions (a device scalar)."""
+        decisions (a device scalar, this rank's under a cells group)."""
         dev = scenario.device
         scratch = stream_t.shape[0] - 1
         slot = torch.arange(n_max, device=dev)
-        cell_ids = torch.arange(scenario.n_cells, device=dev)
+        # the global ids that key the economy's preemption draws
+        cell0 = 0 if mesh is None else scenario.group_index.block.cell0
+        cell_ids = cell0 + torch.arange(scenario.n_cells, device=dev)
         params = refresh_params(policy, params, scenario)
 
         def live_tick(st: EngineState, ids, now: np.float32):
@@ -361,29 +388,34 @@ def _emit_window(live, tel: MetricBuffer, w: int, now: np.float32) -> None:
 
 
 def _tick_buckets(stream: RequestStream, tick_ms: float,
-                  ticks_per_epoch: int):
+                  ticks_per_epoch: int, n_shards: int = 1):
     """Host-side admission schedule: request ids bucketed by the first
-    tick whose wall clock reaches their arrival, in arrival order within
-    a tick.  Returns (T, A) -1-padded id rows (A = the largest burst), the
-    (T,) tick times, the (T,) live-tick mask and the epoch count.  The
-    ``ceil(horizon / tick) + 1`` live ticks cover every arrival before
-    the horizon; T pads them to whole epochs with dead ticks."""
+    tick whose wall clock reaches their arrival and by the shard that
+    owns their cell (shard ``s`` holds cells ``[s·C/S, (s+1)·C/S)``), in
+    arrival order within a bucket.  Returns (T, S, A) -1-padded id rows
+    (A = the largest burst of a tick at a shard), the (T,) tick times,
+    the (T,) live-tick mask and the epoch count.  The ``ceil(horizon /
+    tick) + 1`` live ticks cover every arrival before the horizon; T pads
+    them to whole epochs with dead ticks."""
     n_ticks = max(1, int(np.ceil(stream.horizon_ms / tick_ms))) + 1
     n_epochs = -(-n_ticks // ticks_per_epoch)
     T = n_epochs * ticks_per_epoch
     tick_of = np.ceil(np.asarray(stream.t_ms, np.float64)
                       / tick_ms).astype(np.int64)
     idx = np.nonzero(tick_of < n_ticks)[0]
-    counts = np.bincount(tick_of[idx], minlength=T)
+    shard_of = (np.asarray(stream.cell, np.int64)[idx]
+                // (stream.n_cells // n_shards))
+    bucket = tick_of[idx] * n_shards + shard_of
+    counts = np.bincount(bucket, minlength=T * n_shards)
     A = max(1, int(counts.max()))
-    order = np.argsort(tick_of[idx], kind="stable")
-    bucket = tick_of[idx][order]
+    order = np.argsort(bucket, kind="stable")
+    bucket = bucket[order]
     first = np.cumsum(counts) - counts
-    ids = np.full((T, A), -1, np.int32)
+    ids = np.full((T * n_shards, A), -1, np.int32)
     ids[bucket, np.arange(bucket.size) - first[bucket]] = idx[order]
     now = (np.arange(T, dtype=np.float64) * tick_ms).astype(np.float32)
     live = np.arange(T) < n_ticks
-    return ids, now, live, n_epochs
+    return ids.reshape(T, n_shards, A), now, live, n_epochs
 
 
 def serve_stream(policy: Policy, params, scenario: FleetScenario,
@@ -406,26 +438,53 @@ def serve_stream(policy: Policy, params, scenario: FleetScenario,
     ``repro_torch.telemetry.LiveEmitter``, requires ``cfg.telemetry``)
     streams each closed window as the ticks run, gets an ``epoch`` record
     at every epoch boundary (one device-to-host copy) and is finished
-    (final window, run summary) before this returns."""
+    (final window, run summary) before this returns.
+
+    ``mesh`` is a cells group (``repro_torch.sharding``); ``mesh=None``
+    picks up the group a launcher registered (``set_mesh_info``), else
+    serves on one device.  Under a group every rank calls this with the
+    whole scenario and stream, serves its block on the rank's device
+    (``device`` is not read) and returns the merged report; the cell
+    count must divide over the group.  ``report["mesh_cells"]`` is the
+    group size (1 on one device); under a group ``report["cells_group"]``
+    holds the backend, this rank's collectives in the run and each
+    rank's device and timing."""
+    if mesh is None:
+        info = get_mesh_info()
+        mesh = None if info is None else info.group
     _check_options(cfg, live, mesh)
     if scenario.n_cells != stream.n_cells:
         raise ValueError(f"stream built for {stream.n_cells} cells, "
                          f"scenario has {scenario.n_cells}")
-    dev = resolve_device(device)
-    scenario = scenario.to(dev)  # with its group index, built once here
+    S, rank = (1, 0) if mesh is None else (mesh.size, mesh.rank)
+    if scenario.n_cells % S:
+        raise ValueError(f"{scenario.n_cells} cells do not divide over the "
+                         f"{S}-way {CELLS_AXIS!r} group")
+    if mesh is None:
+        dev = resolve_device(device)
+        scenario = scenario.to(dev)  # with its group index, built once here
+        cell0 = 0
+    else:
+        dev = mesh.device
+        # this rank's block, with its group index, built once here
+        scenario = scenario.shard(rank, S).to(dev)
+        cell0 = scenario.group_index.block.cell0
+    collectives0 = dict(COLLECTIVES)
     params = params_to(params, dev)
     key = rnd.PRNGKey(0, dev) if key is None else key.to(dev)
-    engine = make_serve_engine(policy, cfg, live=live)
+    engine = make_serve_engine(policy, cfg, live=live, mesh=mesh)
     ticks_per_epoch = max(1, int(round(stream.epoch_ms / cfg.tick_ms)))
-    ids, now, live_ticks, n_epochs = _tick_buckets(stream, cfg.tick_ms,
-                                                   ticks_per_epoch)
+    ids, now, live_ticks, n_epochs = _tick_buckets(
+        stream, cfg.tick_ms, ticks_per_epoch, S)
     N = stream.n_requests
     n_ticks = int(live_ticks.sum())
-    ids = torch.as_tensor(ids, device=dev)
+    ids = torch.as_tensor(np.ascontiguousarray(ids[:, rank]), device=dev)
     stream_t = torch.as_tensor(np.append(stream.t_ms, 0.0).astype(np.float32),
                                device=dev)
+    # each request's cell within this rank's block (its rows of ids hold
+    # only the block's requests)
     stream_cell = torch.as_tensor(
-        np.append(stream.cell, 0).astype(np.int32), device=dev)
+        (np.append(stream.cell, 0) - cell0).astype(np.int32), device=dev)
     stream_slo = (torch.as_tensor(
         np.append(stream.slo_ms, 0.0).astype(np.float32), device=dev)
         if cfg.telemetry else None)
@@ -445,32 +504,64 @@ def serve_stream(policy: Policy, params, scenario: FleetScenario,
         state, n_act = engine.run_epoch(
             params_t, scenario, state, ids[lo:hi], now[lo:hi],
             live_ticks[lo:hi], stream_t, stream_cell, stream_slo)
+        progress = None
+        if mesh is not None:
+            # the epoch's decisions and the progress line's figures summed
+            # over the group (every rank sends the same shape, printing or
+            # not): one collective an epoch
+            total = all_reduce(torch.stack(
+                [n_act] + _progress(state, N)).to(torch.int64), mesh)
+            n_act, progress = total[0], list(total[1:])
         synchronize(dev)
         dt = time.perf_counter() - t0
         if e > 0:
             wall += dt
             n_live = int(live_ticks[lo:hi].sum())
             steady += n_live
-            lanes += scenario.n_cells * n_live
+            lanes += scenario.n_cells * S * n_live
             active += int(n_act)
         else:
             compile_wall = dt
         if verbose or live is not None:
-            done, backlog, dropped = torch.stack([
-                state.rec.served[:N].sum(), state.q_len.sum(),
-                state.rec.dropped[:N].sum()]).tolist()
+            done, backlog, dropped = torch.stack(
+                progress or _progress(state, N)).tolist()
             if live is not None:
                 live.epoch(e, ticks=hi - lo, served=done, n_requests=N,
                            backlog=backlog, dropped=dropped,
                            wall_s=round(dt, 4))
-            if verbose:
+            if verbose and rank == 0:
                 print(f"  epoch {e:3d}: ticks [{lo}, {hi}), {done:6d}/{N} "
                       f"requests served, backlog {backlog}")
 
     records = {k: v[:N].cpu().numpy()
                for k, v in state.rec._asdict().items()}
+    econ = None
+    if cfg.economy is not None:
+        # lifetime per-cell integer totals (µ$ / mJ) summed over the fleet
+        e_st = state.env.econ
+        econ = {k: int(getattr(e_st, k).sum(dtype=torch.int64))
+                for k in ("spend_uusd", "energy_mj", "cold_starts",
+                          "preemptions")}
+    tel = state.tel
+    group_info = None
+    if mesh is not None:
+        if tel is not None:
+            tel = tel._replace(edges=tel.edges.cpu(), hist=tel.hist.cpu(),
+                               counts=tel.counts.cpu(), snaps=tel.snaps.cpu())
+        timing = dict(rank=rank, device=str(dev), compile_time_s=compile_wall,
+                      run_time_s=wall,
+                      ms_per_tick=wall * 1e3 / steady if steady else None)
+        shards = all_gather_object(
+            dict(records=records, econ=econ, tel=tel, timing=timing), mesh)
+        records, econ, tel = _merge_shards(shards)
+        group_info = dict(
+            backend=mesh.backend, size=S,
+            collectives={k: COLLECTIVES[k] - collectives0[k]
+                         for k in COLLECTIVES},
+            ranks=[sh["timing"] for sh in shards])
     report = request_report(stream, records)
     report["device"] = str(dev)
+    report["mesh_cells"] = S
     report["n_epochs"] = n_epochs
     report["n_ticks"] = n_ticks
     report["tick_ms"] = cfg.tick_ms
@@ -482,29 +573,65 @@ def serve_stream(policy: Policy, params, scenario: FleetScenario,
     report["active_decisions_per_s"] = (active / wall
                                         if active and wall > 0 else None)
     report["records"] = records
-    if cfg.economy is not None:
-        # lifetime per-cell integer totals (µ$ / mJ) summed over the fleet
-        econ = state.env.econ
-        tot = lambda v: int(v.sum(dtype=torch.int64))
-        spend_uusd, energy_mj = tot(econ.spend_uusd), tot(econ.energy_mj)
+    if group_info is not None:
+        report["cells_group"] = group_info
+    if econ is not None:
+        spend_uusd, energy_mj = econ["spend_uusd"], econ["energy_mj"]
         n_served = int(report["served_requests"])
         report["economy"] = {
             "profile": cfg.economy.name,
             "spend_uusd_total": spend_uusd,
             "cost_usd_total": spend_uusd / 1e6,
             "energy_j_total": energy_mj / 1e3,
-            "cold_starts": tot(econ.cold_starts),
-            "preemptions": tot(econ.preemptions),
+            "cold_starts": econ["cold_starts"],
+            "preemptions": econ["preemptions"],
             "cost_per_1k_requests": (spend_uusd / 1e3 / n_served
                                      if n_served else None),
             "joules_per_request": (energy_mj / 1e3 / n_served
                                    if n_served else None),
         }
     if cfg.telemetry:
-        report["telemetry"] = telemetry_report(state.tel, cfg.window_ms)
+        report["telemetry"] = telemetry_report(tel, cfg.window_ms)
         if live is not None:
             live.finish(report["telemetry"])
     return report
+
+
+def _progress(state: EngineState, n: int) -> list:
+    """An epoch line's figures on the device: requests served, the
+    backlog, requests dropped."""
+    return [state.rec.served[:n].sum(), state.q_len.sum(),
+            state.rec.dropped[:n].sum()]
+
+
+def _merge_shards(shards: list) -> tuple:
+    """The ranks' record copies, economy totals and telemetry buffers as
+    one device's: each request has one writer (its cell's rank), so
+    floats sum over the zero-initialised copies, flags or together and
+    actions (init -1) take the max; integer totals sum; telemetry merges
+    through ``merge_shard_buffers`` (counters and histogram sum, gauges
+    sum but ``queue_depth``, a mean over cells, which averages)."""
+    def merge(name, copies):
+        v = np.stack(copies)
+        if v.dtype == np.bool_:
+            return v.any(axis=0)
+        return v.max(axis=0) if name == "action" else v.sum(axis=0)
+
+    records = {k: merge(k, [sh["records"][k] for sh in shards])
+               for k in shards[0]["records"]}
+    econ = None
+    if shards[0]["econ"] is not None:
+        econ = {k: sum(sh["econ"][k] for sh in shards)
+                for k in shards[0]["econ"]}
+    tel = None
+    if shards[0]["tel"] is not None:
+        bufs = [sh["tel"] for sh in shards]
+        tel = merge_shard_buffers(
+            bufs[0]._replace(hist=torch.stack([b.hist for b in bufs]),
+                             counts=torch.stack([b.counts for b in bufs]),
+                             snaps=torch.stack([b.snaps for b in bufs])),
+            gauge_reduce={"queue_depth": "mean"})
+    return records, econ, tel
 
 
 def telemetry_report(tel: MetricBuffer, window_ms: float) -> dict:

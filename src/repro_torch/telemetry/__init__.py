@@ -27,14 +27,15 @@
     canary     paired per-window diff of two policies served on the
                bit-identical arrival stream (``serve_fleet --canary``)
 
-``merge_shard_buffers`` arrives with the port's sharded slice (it has no
-caller before the cells mesh).
+``merge_shard_buffers`` collapses the per-rank buffers of a cells group
+(``repro_torch.sharding``) into the fleet's.
 """
 from repro_torch.telemetry.metrics import (MetricBuffer, metrics_init,
                                            count_event, set_gauge,
                                            observe_values, buffer_series,
                                            histogram_percentile,
-                                           histogram_percentiles)
+                                           histogram_percentiles,
+                                           merge_shard_buffers)
 from repro_torch.telemetry.trace import (build_trace, write_trace,
                                          read_trace, validate_trace)
 from repro_torch.telemetry.profiling import Profile, profiled
@@ -48,7 +49,7 @@ from repro_torch.telemetry.canary import canary_diff, render_canary
 __all__ = [
     "MetricBuffer", "metrics_init", "count_event", "set_gauge",
     "observe_values", "buffer_series", "histogram_percentile",
-    "histogram_percentiles",
+    "histogram_percentiles", "merge_shard_buffers",
     "build_trace", "write_trace", "read_trace", "validate_trace",
     "Profile", "profiled",
     "NdjsonSink", "open_sink", "BurnRateConfig", "BurnRateAlerter",

@@ -161,6 +161,36 @@ def observe_values(buf: MetricBuffer, values, mask=None) -> MetricBuffer:
     return buf
 
 
+def merge_shard_buffers(buf: MetricBuffer, gauge_reduce=None) -> MetricBuffer:
+    """Collapse a buffer whose ``hist``, ``counts`` and ``snaps`` carry a
+    leading shard axis — one copy per rank of a cells group, stacked —
+    into one buffer of the whole fleet.
+
+    Counters and the histogram are counts: the shards partition the
+    events, so they sum.  Gauges follow ``gauge_reduce[name] -> "sum" |
+    "mean"`` (default "sum"): extensive gauges (backlog, in-flight
+    requests, per-tier occupancy) sum across shards, intensive ones (the
+    mean queue depth over cells) average, which is exact because shards
+    hold equally many cells.  A window where no shard wrote (all NaN)
+    stays NaN; the shards that wrote are reduced ignoring the NaNs.
+    Gauges add shard by shard, in the reference's order."""
+    gauge_reduce = gauge_reduce or {}
+    snaps = buf.snaps
+    written = ~torch.isnan(snaps)
+    values = torch.where(written, snaps, 0.0)
+    total = values[0]
+    for v in values[1:]:
+        total = total + v
+    mean = total / written.sum(0)
+    by_mean = torch.tensor([gauge_reduce.get(n, "sum") == "mean"
+                            for n in buf.gauge_names], device=snaps.device)
+    merged = torch.where(by_mean, mean, total)
+    return buf._replace(
+        hist=buf.hist.sum(0, dtype=buf.hist.dtype),
+        counts=buf.counts.sum(0),
+        snaps=torch.where(written.any(0), merged, float("nan")))
+
+
 # ------------------------------------------------------------- host side
 def histogram_percentile(hist, edges, p: float) -> float | None:
     """Nearest-rank percentile from histogram counts: the order statistic

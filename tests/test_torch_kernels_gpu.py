@@ -1,5 +1,7 @@
 """The CUDA kernels against their plain versions, on the card: the
-orchestration kernels, flash attention, WKV6 and the SSD scan.
+orchestration kernels, flash attention, WKV6 and the SSD scan; and the
+orchestration kernels under a 2-rank cells group against the port's
+plain route on the CPU.
 
 Imports only torch, numpy and the port, so it runs on a machine with a
 card and no JAX (the tests skip without a card, but for one CPU test of
@@ -587,3 +589,51 @@ def test_ssd_kernel_conv_slices_and_copied_views(cuda, dtype):
     torch.testing.assert_close(got_y.double(), want_y, atol=tol[0],
                                rtol=tol[1])
     torch.testing.assert_close(got_s.double(), want_s, atol=3e-4, rtol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["groups_of_4", "spanning"])
+def test_cells_group_on_the_card_matches_the_cpu(cuda, layout):
+    """A 2-rank cells group on the card (gloo on one card, NCCL on two)
+    serves what one device serves on the CPU's plain route: flags and
+    actions identical, floats within 1e-5, each rank launching
+    ``queue_admit`` once and ``group_occupancy`` 3 times a tick; edge
+    groups inside each rank's block, and groups of ``cell % 16`` that
+    span both."""
+    from repro_torch import random as rnd
+    from repro_torch.fleet.workload import random_fleet
+    from repro_torch.policy.adapters import heuristic_greedy_policy
+    from repro_torch.policy.bundle import PolicyBundle
+    from repro_torch.serve import (ServeConfig, poisson_request_stream,
+                                   serve_stream)
+    from repro_torch.serve.sharded import ServeJob, serve_sharded
+    from repro_torch.specs.observation import make_spec
+
+    cpu, cells = torch.device("cpu"), 64
+    scn = random_fleet(rnd.PRNGKey(3, cpu), cells, n_max=5, cells_per_edge=4)
+    if layout == "spanning":
+        groups = torch.arange(cells, dtype=torch.int32) % 16
+        scn = scn._replace(edge_group=groups,
+                           group_index=orch.group_index(groups))
+    cfg = ServeConfig(n_max=5, obs_spec="full", shared_cloud=True,
+                      shared_edge=True, telemetry=True)
+    horizon = 4 * cfg.round_ms
+    stream = poisson_request_stream(rnd.PRNGKey(4, cpu), scn, horizon,
+                                    rate=3.0, round_ms=cfg.round_ms,
+                                    epoch_ms=horizon / 2)
+    pol = heuristic_greedy_policy(make_spec("full", 5))
+    want = serve_stream(pol, pol.init(0, cpu), scn, stream, cfg,
+                        key=rnd.PRNGKey(5, cpu), device=cpu)
+    got, = serve_sharded([ServeJob(PolicyBundle("greedy", "full", 5, {}),
+                                   scn, stream, cfg, rnd.PRNGKey(5, cpu))],
+                         2, "cuda")
+    for k in ("dropped", "served", "violated", "action"):
+        np.testing.assert_array_equal(got["records"][k], want["records"][k])
+    for k in ("wait_ms", "service_ms", "art_ms"):
+        np.testing.assert_allclose(got["records"][k], want["records"][k],
+                                   atol=1e-5, rtol=0)
+    assert got["telemetry"]["latency_hist"] == \
+        want["telemetry"]["latency_hist"]
+    for r in got["ranks"]:
+        assert r["launches"] == {"queue_admit": got["n_ticks"],
+                                 "group_occupancy": 3 * got["n_ticks"]}

@@ -56,6 +56,7 @@ from repro_torch.serve import ServeConfig, serve_stream
 from repro_torch.serve.engine import (ECON_COUNTERS, ECON_GAUGES,
                                       TEL_COUNTERS, TEL_GAUGES,
                                       make_serve_engine)
+from repro_torch.sharding import CellsGroup
 from repro_torch.specs.observation import make_spec
 from repro_torch.telemetry import (BurnRateAlerter, BurnRateConfig,
                                    LiveEmitter, NdjsonSink,
@@ -165,9 +166,11 @@ def test_live_requires_telemetry():
                      window_ms=500.0)
     with pytest.raises(ValueError, match="telemetry"):
         make_serve_engine(pol, ServeConfig(n_max=N_MAX), live=em)
-    with pytest.raises(NotImplementedError, match="sharded"):
+    with pytest.raises(ValueError, match="live"):
         make_serve_engine(pol, ServeConfig(n_max=N_MAX, telemetry=True),
-                          mesh=object())
+                          live=em, mesh=CellsGroup(None, 0, 1,
+                                                   torch.device("cpu"),
+                                                   "gloo"))
 
 
 # --------------------------------------------------- burn-rate alerter

@@ -154,7 +154,7 @@ def test_tick_buckets_match_reference(tick_ms, epoch_ms):
     ids, now, live, n_ep = _tick_buckets(convert.request_stream(stream),
                                          tick_ms, tpe)
     r_ids, r_now, r_live, r_ep = ref_tick_buckets(stream, tick_ms, tpe)
-    np.testing.assert_array_equal(ids, r_ids[:, 0])
+    np.testing.assert_array_equal(ids, r_ids)
     np.testing.assert_array_equal(now, r_now)
     np.testing.assert_array_equal(live, r_live)
     assert n_ep == r_ep
@@ -163,8 +163,8 @@ def test_tick_buckets_match_reference(tick_ms, epoch_ms):
 def test_later_slices_raise():
     """Telemetry and the economy are in: both configurations build, with
     the reference's window default, and live export without telemetry is
-    refused as the reference refuses it.  The cells mesh (the sharded
-    slice) still raises."""
+    refused as the reference refuses it.  A mesh that is no cells group
+    is refused (the sharded slice: ``tests/test_torch_sharded.py``)."""
     assert ServeConfig(telemetry=True).window_ms == \
         RefServeConfig(telemetry=True).window_ms == 1000.0
     spot = builtin_profile("spot")
@@ -176,7 +176,7 @@ def test_later_slices_raise():
     with pytest.raises(TypeError, match="EconomyProfile"):
         ServeConfig(economy="spot")
     pol = adapters.heuristic_greedy_policy(5)
-    with pytest.raises(NotImplementedError, match="sharded"):
+    with pytest.raises(TypeError, match="CellsGroup"):
         make_serve_engine(pol, ServeConfig(), mesh=object())
     with pytest.raises(ValueError, match="requires ServeConfig.telemetry"):
         make_serve_engine(pol, ServeConfig(), live=object())
