@@ -162,6 +162,30 @@ CUDA toolkit's nvcc.  Phases, each printing one JSON line:
    with the same unwritten windows, the audit passing.  (d) 64 cells over
    2 ranks on the CPU and on the card: records identical.  Prints its
    seconds.
+14. single_cell: the paper's single-cell agents (the numpy env and
+   buffers on the host, the networks on the card).  (a) Table V's agent
+   cell through ``rl_train`` without ``--fleet`` (``train_single``): HL
+   at 5 users, A/89%, with the CLI's hyper-parameters and bundle; seeds
+   0, 1 and 2 in turn until one converges within the CLI's 400 epochs;
+   the optimum (269.8 ms) and its decisions, the converged step, real
+   steps, final ART (within 1% of the optimum, no violation),
+   experience and compute minutes, wall seconds, real steps/s, and
+   every kernel's launches around each run (all 0).  (e) On that agent:
+   ``IntelligentOrchestrator.decide_round`` gives 5 decisions whose
+   tiers are the final round's, and its bundle loads through
+   ``load_bundle`` / ``policy_from_bundle`` on the card and acts as the
+   agent on 1,000 recorded observations.  (b) Table VI's 3-user row at
+   A/89%, seed 0, with ``run_one``'s hyper-parameters: HL and DQL
+   converge, QL (host-side) is the reference's run, 22,000 / 28,000
+   steps and final ART 269.8; no kernel launched.  (c) Host syncs
+   (``set_sync_debug_mode("warn")``, by source line) per real step over
+   epoch 2 of a fresh 5-user HL agent, and device ops and busy ms of one
+   direct session, one planning session and one DQN update in the
+   profiler.  (d) One seed at 3 users on the CPU and the card, HL for 2
+   tiny epochs and DQL for 1,000 steps: integers identical, float
+   buffers within 1e-5, TD priorities within 1e-5 of max(1, |p|),
+   parameters within 2e-6, a differing decision only at a near-tie
+   (gap < 1e-4, the CPU's values).  Prints its seconds.
 
 Any failed check raises, so the exit code is non-zero.  Ends with the
 ``nvidia-smi`` line, the kernels' JSON summary and, last,
@@ -170,6 +194,7 @@ Any failed check raises, so the exit code is non-zero.  Ends with the
 """
 from __future__ import annotations
 
+import dataclasses
 import io
 import json
 import subprocess
@@ -2421,6 +2446,381 @@ def phase_sharded(torch) -> dict:
     return out
 
 
+# ------------------------------------------------------- single-cell phase
+# the paper's Table V agent cell: the CLI at 5 users, A/89%, seeds tried
+# in turn until one converges within the CLI's 400 epochs
+SC_USERS, SC_SCENARIO, SC_CONSTRAINT, SC_SEEDS = 5, "A", "89%", (0, 1, 2)
+# Table VI's 3-user row at A/89%, seed 0, with the hyper-parameters of
+# benchmarks/paper_tables.py:41-68 (run_one; copied, that module imports
+# the reference): HL over 600 epochs, ε over 1,200·n steps, k_best 5,
+# n_suggest 2·n, n_plan 40; DQL with ε over 6,000·n steps, capped at
+# 120,000 steps, an evaluation every 200; QL with ε over cap / 8, capped
+# at 400,000, an evaluation every 2,000; the tracker on seed + 90 with
+# patience 4
+T6_USERS, T6_SEED, T6_DQL_CAP, T6_QL_CAP = 3, 0, 120_000, 400_000
+# CPU vs card: tests/test_hltrain.py::_tiny_hp's schedule with batch 16
+SC_TINY_HP = dict(epochs=2, n_direct=3, t_direct=6, n_world=6, n_suggest=2,
+                  t_suggest=3, n_plan=6, k_best=3, batch=16)
+SC_DQL_STEPS, SC_RECORDED_OBS = 1000, 1000
+TIER = {"L": "local", "E": "edge", "C": "cloud"}
+
+
+def sc_env(users: int, seed: int, **kw):
+    from repro_torch.env.edge_cloud import EdgeCloudEnv, EnvConfig
+    from repro_torch.env.scenarios import CONSTRAINTS, SCENARIOS
+    return EdgeCloudEnv(EnvConfig(SCENARIOS[SC_SCENARIO],
+                                  CONSTRAINTS[SC_CONSTRAINT], n_users=users,
+                                  seed=seed, **kw))
+
+
+def sc_summary(res, wall_s: float) -> dict:
+    from repro_torch.env.edge_cloud import decision_string
+    return dict(steps_to_converge=res.steps_to_converge,
+                real_steps=res.real_steps, final_art=res.final_art,
+                decisions=decision_string(res.final_actions),
+                compute_updates=res.compute_updates,
+                exp_time_min=res.exp_time_ms / 60000.0,
+                comp_time_min=res.comp_time_s / 60.0, wall_s=wall_s,
+                real_steps_per_s=res.real_steps / wall_s)
+
+
+def table6_run(algo: str) -> dict:
+    """One run of ``run_one``'s cell on the card (QL on the host)."""
+    from repro_torch.core.agent import (ConvergenceTracker, HLAgent,
+                                        HLHyperParams)
+    from repro_torch.core.baselines import DQLAgent, QLAgent, QLHyperParams
+    n, seed = T6_USERS, T6_SEED
+    env = sc_env(n, seed)
+    tracker = ConvergenceTracker(sc_env(n, seed + 90), patience=4)
+    t0 = time.perf_counter()
+    if algo == "HL":
+        agent = HLAgent(env, HLHyperParams(
+            seed=seed, epochs=600, eps_decay_steps=1200 * n, k_best=5,
+            n_suggest=2 * n, n_plan=40))
+        res = agent.train(tracker=tracker)
+    elif algo == "DQL":
+        agent = DQLAgent(env, HLHyperParams(seed=seed,
+                                            eps_decay_steps=6000 * n))
+        res = agent.train(tracker=tracker, max_steps=T6_DQL_CAP,
+                          eval_every=200)
+    else:
+        agent = QLAgent(env, QLHyperParams(seed=seed,
+                                           eps_decay_steps=T6_QL_CAP // 8))
+        res = agent.train(tracker=tracker, max_steps=T6_QL_CAP,
+                          eval_every=2000)
+    return dict(sc_summary(res, time.perf_counter() - t0),
+                optimal_art=tracker.opt_art)
+
+
+def recording(agent, log: list) -> None:
+    """Keep, in order, every greedy decision's Q row and every planning
+    step's r̂ + γ max Q values, under the weights that made them."""
+    import torch
+    pol = agent.policy
+
+    def act(params, obs, key):
+        with torch.no_grad():
+            log.append(("act", params(obs)[0].cpu().numpy().copy()))
+        return pol.act(params, obs, key)
+    agent.policy = pol._replace(act=act)
+    if hasattr(agent, "_plan_values"):
+        plan_values = agent._plan_values
+
+        def values(obs):
+            v = plan_values(obs)
+            log.append(("plan", v.copy()))
+            return v
+        agent._plan_values = values
+
+
+def first_difference(cpu_log: list, gpu_log: list, k: int):
+    """None if every decision agrees; else the step and the CPU's gap
+    between the two candidates that changed places."""
+    import numpy as np
+    for i, ((kind, c), (_, g)) in enumerate(zip(cpu_log, gpu_log)):
+        if kind == "act":
+            a_c, a_g = int(np.argmax(c)), int(np.argmax(g))
+            if a_c != a_g:
+                return dict(step=i, kind=kind, gap=float(c[a_c] - c[a_g]))
+            continue
+        o_c, o_g = np.argsort(-c)[:k], np.argsort(-g)[:k]
+        for j in range(k):
+            if o_c[j] != o_g[j]:
+                return dict(step=i, kind=kind,
+                            gap=float(abs(c[o_c[j]] - c[o_g[j]])))
+    check(len(cpu_log) == len(gpu_log), "as many decisions on both devices")
+    return None
+
+
+def sc_state(agent) -> dict:
+    """An agent's counters, buffers and networks as numpy, by name."""
+    import numpy as np
+    out = dict(real_steps=np.array(agent.real_steps),
+               compute_updates=np.array(agent.compute_updates))
+    bufs = ({"d_direct": agent.d_direct, "d_world": agent.d_world,
+             "d_plan": agent.d_plan} if hasattr(agent, "d_plan")
+            else {"buf": agent.buf})
+    for name, b in bufs.items():
+        for f in ("n", "ptr", "a", "done", "s", "s2", "r", "prio"):
+            if hasattr(b, f):
+                out[f"{name}.{f}"] = np.asarray(getattr(b, f))
+    nets = {"dqn": agent.dqn} | ({"sm": agent.sm} if hasattr(agent, "sm")
+                                else {})
+    for name, st in nets.items():
+        for i, p in enumerate(st.params.parameters()):
+            out[f"{name}.params[{i}]"] = p.detach().cpu().numpy()
+        for i, (m, v) in enumerate(zip(st.opt_state.mu, st.opt_state.nu)):
+            out[f"{name}.mu[{i}]"] = m.cpu().numpy()
+            out[f"{name}.nu[{i}]"] = v.cpu().numpy()
+    return out
+
+
+def sc_cpu_vs_card(algo: str) -> dict:
+    """One seed at 3 users on the CPU and on the card: HL for 2 tiny
+    epochs or DQL for 1,000 steps.  Integers identical, float buffers
+    within 1e-5, TD priorities within 1e-5 of max(1, |p|) (a float32 TD
+    near the penalty's −33 carries ~2e-6 per ulp) and parameters within
+    2e-6, the plan keys the same set; a differing decision only at a
+    near-tie, judged with the CPU's values, and nothing compared past
+    it."""
+    import numpy as np
+    from repro_torch.core.agent import (ConvergenceTracker, HLAgent,
+                                        HLHyperParams)
+    from repro_torch.core.baselines import DQLAgent
+    agents, logs = {}, {}
+    for dev in ("cpu", "cuda"):
+        env, tr = sc_env(T6_USERS, 4), ConvergenceTracker(
+            sc_env(T6_USERS, 94))
+        if algo == "HL":
+            agent = HLAgent(env, HLHyperParams(seed=4, **SC_TINY_HP),
+                            device=dev)
+            logs[dev] = []
+            recording(agent, logs[dev])
+            agent.train(tracker=tr, stop_on_convergence=False)
+        else:
+            agent = DQLAgent(env, HLHyperParams(seed=4,
+                                                eps_decay_steps=800),
+                             device=dev)
+            logs[dev] = []
+            recording(agent, logs[dev])
+            agent.train(tracker=tr, max_steps=SC_DQL_STEPS, eval_every=200,
+                        stop_on_convergence=False)
+        agents[dev] = agent
+    k = SC_TINY_HP["k_best"] if algo == "HL" else 1
+    tie = first_difference(logs["cpu"], logs["cuda"], k)
+    worst = {"buffers": 0.0, "priorities": 0.0, "params": 0.0,
+             "priorities_abs": 0.0}
+    if tie is not None:
+        print(json.dumps({f"single_cell_{algo}_first_difference": tie}),
+              flush=True)
+        check(tie["gap"] < NEAR_TIE, f"{algo}: CPU and card decisions "
+              f"differ at a gap of {tie['gap']} (near-tie bar {NEAR_TIE})")
+    else:
+        cpu, gpu = sc_state(agents["cpu"]), sc_state(agents["cuda"])
+        for name, c in cpu.items():
+            g = gpu[name]
+            if c.dtype.kind == "f":
+                err = np.abs(c.astype(np.float64) - g)
+                if name.endswith(".prio"):
+                    worst["priorities_abs"] = max(worst["priorities_abs"],
+                                                  float(err.max()))
+                    err = err / np.maximum(1.0, np.abs(c))
+                    kind = "priorities"
+                else:
+                    kind = "params" if name.startswith(("dqn", "sm")) \
+                        else "buffers"
+                worst[kind] = max(worst[kind], float(err.max()) if c.size
+                                  else 0.0)
+            else:
+                check(np.array_equal(c, g), f"{algo}: {name} identical on "
+                      f"the CPU and the card")
+        if algo == "HL":
+            check(agents["cpu"].d_plan._index.keys()
+                  == agents["cuda"].d_plan._index.keys(),
+                  "HL: the same plan keys on the CPU and the card")
+        check(worst["buffers"] <= BUFFER_BAR
+              and worst["priorities"] <= BUFFER_BAR
+              and worst["params"] <= PARAM_BAR,
+              f"{algo}: CPU and card floats within {BUFFER_BAR} / "
+              f"{PARAM_BAR}: {worst}")
+    return dict(decisions=len(logs["cpu"]),
+                real_steps=agents["cpu"].real_steps,
+                compute_updates=agents["cpu"].compute_updates,
+                max_abs_err=worst, first_difference=tie)
+
+
+class _EpochDone(Exception):
+    pass
+
+
+def sc_epoch_syncs(torch) -> dict:
+    """Host syncs (``set_sync_debug_mode("warn")``) over epoch 2 of a
+    fresh HL agent on the CLI's 5-user schedule: from its first direct
+    session to the first of epoch 3, tracker evaluations included, by
+    source line; the run stops there."""
+    import warnings
+    from repro_torch.core.agent import ConvergenceTracker
+    from repro_torch.launch.rl_train import single_cell_agent
+    agent = single_cell_agent("HL", sc_env(SC_USERS, 0), SC_USERS, 0, "cuda")
+    hp = agent.hp
+    per_epoch = [max(1, int(round((1 - e / hp.epochs / 2) * hp.n_direct)))
+                 for e in (1, 2)]
+    start, end = per_epoch[0], per_epoch[0] + per_epoch[1]
+    session = agent._direct_rl_session
+    marks: dict = {"calls": 0}
+
+    def direct(obs):
+        if marks["calls"] == start:
+            torch.cuda.synchronize()
+            marks.update(start=len(caught), steps=agent.real_steps,
+                         updates=agent.compute_updates)
+            torch.cuda.set_sync_debug_mode("warn")
+        elif marks["calls"] == end:
+            torch.cuda.set_sync_debug_mode(0)
+            marks.update(end=len(caught), steps=agent.real_steps
+                         - marks["steps"], updates=agent.compute_updates
+                         - marks["updates"])
+            raise _EpochDone
+        marks["calls"] += 1
+        return session(obs)
+
+    agent._direct_rl_session = direct
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        try:
+            agent.train(tracker=ConvergenceTracker(sc_env(SC_USERS, 90),
+                                                   patience=4))
+        except _EpochDone:
+            pass
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    check("end" in marks, "the sync count reached epoch 3")
+    where: dict = {}
+    for w in caught[marks["start"]:marks["end"]]:
+        if "synchroniz" in str(w.message):
+            line = f"{Path(w.filename).relative_to(ROOT)}:{w.lineno}" \
+                if Path(w.filename).is_relative_to(ROOT) else \
+                f"{Path(w.filename).name}:{w.lineno}"
+            where[line] = where.get(line, 0) + 1
+    total = sum(where.values())
+    return dict(epoch=2, real_steps=marks["steps"],
+                compute_updates=marks["updates"], syncs=total,
+                syncs_per_real_step=total / max(1, marks["steps"]),
+                by_line=where)
+
+
+def sc_step_profiles(torch, agent) -> dict:
+    """Device ops and busy ms of one direct session (10 steps and its
+    DQN update), one planning session and one DQN update alone, on a
+    trained agent (ε at its floor: most steps greedy)."""
+    from repro_torch.core.agent import prioritized_update
+    obs = agent.env.observe()
+    out = {}
+    for name, fn in (("direct_session",
+                      lambda: agent._direct_rl_session(obs)),
+                     ("planning_session", agent._planning_session),
+                     ("dqn_update",
+                      lambda: prioritized_update(agent, agent.d_direct))):
+        fn()  # warm
+        prof, _ = _device_time(torch, fn)
+        out[name] = dict(device_ops=prof["device_ops"],
+                         device_busy_ms=prof["device_busy_ms"],
+                         top_kernels_ms=prof["top_kernels_ms"])
+    return out
+
+
+def phase_single_cell(torch) -> dict:
+    from repro_torch.core.orchestrator import IntelligentOrchestrator
+    from repro_torch.env import latency_model as lm
+    from repro_torch.env.edge_cloud import decision_string
+    from repro_torch.env.scenarios import CONSTRAINTS
+    from repro_torch.launch import rl_train
+    from repro_torch.policy.bundle import load_bundle, policy_from_bundle
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    # (a) Table V's agent cell through the CLI, launches counted around
+    # each run (zeroed just before it, read just after)
+    path = OUT / "hl_single_cell.bundle.msgpack"
+    tries = []
+    for seed in SC_SEEDS:
+        reset_all_counts()
+        rep = rl_train.main(["--algo", "HL", "--users", str(SC_USERS),
+                             "--scenario", SC_SCENARIO, "--constraint",
+                             SC_CONSTRAINT, "--seed", str(seed), "--ckpt",
+                             str(path)])
+        launches = all_counts()
+        res, opt = rep["result"], rep["optimum"]
+        tries.append(dict(seed=seed, launches=launches,
+                          **sc_summary(res, rep["wall_seconds"])))
+        check(all(v == 0 for v in launches.values()),
+              f"the single-cell run launches no kernel: {launches}")
+        if res.steps_to_converge is not None:
+            break
+    check(res.steps_to_converge is not None,
+          f"HL converges at {SC_USERS} users for one of seeds {SC_SEEDS}")
+    acc = float(lm.action_accuracy(res.final_actions).mean())
+    check(res.final_art <= opt["art"] * 1.01 + 1e-9
+          and acc >= CONSTRAINTS[SC_CONSTRAINT] - 1e-9,
+          f"final ART {res.final_art} within 1% of {opt['art']} at "
+          f"accuracy {acc}, no violation")
+    agent = rep["agent"]
+    table5 = dict(optimum_art=opt["art"],
+                  optimum_decisions=decision_string(opt["actions"]),
+                  converged_seed=seed, final_accuracy=acc, tries=tries)
+
+    # (e) the orchestrator and the bundle, on (a)'s agent before (c)
+    # trains it further
+    decisions = IntelligentOrchestrator(
+        sc_env(SC_USERS, 0), agent.policy, agent.policy_params).decide_round()
+    tiers = [TIER[s[-1]] for s in decision_string(res.final_actions)]
+    check(len(decisions) == SC_USERS
+          and [d.tier for d in decisions] == tiers,
+          f"decide_round's tiers {[d.tier for d in decisions]} are the "
+          f"final round's {tiers}")
+    bundle = load_bundle(str(path), expect_spec="base",
+                         expect_n_max=SC_USERS)
+    pol, net = policy_from_bundle(bundle, dev)
+    obs = torch.as_tensor(agent.d_direct.s[:SC_RECORDED_OBS], device=dev)
+    check(obs.shape[0] == SC_RECORDED_OBS, "1,000 recorded observations")
+    check(torch.equal(pol.act(net, obs, None),
+                      agent.policy.act(agent.policy_params, obs, None)),
+          "the bundle's greedy actions are the agent's")
+    check(bundle.meta["algo"] == "HL" and len(bundle.meta["system"]) == 3,
+          "the bundle carries the system model")
+
+    # (b) Table VI's 3-user row at A/89%, seed 0
+    reset_all_counts()
+    table6 = {algo: table6_run(algo) for algo in ("HL", "DQL", "QL")}
+    table6["launches"] = all_counts()
+    check(all(v == 0 for v in table6["launches"].values()),
+          f"the Table VI runs launch no kernel: {table6['launches']}")
+    for algo in ("HL", "DQL"):
+        check(table6[algo]["steps_to_converge"] is not None,
+              f"{algo} converges at {T6_USERS} users")
+    ql = table6["QL"]
+    check((ql["steps_to_converge"], ql["real_steps"],
+           round(ql["final_art"], 1)) == (22_000, 28_000, 269.8),
+          f"QL runs the reference's run: {ql}")
+
+    # (c) the cost of a step: host syncs over one epoch, device work of
+    # a direct session, a planning session and an update
+    syncs = sc_epoch_syncs(torch)
+    profiles = sc_step_profiles(torch, agent)
+
+    # (d) the CPU against the card
+    cpu_vs_card = {algo: sc_cpu_vs_card(algo) for algo in ("HL", "DQL")}
+
+    out = dict(table5=table5, table6=table6, syncs=syncs,
+               step_profiles=profiles, cpu_vs_card=cpu_vs_card,
+               orchestrator=[dataclasses.asdict(d) for d in decisions],
+               bundle=dict(kind=bundle.kind, n_max=bundle.n_max,
+                           recorded_obs=SC_RECORDED_OBS),
+               seconds=time.perf_counter() - t_phase)
+    emit("single_cell", **out)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2447,6 +2847,7 @@ def main() -> int:
     phase_economy(torch)
     phase_telemetry(torch)
     phase_sharded(torch)
+    phase_single_cell(torch)
     for name, k in kernels.items():
         k["launches"] = serve["greedy"]["launches"][name]
     kernels["flash_attention"] = dict(

@@ -18,6 +18,10 @@ by name, so this module imports nothing of the reference:
                         port FleetState
     metric_buffer       a telemetry MetricBuffer (edges, hist, counters
                         and gauges dicts) → the port's
+    dqn_state           a DQNState (online and target networks, Adam
+                        moments, step) → the port's
+    system_model_state  a SystemModelState (network, Adam moments,
+                        step) → the port's
     hl_train_state      the fleet trainer's whole carry (HLTrainState),
                         its telemetry buffer included → the port's;
                         ``hl_train_state_arrays`` is its inverse, to numpy
@@ -182,6 +186,31 @@ def _adam(opt_state, dev) -> AdamState:
                      _flat_layers(opt_state.nu, dev))
 
 
+def _mlp(layers, dev) -> MLP:
+    return mlp_from_layers([{k: np.array(v, np.float32)
+                             for k, v in layer.items()} for layer in layers],
+                           dev)
+
+
+def dqn_state(state, device="cuda") -> DQNState:
+    """The reference's ``DQNState`` (``make_dqn``'s: online and target
+    layer lists, Adam state, step) as the port's, on ``device``."""
+    dev = resolve_device(device)
+    return DQNState(_mlp(state.params, dev),
+                    _mlp(state.target_params, dev).requires_grad_(False),
+                    _adam(state.opt_state, dev),
+                    _array(state.step, np.int32, dev))
+
+
+def system_model_state(state, device="cuda") -> SystemModelState:
+    """The reference's ``SystemModelState`` (layer list, Adam state,
+    step) as the port's, on ``device``."""
+    dev = resolve_device(device)
+    return SystemModelState(_mlp(state.params, dev),
+                            _adam(state.opt_state, dev),
+                            _array(state.step, np.int32, dev))
+
+
 def _ring(ring, dev) -> Ring:
     """A reference ring with the port's trash row appended."""
     def rows(x, dtype):
@@ -228,17 +257,10 @@ def hl_train_state(state, device="cuda") -> HLTrainState:
     dev = resolve_device(device)
     tel = getattr(state, "tel", None)
     i32 = lambda x: _array(x, np.int32, dev)
-    mlp = lambda layers: mlp_from_layers(
-        [{k: np.array(v, np.float32) for k, v in layer.items()}
-         for layer in layers], dev)
-    dqn, sm = state.dqn, state.sm
     return HLTrainState(
         key=key_from_data(state.key, dev),
-        dqn=DQNState(mlp(dqn.params),
-                     mlp(dqn.target_params).requires_grad_(False),
-                     _adam(dqn.opt_state, dev), i32(dqn.step)),
-        sm=SystemModelState(mlp(sm.params), _adam(sm.opt_state, dev),
-                            i32(sm.step)),
+        dqn=dqn_state(state.dqn, dev),
+        sm=system_model_state(state.sm, dev),
         d_direct=_prio(state.d_direct, dev),
         d_world=_ring(state.d_world, dev),
         d_plan=PlanRing(_prio(state.d_plan.buf, dev),

@@ -2,9 +2,10 @@
 end-edge-cloud testbed, Tables III-V), copied from the reference model so
 the port imports nothing of ``repro``.  ``repro_torch.fleet.latency``
 evaluates them on tensors; the tests hold it to the reference numpy
-model in float64.  ``action_accuracy`` and ``response_times`` are the
+model in float64.  ``action_accuracy``, ``response_times`` and ``round_metrics`` are the
 reference's numpy model itself, through which the exact solver reports
-its optimum.
+its optimum and the single-cell env (``repro_torch.env.edge_cloud``)
+steps.
 """
 from __future__ import annotations
 
@@ -84,3 +85,10 @@ def response_times(actions: np.ndarray, weak_s: np.ndarray, weak_e: bool,
     t = np.where(is_cloud, tc, t)
     # the weak end-node link penalty applies to every request of that node
     return t + np.where(weak_s, WEAK_S_PENALTY, 0.0)
+
+
+def round_metrics(actions: np.ndarray, weak_s: np.ndarray, weak_e: bool,
+                  **bg) -> tuple[float, float]:
+    """(average response time ms, average accuracy %) for a joint round."""
+    t = response_times(actions, weak_s, weak_e, **bg)
+    return float(t.mean()), float(action_accuracy(actions).mean())

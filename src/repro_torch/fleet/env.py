@@ -47,17 +47,12 @@ from repro_torch import random as rnd
 from repro_torch.economy.tiers import (EconomyProfile, TierEconomyState,
                                        init_economy, profile_tables,
                                        ticks_to_warm)
+from repro_torch.env.edge_cloud import (PENALTY_BASE, PENALTY_PER_PCT,
+                                       REWARD_SCALE)
 from repro_torch.fleet import latency
 from repro_torch.fleet.workload import FleetScenario
 from repro_torch.specs.observation import (ObsInputs, ObservationSpec,
                                            make_spec)
-
-# Reward constants of the paper's MDP (reference: the single-cell env):
-# a violated accuracy constraint costs a fixed charge plus a graded term
-# per % of deficit; rewards are in units of 100 ms.
-PENALTY_BASE = 0.5
-PENALTY_PER_PCT = 2.0
-REWARD_SCALE = 100.0
 
 
 @dataclasses.dataclass(frozen=True)

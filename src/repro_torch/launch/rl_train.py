@@ -1,4 +1,20 @@
-"""Fleet Hybrid Learning training launcher of the port.
+"""Hybrid Learning training launcher of the port (the paper's experiment
+driver).
+
+Single-cell (the paper's testbed: the numpy env on the host, the
+networks on the card):
+
+    PYTHONPATH=src python -m repro_torch.launch.rl_train --algo HL \
+        --users 5 --scenario A --constraint 89% [--seed 0] \
+        [--max-steps N] [--ckpt hl_agent.bundle.msgpack] [--device cuda]
+
+trains the HL agent (Algorithm 1), the DQL baseline or the tabular QL
+baseline (host-side) on one ``EdgeCloudEnv`` until its greedy round is
+within 1% of the brute-force optimum four evaluations in a row, printing
+the reference CLI's lines (the optimum, the converged step, the final
+ART and decisions, experience and compute minutes).
+
+Fleet-scale (``--fleet``, HL only):
 
     PYTHONPATH=src python -m repro_torch.launch.rl_train --algo HL --fleet \
         --cells 256 --n-max 8 --epochs 60 [--chunk 5] [--no-curriculum] \
@@ -6,17 +22,18 @@
         [--shared-cloud] [--shared-edge] [--cells-per-edge 4] \
         [--seed 0] [--ckpt hl.bundle.msgpack] [--device cuda]
 
-Trains one DQN and its system model on a fleet through
-``repro_torch.hltrain`` (Algorithm 1), by default over a user-count
-curriculum 2 → n_max of random fleets, one stage per chunk of epochs,
-then scores the greedy policy against the exact solver optimum on the
-last stage and on a held-out fleet.  Keys as the reference CLI's:
+trains one DQN and its system model on a fleet through
+``repro_torch.hltrain``, by default over a user-count curriculum
+2 → n_max of random fleets, one stage per chunk of epochs, then scores
+the greedy policy against the exact solver optimum on the last stage and
+on a held-out fleet.  Keys as the reference CLI's:
 ``k_fleet, k_init, k_eval = split(PRNGKey(seed), 3)`` draw the stages,
 the trainer's carry and the evaluation; the held-out fleet is
-``random_fleet(PRNGKey(seed + 1234))``.  ``--ckpt`` writes a ``dqn``
-PolicyBundle (the system model's layers in ``meta["system"]``) that
-either package loads and ``serve_fleet --bundle`` serves.  The
-single-cell agents (``--fleet`` left out) wait for a later slice.
+``random_fleet(PRNGKey(seed + 1234))``.
+
+``--ckpt`` (both paths) writes a PolicyBundle that either package loads
+(``dqn`` with the system model's layers in ``meta["system"]`` for HL;
+``qtable`` for QL); ``serve_fleet --bundle`` serves the fleet's.
 """
 from __future__ import annotations
 
@@ -24,7 +41,12 @@ import argparse
 import time
 
 from repro_torch import random as rnd
+from repro_torch.core.agent import ConvergenceTracker, HLAgent, HLHyperParams
+from repro_torch.core.baselines import DQLAgent, QLAgent
 from repro_torch.device import resolve_device, synchronize
+from repro_torch.env.edge_cloud import (EdgeCloudEnv, EnvConfig,
+                                        brute_force_optimal, decision_string)
+from repro_torch.env.scenarios import CONSTRAINTS, SCENARIOS
 from repro_torch.fleet.env import FleetConfig
 from repro_torch.fleet.workload import curriculum_fleets, random_fleet
 from repro_torch.hltrain.metrics import (evaluate_vs_solver,
@@ -34,9 +56,75 @@ from repro_torch.hltrain.trainer import (FleetHLParams, make_hl_trainer,
 from repro_torch.policy.bundle import PolicyBundle, save_bundle
 from repro_torch.specs.observation import SPEC_NAMES
 
-SINGLE_CELL_LATER = ("the paper's single-cell agents (rl_train without "
-                     "--fleet) arrive with a later slice of the port "
-                     "(ROADMAP.md queue 1 item 8)")
+
+def single_cell_agent(algo: str, env: EdgeCloudEnv, users: int, seed: int,
+                      device):
+    """The CLI's agent for ``algo`` with the reference CLI's
+    hyper-parameters."""
+    if algo == "HL":
+        return HLAgent(env, HLHyperParams(
+            seed=seed, epochs=400, eps_decay_steps=1000 * users, k_best=4,
+            n_suggest=2 * users), device=device)
+    if algo == "DQL":
+        return DQLAgent(env, HLHyperParams(
+            seed=seed, eps_decay_steps=6000 * users), device=device)
+    return QLAgent(env)
+
+
+def train_single(*, algo: str = "HL", users: int = 5, scenario: str = "A",
+                 constraint: str = "89%", seed: int = 0,
+                 max_steps: int | None = None, ckpt: str | None = None,
+                 device="cuda", verbose: bool = True) -> dict:
+    """Train one single-cell agent until convergence (or its cap) and
+    (with ``ckpt``) write its bundle.  Returns the agent, its
+    ``TrainResult``, the optimum, the tracker and the wall seconds of
+    training (from after the optimum, as the reference CLI's clock)."""
+    dev = resolve_device(device)
+
+    def env(s):
+        return EdgeCloudEnv(EnvConfig(SCENARIOS[scenario],
+                                      CONSTRAINTS[constraint],
+                                      n_users=users, seed=s))
+
+    opt = brute_force_optimal(SCENARIOS[scenario], CONSTRAINTS[constraint],
+                              users)
+    if verbose:
+        print(f"target optimum: ART={opt['art']:.1f} "
+              f"{decision_string(opt['actions'])}")
+    tracker = ConvergenceTracker(env(seed + 90), patience=4)
+    t0 = time.perf_counter()
+    agent = single_cell_agent(algo, env(seed), users, seed, dev)
+    extra = {}
+    if algo == "HL":
+        res = agent.train(tracker=tracker)
+        extra = {"system": agent.sm.params.to_layers()}
+    elif algo == "DQL":
+        res = agent.train(tracker=tracker, max_steps=max_steps or 300_000,
+                          eval_every=200)
+    else:
+        res = agent.train(tracker=tracker, max_steps=max_steps or 2_000_000,
+                          eval_every=2000)
+    synchronize(dev)
+    wall = time.perf_counter() - t0
+    if verbose:
+        print(f"\n{algo}: converged@{res.steps_to_converge} "
+              f"(total {res.real_steps} interactions, {wall:.0f}s wall)")
+        print(f"final ART={res.final_art:.1f} "
+              f"decisions={decision_string(res.final_actions)}")
+        print(f"experience time {res.exp_time_ms / 60000:.1f} min "
+              f"(simulated), compute time {res.comp_time_s / 60:.2f} min")
+    if ckpt:
+        save_bundle(ckpt, PolicyBundle(
+            kind=agent.policy.kind, obs_spec="base", n_max=users,
+            params=agent.policy_params,
+            meta={"algo": algo, "trainer": "python-single-cell",
+                  "scenario": scenario, "constraint": constraint,
+                  "final_art_ms": float(res.final_art), **extra}))
+        if verbose:
+            print(f"saved PolicyBundle → {ckpt} "
+                  f"({agent.policy.kind}, spec 'base', n_max={users})")
+    return dict(agent=agent, result=res, optimum=opt, tracker=tracker,
+                wall_seconds=wall, algo=algo, device=dev)
 
 
 def fleet_params(cells: int, epochs: int, seed: int) -> FleetHLParams:
@@ -152,11 +240,12 @@ def train_fleet(*, cells: int = 256, n_max: int = 8, epochs: int = 60,
 
 
 def main(argv=None) -> dict:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--algo", choices=("HL", "DQL", "QL"), default="HL")
     ap.add_argument("--users", type=int, default=5)
     ap.add_argument("--scenario", choices="ABCD", default="A")
-    ap.add_argument("--constraint", default="89%")
+    ap.add_argument("--constraint", choices=tuple(CONSTRAINTS),
+                    default="89%")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--max-steps", type=int, default=None)
     ap.add_argument("--ckpt", default=None)
@@ -183,7 +272,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if not args.fleet:
-        raise NotImplementedError(SINGLE_CELL_LATER)
+        return train_single(algo=args.algo, users=args.users,
+                            scenario=args.scenario,
+                            constraint=args.constraint, seed=args.seed,
+                            max_steps=args.max_steps, ckpt=args.ckpt,
+                            device=args.device)
     if args.algo != "HL":
         ap.error("--fleet currently supports --algo HL only")
     if args.shared_edge and args.cells_per_edge <= 1:

@@ -15,14 +15,20 @@ is a threefry key of ``repro_torch.random``.
 observation at a time (the tabular Q baseline); the fleet-wide harnesses
 — the serving engine and the round gateway — run ``act`` on device
 tensors every step and refuse such a policy up front
-(:func:`require_device_side`).
+(:func:`require_device_side`).  The single-cell harnesses (the env's
+``rollout_greedy``, the agents, the orchestrator) decide through
+:func:`act_single`, one observation at a time, on any adapter.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 from torch import nn
+
+from repro_torch import random as rnd
 
 
 class Policy(NamedTuple):
@@ -37,6 +43,43 @@ class Policy(NamedTuple):
     refresh: Optional[Callable[[Any, Any], Any]] = None
     with_users: Optional[Callable[[Any, Any], Any]] = None
     host_side: bool = False
+
+
+def params_device(params) -> torch.device | None:
+    """The device of the first tensor in ``params`` (a module, or
+    dicts/lists/tuples of tensors); None when it holds none (a qtable
+    dict of numpy rows)."""
+    if isinstance(params, nn.Module):
+        params = list(params.parameters())
+    if isinstance(params, torch.Tensor):
+        return params.device
+    if isinstance(params, dict):
+        params = list(params.values())
+    if isinstance(params, (list, tuple)):
+        for v in params:
+            dev = params_device(v)
+            if dev is not None:
+                return dev
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def _default_key(device: torch.device) -> torch.Tensor:
+    return rnd.PRNGKey(0, device)
+
+
+def act_single(policy: Policy, params, obs, key=None) -> int:
+    """One cell's decision: a numpy ``(D,)`` observation as a ``(1, D)``
+    float32 tensor on the params' device (the CPU for a host-side
+    adapter), one ``policy.act``, the action as a Python int (one
+    device-to-host copy).  ``key`` defaults to ``PRNGKey(0)`` on that
+    device, as the reference's does."""
+    dev = None if policy.host_side else params_device(params)
+    dev = torch.device("cpu") if dev is None else dev
+    x = torch.as_tensor(np.asarray(obs, np.float32)[None, :], device=dev)
+    if key is None:
+        key = _default_key(dev)
+    return int(policy.act(params, x, key)[0])
 
 
 def refresh_params(policy: Policy, params, scenario):

@@ -1,8 +1,11 @@
 """ObservationSpec — the observation layout, on tensors.
 
-Counterpart of ``repro.specs.observation`` for batched fleet encoders:
-an ordered tuple of feature blocks, each encoding ``(C,)`` / ``(C,
-n_max)`` semantic inputs into ``(C, width)`` float32 columns.
+Counterpart of ``repro.specs.observation``: an ordered tuple of feature
+blocks, each encoding ``(C,)`` / ``(C, n_max)`` semantic inputs into
+``(C, width)`` float32 columns (``encode``, the fleet's), or one cell's
+scalars and ``(n_max,)`` arrays into a ``(width,)`` row (``encode_np``,
+the single-cell env's: numpy in float64, cast to float32 once at the
+end, byte for byte the reference's row).
 
 Blocks: ``base`` (the paper's Table-II state plus round context, width
 4·n_max + 8), ``cloud_load`` (fleet-wide mean cloud occupancy, 1),
@@ -19,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 OCC_LEVELS = 8.0            # Table-II 9-level occupancy clip (0..8)
@@ -36,7 +40,8 @@ LATENCY_TARGET_POOL = (150.0, 250.0, 400.0, 600.0, 800.0)
 
 class ObsInputs(NamedTuple):
     """Semantic observation inputs, stacked over cells: ``(C,)`` and
-    ``(C, n_max)`` tensors.  Occupancies arrive fully resolved (background
+    ``(C, n_max)`` tensors (for ``encode_np``: one cell's scalars and
+    ``(n_max,)`` arrays).  Occupancies arrive fully resolved (background
     and couplings included).  Inputs of blocks a spec lacks may be None."""
     user: torch.Tensor        # requesting-user cursor
     n_users: torch.Tensor     # real users this round
@@ -110,20 +115,72 @@ def _economy(x: ObsInputs, n_max: int) -> torch.Tensor:
     return torch.stack([st, wu, pr], dim=-1).reshape(st.shape[0], -1)
 
 
+# ------------------------------------------- single-cell (numpy) encoders
+# float64 throughout, as the reference's: the float32 encoders above
+# round ``acc_sum / (ACC_NORM · n)`` and ``u / n`` apart in the last bit,
+# which the tabular baseline's and the planner's rounded keys would see
+def _base_np(x: ObsInputs, n_max: int) -> np.ndarray:
+    onehot = np.zeros(n_max)
+    u = int(x.user)
+    if u < n_max:
+        onehot[u] = 1.0
+    n = float(x.n_users)
+    return np.concatenate([
+        onehot,
+        np.asarray(x.busy_p_s, float),
+        np.asarray(x.busy_m_s, float),
+        np.asarray(x.weak_s, float),
+        [min(float(x.k_edge), OCC_LEVELS) / OCC_LEVELS,
+         float(x.busy_m_e), float(x.weak_e)],
+        [min(float(x.k_cloud), OCC_LEVELS) / OCC_LEVELS,
+         float(x.busy_m_c), float(x.weak_e)],
+        [float(x.acc_sum) / (ACC_NORM * n), u / n],
+    ])
+
+
+def _cloud_load_np(x: ObsInputs, n_max: int) -> np.ndarray:
+    return np.array([min(float(x.cloud_fleet), LOAD_CAP) / LOAD_CAP])
+
+
+def _edge_load_np(x: ObsInputs, n_max: int) -> np.ndarray:
+    return np.array([min(float(x.edge_group), LOAD_CAP) / LOAD_CAP])
+
+
+def _constraint_np(x: ObsInputs, n_max: int) -> np.ndarray:
+    return np.array([float(x.constraint) / ACC_NORM,
+                     float(x.latency_target) / LATENCY_NORM])
+
+
+def _economy_np(x: ObsInputs, n_max: int) -> np.ndarray:
+    if x.econ_state is None:
+        out = np.zeros(9)
+        out[0::3] = 1.0  # neutral: every tier warm, instant, free
+        return out
+    st = np.asarray(x.econ_state, float) / 2.0
+    wu = np.minimum(np.asarray(x.econ_warm_ticks, float),
+                    WARMUP_NORM) / WARMUP_NORM
+    pr = np.minimum(np.asarray(x.econ_price, float),
+                    ECON_PRICE_NORM) / ECON_PRICE_NORM
+    return np.stack([st, wu, pr], axis=-1).reshape(-1)
+
+
 @dataclasses.dataclass(frozen=True)
 class Block:
     name: str
     width: Callable[[int], int]      # n_max -> feature count
     encode: Callable[[ObsInputs, int], torch.Tensor]
+    encode_np: Callable[[ObsInputs, int], np.ndarray]
 
 
 BLOCKS: dict[str, Block] = {
-    "base": Block("base", lambda n: 4 * n + 8, _base),
-    "cloud_load": Block("cloud_load", lambda n: 1, _cloud_load),
-    "edge_load": Block("edge_load", lambda n: 1, _edge_load),
-    "constraint": Block("constraint", lambda n: 2, _constraint),
+    "base": Block("base", lambda n: 4 * n + 8, _base, _base_np),
+    "cloud_load": Block("cloud_load", lambda n: 1, _cloud_load,
+                        _cloud_load_np),
+    "edge_load": Block("edge_load", lambda n: 1, _edge_load, _edge_load_np),
+    "constraint": Block("constraint", lambda n: 2, _constraint,
+                        _constraint_np),
     # 3 tiers × (startup state, ticks-to-warm, routing price)
-    "economy": Block("economy", lambda n: 9, _economy),
+    "economy": Block("economy", lambda n: 9, _economy, _economy_np),
 }
 
 SPEC_VARIANTS: dict[str, tuple[str, ...]] = {
@@ -162,6 +219,11 @@ class ObservationSpec:
         """Batched observation: (C, dim) float32."""
         return torch.cat([BLOCKS[b].encode(x, self.n_max)
                           for b in self.blocks], dim=-1)
+
+    def encode_np(self, x: ObsInputs) -> np.ndarray:
+        """One cell's observation, numpy: (dim,) float32."""
+        return np.concatenate([BLOCKS[b].encode_np(x, self.n_max)
+                               for b in self.blocks]).astype(np.float32)
 
 
 def make_spec(name: str, n_max: int) -> ObservationSpec:

@@ -46,7 +46,9 @@ def test_port_files_found():
                 "launch/serve.py", "configs/shapes.py", "kernels/ssd.py",
                 "models/mamba2.py", "configs/zamba2_1p2b.py",
                 "economy/__init__.py", "economy/tiers.py",
-                "economy/routing.py"):
+                "economy/routing.py", "env/edge_cloud.py", "core/agent.py",
+                "core/baselines.py", "core/replay.py",
+                "core/orchestrator.py", "configs/mobilenet_pool.py"):
         assert (PORT / rel) in FILES, rel
 
 

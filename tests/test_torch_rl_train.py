@@ -8,7 +8,8 @@ bit-equal), and its counters meet the closed-form budget.  A bundle the
 port writes loads in the reference — the system model's layers in
 ``meta["system"]`` included — and serves in the port's ``serve_fleet``;
 a bundle the reference writes loads in the port the same way.  Without
-``--fleet`` the CLI names the queue item of the single-cell agents.
+``--fleet`` the CLI trains a single-cell agent
+(``tests/test_torch_agents.py`` holds it to the reference CLI).
 """
 import jax
 import numpy as np
@@ -111,9 +112,15 @@ def test_reference_bundle_with_a_system_model_loads_in_the_port(tmp_path):
     assert pol.act(net, obs, None).shape == (4,)
 
 
-def test_cli_without_fleet_names_the_single_cell_item():
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        rl_train.main(["--algo", "HL", "--device", "cpu"])
+def test_cli_without_fleet_names_the_single_cell_item(capsys):
+    """Without ``--fleet`` the CLI runs the single-cell path (queue 1
+    item 8, ported): the tabular agent, its optimum and its lines."""
+    rep = rl_train.main(["--algo", "QL", "--users", "2", "--max-steps",
+                         "500", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert out.startswith("target optimum: ART=")
+    assert "QL: converged@" in out and "(total 500 interactions" in out
+    assert rep["algo"] == "QL" and rep["result"].real_steps == 500
 
 
 def test_cli_defaults_to_the_card():
