@@ -185,7 +185,24 @@ CUDA toolkit's nvcc.  Phases, each printing one JSON line:
    tiny epochs and DQL for 1,000 steps: integers identical, float
    buffers within 1e-5, TD priorities within 1e-5 of max(1, |p|),
    parameters within 2e-6, a differing decision only at a near-tie
-   (gap < 1e-4, the CPU's values).  Prints its seconds.
+   (gap < 1e-4, the CPU's values); then the card's DQL networks after
+   its last update and one minibatch of its buffer go through the
+   agent's update on the CPU and on the card, and the TD errors' gap is
+   reported in float32 ulps of the priority.  Prints its seconds.
+15. analysis: the port's analysis gate and the tick with no host sync.
+   (a) ``python -m repro_torch.analysis --check --lint`` on the card
+   against the committed baseline the CPU wrote
+   (``results/analysis_contracts_torch.json``; its output goes to
+   ``chiprun_out/chip_smoke_analysis.txt``).  (b) Phase 4's deployment,
+   greedy, with every ``run_epoch`` under
+   ``torch.cuda.set_sync_debug_mode("error")``, then with telemetry and
+   live export, whose window lane steps out of the error mode for its
+   one copy: queue_admit once and group_occupancy 3 times a tick (counts
+   zeroed just before each run, read just after), records byte-identical
+   to the same run unguarded.  (c) Host syncs by source line over epoch
+   1 of the greedy deployment (``set_sync_debug_mode("warn")``): none
+   inside the tick, the same lines as phase 12's count.  Prints its
+   seconds.
 
 Any failed check raises, so the exit code is non-zero.  Ends with the
 ``nvidia-smi`` line, the kernels' JSON summary and, last,
@@ -2643,10 +2660,62 @@ def sc_cpu_vs_card(algo: str) -> dict:
               and worst["params"] <= PARAM_BAR,
               f"{algo}: CPU and card floats within {BUFFER_BAR} / "
               f"{PARAM_BAR}: {worst}")
-    return dict(decisions=len(logs["cpu"]),
-                real_steps=agents["cpu"].real_steps,
-                compute_updates=agents["cpu"].compute_updates,
-                max_abs_err=worst, first_difference=tie)
+    out = dict(decisions=len(logs["cpu"]),
+               real_steps=agents["cpu"].real_steps,
+               compute_updates=agents["cpu"].compute_updates,
+               max_abs_err=worst, first_difference=tie)
+    if algo == "DQL":
+        out["td_recompute"] = td_recompute(agents["cuda"])
+    return out
+
+
+def td_recompute(agent) -> dict:
+    """The card's TD errors against the CPU's from the same inputs: the
+    card agent's networks after its last update and one minibatch of its
+    buffer, through the agent's own update on a copy of them on each
+    device, so the trajectories cannot have forked.  The gap is given in
+    float32 ulps of the priority |td| + 1e-4 and in ulps of the larger
+    of the two values the TD is the difference of (Q(s, a) and its
+    target), with Q(s, a)'s own gap in ulps of Q(s, a)."""
+    import copy
+    import numpy as np
+    import torch
+    from repro_torch.training.optimizer import tree_map
+    batch, _, w = agent.buf.sample(agent.hp.batch)
+    td, q_sa = {}, {}
+    for dev in ("cpu", "cuda"):
+        params = copy.deepcopy(agent.dqn.params).to(dev)
+        st = agent.dqn._replace(
+            params=params,
+            target_params=copy.deepcopy(agent.dqn.target_params).to(dev),
+            opt_state=tree_map(lambda t: t.detach().to(dev),
+                               agent.dqn.opt_state),
+            step=agent.dqn.step.to(dev))
+        b = tuple(torch.as_tensor(x, device=dev) for x in batch)
+        with torch.no_grad():
+            q_sa[dev] = params(b[0]).gather(
+                1, b[1].long()[:, None])[:, 0].cpu().numpy()
+        _, _, t = agent.dqn_update(st, b, torch.as_tensor(w, device=dev))
+        td[dev] = t.cpu().numpy()
+    ulp = lambda v: np.spacing(np.abs(v).astype(np.float32)).astype(
+        np.float64)
+    p = np.abs(td["cpu"]) + np.float32(1e-4)
+    gap = np.abs(td["cpu"].astype(np.float64) - td["cuda"])
+    operand = np.maximum(np.abs(q_sa["cpu"]),
+                         np.abs(q_sa["cpu"] - td["cpu"]))
+    ulps_p, ulps_op = gap / ulp(p), gap / ulp(operand)
+    q_gap = np.abs(q_sa["cpu"].astype(np.float64) - q_sa["cuda"])
+    return dict(updates=agent.compute_updates, batch=int(len(p)),
+                max_abs_gap=float(gap.max()),
+                max_rel_gap=float((gap / np.maximum(1.0, p)).max()),
+                max_ulps_of_p=float(ulps_p.max()),
+                mean_ulps_of_p=float(ulps_p.mean()),
+                max_ulps_of_operands=float(ulps_op.max()),
+                mean_ulps_of_operands=float(ulps_op.mean()),
+                max_q_sa_ulps=float((q_gap / ulp(q_sa["cpu"])).max()),
+                max_priority=float(p.max()),
+                p_at_max_ulps=float(p[int(ulps_p.argmax())]),
+                operand_at_max_ulps=float(operand[int(ulps_p.argmax())]))
 
 
 class _EpochDone(Exception):
@@ -2821,6 +2890,142 @@ def phase_single_cell(torch) -> dict:
     return out
 
 
+# ------------------------------------------------------- analysis phase
+GATE_TIMEOUT_S = 300
+ENGINE_PY = "src/repro_torch/serve/engine.py"
+
+
+def tick_lines() -> range:
+    """The source lines of the serving tick (``live_tick`` in
+    ``serve/engine.py``)."""
+    import ast
+    tree = ast.parse((ROOT / ENGINE_PY).read_text())
+    tick = next(n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef)
+                and n.name == "live_tick")
+    return range(tick.lineno, tick.end_lineno + 1)
+
+
+def phase_analysis(torch) -> dict:
+    """15. The port's analysis gate on the card, and the tick with no
+    host sync."""
+    import os
+    import numpy as np
+    from repro_torch import random as rnd
+    from repro_torch.fleet.workload import random_fleet
+    from repro_torch.launch import serve_fleet
+    from repro_torch.policy.adapters import heuristic_greedy_policy
+    from repro_torch.serve import engine
+    from repro_torch.serve.engine import ServeConfig, serve_stream
+    from repro_torch.serve.stream import poisson_request_stream
+    from repro_torch.specs.observation import make_spec
+
+    t_phase = time.perf_counter()
+    # (a) the gate on the card against the baseline the CPU wrote
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    gate = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--check", "--lint"],
+        cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=GATE_TIMEOUT_S)
+    gate_s = time.perf_counter() - t0
+    (OUT / "chip_smoke_analysis.txt").write_text(gate.stdout + gate.stderr)
+    check(gate.returncode == 0, f"python -m repro_torch.analysis --check "
+          f"--lint passes on the card:\n{gate.stdout[-3000:]}"
+          f"{gate.stderr[-3000:]}")
+
+    # (b) the deployment's ticks under set_sync_debug_mode("error"): every
+    # run_epoch of the greedy run, then with telemetry and live export,
+    # whose window lane steps out of the error mode for its one copy
+    make, emit_window = engine.make_serve_engine, engine._emit_window
+
+    def guarded(*args, **kw):
+        eng = make(*args, **kw)
+
+        def run_epoch(*a, **k):
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return eng.run_epoch(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return eng._replace(run_epoch=run_epoch)
+
+    def lane(*a, **k):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return emit_window(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    runs = {}
+    for name, kw in (("greedy", {}),
+                     ("telemetry_live", dict(
+                         telemetry=True, window_ms=TEL_WINDOW_MS, live=True,
+                         live_out=str(OUT / "chip_smoke_analysis.ndjson")))):
+        free = serve_fleet.serve(greedy=True, device="cuda", verbose=False,
+                                 **SERVE_KW, **kw)
+        engine.make_serve_engine, engine._emit_window = guarded, lane
+        reset_all_counts()
+        try:
+            rep = serve_fleet.serve(greedy=True, device="cuda",
+                                    verbose=False, **SERVE_KW, **kw)
+        finally:
+            engine.make_serve_engine, engine._emit_window = make, \
+                emit_window
+        launches = all_counts()
+        n_ticks = rep["n_ticks"]
+        check(launches == {"queue_admit": n_ticks,
+                           "group_occupancy": 3 * n_ticks,
+                           "flash_attention": 0, "wkv6": 0, "ssd": 0},
+              f"{name}: the sync-free ticks launch queue_admit once and "
+              f"group_occupancy 3 times a tick ({launches} in {n_ticks})")
+        for k, v in free["records"].items():
+            check(v.tobytes() == rep["records"][k].tobytes(),
+                  f"{name}: records[{k}] byte-identical under the error "
+                  f"mode")
+        runs[name] = dict(n_ticks=n_ticks, launches=launches,
+                          served=int(rep["served_requests"]),
+                          ms_per_tick=rep["ms_per_tick"])
+
+    # (c) host syncs by source line over epoch 1 (phase 12's count)
+    dev = torch.device("cuda")
+    k_fleet, k_trace, k_serve, _ = rnd.split(rnd.PRNGKey(SEED, dev), 4)
+    scn = random_fleet(k_fleet, CELLS, n_max=N_MAX,
+                       cells_per_edge=CELLS_PER_EDGE)
+    pol = heuristic_greedy_policy(make_spec("full", N_MAX))
+    cfg = ServeConfig(n_max=N_MAX, obs_spec="full", shared_cloud=True,
+                      shared_edge=True)
+    horizon = ROUNDS * cfg.round_ms
+    stream = poisson_request_stream(k_trace, scn, horizon, rate=RATE,
+                                    round_ms=cfg.round_ms,
+                                    epoch_ms=horizon / SYNC_EPOCHS)
+    lines, rep = count_syncs(torch, lambda on_epoch: serve_stream(
+        pol, pol.init(SEED, dev), scn, stream, cfg, key=k_serve,
+        device=dev, on_epoch=on_epoch), on=1)
+    ticks_epoch1 = int(round(stream.epoch_ms / cfg.tick_ms))
+    tick = tick_lines()
+    in_tick = {k: n for k, n in lines.items()
+               if k.startswith(ENGINE_PY + ":")
+               and int(k.rsplit(":", 1)[1]) in tick}
+    check(in_tick == {}, f"no host sync inside the tick: {in_tick}")
+    phase12 = results.get("telemetry", {}).get("deployment", {}).get(
+        "sync_lines_epoch1", {}).get("off")
+    check(phase12 is None or phase12 == lines,
+          f"the count agrees with phase 12's ({phase12} vs {lines})")
+    syncs = dict(lines_epoch1=lines, total_epoch1=sum(lines.values()),
+                 ticks_epoch1=ticks_epoch1,
+                 per_tick=sum(in_tick.values()) / ticks_epoch1,
+                 phase12_lines_epoch1=phase12,
+                 tick_lines=[tick.start, tick.stop - 1])
+    out = dict(gate=dict(rc=gate.returncode, seconds=gate_s,
+                         contracts=sum(": collectives=" in x for x in
+                                       gate.stdout.splitlines())),
+               sync_free=runs, syncs=syncs,
+               seconds=time.perf_counter() - t_phase)
+    emit("analysis", **out)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2848,6 +3053,7 @@ def main() -> int:
     phase_telemetry(torch)
     phase_sharded(torch)
     phase_single_cell(torch)
+    phase_analysis(torch)
     for name, k in kernels.items():
         k["launches"] = serve["greedy"]["launches"][name]
     kernels["flash_attention"] = dict(

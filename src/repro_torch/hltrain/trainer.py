@@ -63,6 +63,7 @@ from repro_torch.hltrain.buffers import (PlanRing, PrioRing, Ring,
                                          ring_add, ring_init, ring_sample)
 from repro_torch.policy.adapters import dqn_policy
 from repro_torch.policy.api import Policy
+from repro_torch.telemetry.live import host_lane
 from repro_torch.telemetry.metrics import (MetricBuffer, buffer_series,
                                            count_event,
                                            histogram_percentiles,
@@ -333,18 +334,8 @@ def make_hl_trainer(cfg: FleetConfig, hp: FleetHLParams | None = None, *,
             mean_r.append(r)
             q_loss.append(loss)
         if live is not None:
-            # one device-to-host copy an epoch: the first session's index,
-            # each session's mean reward and TD loss, the epoch's epsilon
-            lanes = torch.cat([sessions0.to(torch.float64).reshape(1),
-                               torch.stack(mean_r).to(torch.float64),
-                               torch.stack(q_loss).to(torch.float64),
-                               epsilon(st).mean().to(torch.float64)
-                               .reshape(1)]).cpu().numpy()
-            n = len(mean_r)
-            live.on_epoch(epoch_idx, n, int(lanes[0]),
-                          lanes[1:1 + n].astype(np.float32),
-                          lanes[1 + n:1 + 2 * n].astype(np.float32),
-                          np.float32(lanes[-1]))
+            _emit_epoch(live, epoch_idx, sessions0, mean_r, q_loss,
+                        epsilon(st).mean())
         for _ in range(int(schedule["world"][e])):
             st, loss = world_session(st)
             sm_loss.append(loss)
@@ -391,6 +382,23 @@ def make_hl_trainer(cfg: FleetConfig, hp: FleetHLParams | None = None, *,
         return state, out
 
     return FleetHLTrainer(init=init, run=run, resume=resume, policy=policy)
+
+
+@host_lane("on_epoch")
+def _emit_epoch(live, epoch_idx: int, sessions0: torch.Tensor, mean_r: list,
+                q_loss: list, eps: torch.Tensor) -> None:
+    """Hand an epoch's direct sessions to ``live`` in one device-to-host
+    copy: the first session's index, each session's mean reward and TD
+    loss, the epoch's epsilon (float64 carries the index exactly)."""
+    lanes = torch.cat([sessions0.to(torch.float64).reshape(1),
+                       torch.stack(mean_r).to(torch.float64),
+                       torch.stack(q_loss).to(torch.float64),
+                       eps.to(torch.float64).reshape(1)]).cpu().numpy()
+    n = len(mean_r)
+    live.on_epoch(epoch_idx, n, int(lanes[0]),
+                  lanes[1:1 + n].astype(np.float32),
+                  lanes[1 + n:1 + 2 * n].astype(np.float32),
+                  np.float32(lanes[-1]))
 
 
 def train_telemetry_report(state: HLTrainState) -> dict:

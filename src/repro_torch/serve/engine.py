@@ -84,6 +84,7 @@ from repro_torch.serve.stream import RequestStream
 from repro_torch.sharding.runtime import (CELLS_AXIS, COLLECTIVES, CellsGroup,
                                           all_gather_object, all_reduce,
                                           get_mesh_info)
+from repro_torch.telemetry.live import host_lane
 from repro_torch.telemetry.metrics import (MetricBuffer, buffer_series,
                                            count_events, merge_shard_buffers,
                                            metrics_init, observe_values,
@@ -255,7 +256,12 @@ def make_serve_engine(policy: Policy, cfg: ServeConfig, live=None,
                 st.q_ids, st.q_head, st.q_len, ids, cell, valid)
             rec = st.rec
             rejected = valid & ~admitted
-            rec.dropped[torch.where(rejected, ids, scratch)] = True
+            # index_fill_ writes the constant on the device (a Python
+            # True assigned by index would be a host tensor copied over:
+            # a sync); masked lanes share the scratch slot, harmless
+            # under one value
+            rec.dropped.index_fill_(
+                0, torch.where(rejected, ids, scratch).long(), True)
 
             # -- 2. form rounds at idle cells with backlog --
             start = (st.cur_n == 0) & (q_len > 0)
@@ -316,7 +322,7 @@ def make_serve_engine(policy: Policy, cfg: ServeConfig, live=None,
             rec.wait_ms[flat] = wait_lanes.reshape(-1)
             rec.service_ms[flat] = service.reshape(-1)
             rec.art_ms[flat] = spread(art)
-            rec.served[flat] = True
+            rec.served.index_fill_(0, flat.long(), True)
             rec.violated[flat] = spread(info["violated"])
             rec.action[flat] = info["actions"].reshape(-1)
             n_decisions = active.sum()
@@ -375,6 +381,7 @@ def make_serve_engine(policy: Policy, cfg: ServeConfig, live=None,
     return ServeEngine(init=init, run_epoch=run_epoch)
 
 
+@host_lane("on_window")
 def _emit_window(live, tel: MetricBuffer, w: int, now: np.float32) -> None:
     """Hand window ``w``'s counters and gauges to ``live`` in one
     device-to-host copy: the gauges' float32 bits ride as int64 beside

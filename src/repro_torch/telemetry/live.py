@@ -37,6 +37,14 @@ Training streams through the same sinks: :class:`TrainLiveEmitter` gets
 one call per epoch, after its direct sessions, and writes a
 ``train_session`` record per active direct session (epsilon, mean
 reward, TD loss: the gauges the trainer's buffer accumulates).
+
+The engine and the trainer reach their emitter through one small *host
+lane* function each (``serve.engine._emit_window``,
+``hltrain.trainer._emit_epoch``), which holds the lane's one
+device-to-host copy.  :func:`host_lane` registers such a function under
+the emitter method it feeds; ``repro_torch.analysis`` attributes every
+device-to-host copy to the lane on its Python stack and fails any copy
+outside the lanes of :data:`CALLBACK_WHITELIST`.
 """
 from __future__ import annotations
 
@@ -49,8 +57,30 @@ import numpy as np
 
 __all__ = [
     "NdjsonSink", "open_sink", "BurnRateConfig", "BurnRateAlerter",
-    "LiveEmitter", "TrainLiveEmitter",
+    "LiveEmitter", "TrainLiveEmitter", "CALLBACK_WHITELIST", "HOST_LANES",
+    "host_lane",
 ]
+
+# The only emitter methods a tick or a training epoch may hand device
+# data to (the reference's io_callback whitelist): the live-emitter
+# window and epoch lanes below.  repro_torch.analysis runs every
+# registered entry point and fails its contract check on a device-to-host
+# copy outside a lane named here -- add a name (and a lane that deserves
+# it) before wiring a new host copy into the tick or the trainer.
+CALLBACK_WHITELIST = frozenset({"on_window", "on_epoch"})
+
+# code object of each host-lane function -> the emitter method it feeds
+HOST_LANES = {}
+
+
+def host_lane(name: str):
+    """Register the decorated function as the host lane that feeds the
+    emitter method ``name``.  The function is returned unchanged, so the
+    analysis finds its frame on the stack of the copies it makes."""
+    def register(fn):
+        HOST_LANES[fn.__code__] = name
+        return fn
+    return register
 
 class NdjsonSink:
     """Newline-delimited JSON event writer over any text stream.
