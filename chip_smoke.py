@@ -57,7 +57,8 @@ CUDA toolkit's nvcc.  Phases, each printing one JSON line:
 7. lm_kernels: flash attention, WKV6 and the SSD scan against their
    plain versions on the card at the LM serving shapes (yi-6b f32 and
    bf16, h2o-danube's window and head_dim 120 in f32 and bf16,
-   zamba2-1.2b's shared block; rwkv6-1.6b's WKV6, also at a ragged S and
+   zamba2-1.2b's shared block, mistral-nemo-12b's H 32 / KV 8 and
+   nemotron-4-15b's H 48 / KV 8 at D 128; rwkv6-1.6b's WKV6, also at a ragged S and
    in bf16, against its plain version in float64, with its kernels'
    ptxas registers and spills; zamba2-1.2b's Mamba2 scan, also at a
    ragged S and at G = 2; bf16 flash also row by row, each (query, head)
@@ -73,17 +74,26 @@ CUDA toolkit's nvcc.  Phases, each printing one JSON line:
    from ``cuobjdump -sass`` of the built libraries (every instance must
    hold some);
 8. lm_serve: ``repro_torch.launch.serve`` at full width — yi-6b,
-   rwkv6-1.6b and zamba2-1.2b, weights from a ``torch.Generator`` on the
-   card, batch 4, prompt 2048, 32 greedy tokens — with launch counts read
-   around each run (each kernel launched as often as the config's blocks
-   call it in one prefill: flash once per attn block and per application
-   of zamba2's shared block, WKV6 once per rwkv6 block, SSD once per
-   mamba2 block, the others not at all) and the serving invariant: a
+   rwkv6-1.6b, zamba2-1.2b, mistral-nemo-12b and nemotron-4-15b at
+   prompt 2048, h2o-danube-3-4b at prompt 4,608 (past its 4,096-token
+   window, so the KV ring wraps), and mixtral-8x7b at 8 of its 32 layers
+   through ``serve_config`` (the registry's ``n_layers`` override) at
+   the published capacity factor 1.25 and dropless (8.0); weights from a
+   ``torch.Generator`` on the card, batch 4, 32 greedy tokens — with
+   launch counts read around each run (each kernel launched as often as
+   the config's blocks call it in one prefill: flash once per attn and
+   moe block and per application of zamba2's shared block, WKV6 once per
+   rwkv6 block, SSD once per mamba2 block, the others not at all), the
+   decode's byte bound, mixtral's dropped share of the prefill's (token,
+   slot) pairs and a dropless decode, and the serving invariant: a
    teacher-forced forward over prompt + generated tokens matches the
-   prefill and decode logits within 1e-3;
-9. lm_parity: the yi, h2o-danube, rwkv6 and zamba2 smoke configs from
-   one seed on the CPU and on the card — logits within 1e-4, greedy
-   tokens identical;
+   prefill and decode logits within 1e-3 (nemotron's forward one
+   sequence at a time; mixtral's dropless only, the reference's rule);
+9. lm_parity: the yi, h2o-danube, rwkv6, zamba2, mistral-nemo, nemotron
+   and mixtral smoke configs from one seed on the CPU and on the card —
+   logits within 1e-4, greedy tokens identical, mixtral's routed ids and
+   keep flags of every MoE dispatch identical (an id may differ only at
+   a near-tie of the CPU's probabilities, within 1e-5);
 10. hltrain: fleet Hybrid Learning training (Algorithm 1).  (a) The
    deployment (65,536 cells, n_max 5, ``full``, shared cloud and edge,
    4 cells per edge) trained through ``rl_train --fleet`` for 4 epochs
@@ -211,6 +221,7 @@ Any failed check raises, so the exit code is non-zero.  Ends with the
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import io
 import json
@@ -994,6 +1005,8 @@ FLASH_SHAPES = (
     ("h2o-danube-3-4b", 1, 8192, 32, 8, 120, 4096, "float32"),
     ("zamba2-1.2b_shared", 4, 2048, 32, 32, 64, 4096, "float32"),
     ("h2o-danube-3-4b_bf16", 1, 8192, 32, 8, 120, 4096, "bfloat16"),
+    ("mistral-nemo-12b", 4, 2048, 32, 8, 128, 0, "float32"),
+    ("nemotron-4-15b", 4, 2048, 48, 8, 128, 0, "float32"),
 )
 # (name, B, S, H, N, dtype): rwkv6-1.6b's prefill, a ragged S, bf16
 WKV_SHAPES = (
@@ -1315,7 +1328,7 @@ def profile_lm(torch, run, rep: dict, steps: int = 2) -> dict:
     kernels = [k for k, n in expected_launches(cfg).items() if n]
     with torch.inference_mode():
         pre, (logits, cache) = _device_time(torch, lambda: tf.prefill(
-            params, cfg, tokens, max_len=LM_PROMPT + steps + 1),
+            params, cfg, tokens, max_len=tokens.shape[1] + steps + 1),
             [DEVICE_NAMES[k] for k in kernels])
         tok0 = torch.argmax(logits, dim=-1).to(torch.int32)
         pos0 = cache["pos"]
@@ -1344,64 +1357,237 @@ def profile_lm(torch, run, rep: dict, steps: int = 2) -> dict:
 
 
 def expected_launches(cfg) -> dict:
-    """LM kernel launches of one prefill of ``cfg``: flash per attn block
-    and per application of the shared block, WKV6 per rwkv6 block, SSD
-    per mamba2 block."""
+    """LM kernel launches of one prefill of ``cfg``: flash per attn and
+    moe block and per application of the shared block, WKV6 per rwkv6
+    block, SSD per mamba2 block."""
     from repro_torch.models import transformer as tf
     kinds = cfg.block_kinds()
-    return {"flash_attention": kinds.count("attn")
+    return {"flash_attention": kinds.count("attn") + kinds.count("moe")
             + tf.n_shared_applications(cfg),
             "wkv6": kinds.count("rwkv6"), "ssd": kinds.count("mamba2")}
 
 
+# the LM serving runs at full width: (label, arch, config overrides,
+# prompt length, sequences per teacher-forced forward; None: no forward
+# check).  mixtral runs 8 of its 32 layers (47.5 GB of the 187 GB in
+# f32), at the published capacity factor and dropless; the serving
+# invariant holds only dropless (tests/test_models_consistency.py:16-20),
+# since prefill and forward drop different tokens.  nemotron's forward
+# runs one sequence at a time (62.5 GB of weights).  danube's prompt
+# passes its 4,096-token window, so its KV ring wraps.
+MIXTRAL_LAYERS, MIXTRAL_DROPLESS_CF = 8, 8.0
+LM_RUNS = (
+    ("yi-6b", "yi-6b", {}, LM_PROMPT, LM_BATCH),
+    ("rwkv6-1.6b", "rwkv6-1.6b", {}, LM_PROMPT, LM_BATCH),
+    ("zamba2-1.2b", "zamba2-1.2b", {}, LM_PROMPT, LM_BATCH),
+    ("mistral-nemo-12b", "mistral-nemo-12b", {}, LM_PROMPT, LM_BATCH),
+    ("nemotron-4-15b", "nemotron-4-15b", {}, LM_PROMPT, 1),
+    ("h2o-danube-3-4b", "h2o-danube-3-4b", {}, 4096 + 512, LM_BATCH),
+    ("mixtral-8x7b_L8", "mixtral-8x7b", {"n_layers": MIXTRAL_LAYERS},
+     LM_PROMPT, None),
+    ("mixtral-8x7b_L8_dropless", "mixtral-8x7b",
+     {"n_layers": MIXTRAL_LAYERS, "capacity_factor": MIXTRAL_DROPLESS_CF},
+     LM_PROMPT, LM_BATCH),
+)
+
+
+def lm_config(arch: str, overrides: dict):
+    """The registry's config with ``overrides`` (``capacity_factor`` goes
+    into its MoE config)."""
+    from repro_torch.configs import get_config
+    kw = dict(overrides)
+    if "capacity_factor" in kw:
+        moe = get_config(arch).moe
+        kw["moe"] = dataclasses.replace(
+            moe, capacity_factor=kw.pop("capacity_factor"))
+    return get_config(arch, **kw)
+
+
+@contextlib.contextmanager
+def recording_routes(record: list):
+    """Keep every MoE dispatch's ``Routing`` (``repro_torch.models.moe.
+    route``, which ``apply_moe`` calls), in call order."""
+    from repro_torch.models import moe
+    route = moe.route
+
+    def recorded(*args, **kw):
+        r = route(*args, **kw)
+        record.append(r)
+        return r
+    moe.route = recorded
+    try:
+        yield record
+    finally:
+        moe.route = route
+
+
+def drop_counts(routes: list, n_moe: int) -> dict:
+    """A generation's dispatches, the prefill's ``n_moe`` first (one per
+    moe block): the (token, slot) pairs the prefill dropped past
+    capacity, of B·S·k a layer, and whether every decode step kept every
+    pair."""
+    pre, dec = routes[:n_moe], routes[n_moe:]
+    dropped = [int((~r.keep).sum()) for r in pre]
+    pairs = [r.keep.numel() for r in pre]
+    return dict(prefill_calls=len(pre), prefill_dropped=dropped,
+                prefill_pairs_per_call=pairs[0] if pairs else 0,
+                prefill_dropped_share=sum(dropped) / max(1, sum(pairs)),
+                prefill_capacity=pre[0].capacity if pre else None,
+                decode_calls=len(dec),
+                decode_dropless=all(bool(r.keep.all()) for r in dec))
+
+
+def decode_bound(run, prompt: int) -> dict:
+    """The least time of the run's last decode step: every weight read
+    once (of an untied embedding table, only the batch's rows), the KV
+    rings' valid entries read, recurrent states read and written once,
+    at 3.35 TB/s."""
+    cfg, params = run.cfg, run.params
+    size = lambda t: t.numel() * t.element_size()
+    weights = sum(size(p) for p in params.parameters())
+    if not cfg.tie_embeddings:
+        tok = params.embed["tok"]
+        weights -= size(tok) - LM_BATCH * tok.shape[1] * tok.element_size()
+    state = 0
+    for c in run.result.cache["layers"] + run.result.cache.get("shared", []):
+        for name, t in c.items():
+            if name in ("k", "v"):
+                valid = min(prompt + LM_GEN - 1, t.shape[1])
+                state += size(t) * valid // t.shape[1]
+            else:
+                state += 2 * size(t)
+    return dict(decode_bound_ms=bound_ms(weights + state),
+                decode_weight_bytes=weights, decode_state_bytes=state)
+
+
+def lm_forward_check(torch, run, per: int) -> dict:
+    """The serving invariant: teacher-forced logits over prompt +
+    generated tokens against the prefill and decode logits, ``per``
+    sequences a forward call."""
+    from repro_torch.models import transformer as tf
+    res, prompt = run.result, run.prompt["tokens"]
+    seq = torch.cat([prompt, res.tokens[:, :-1]], dim=1)
+    errs, first, aux = [], [], []
+    with torch.inference_mode():
+        for lo in range(0, seq.shape[0], per):
+            full, a = tf.forward(run.params, run.cfg, seq[lo:lo + per])
+            ref = full[:, prompt.shape[1] - 1:]
+            got = res.logits[lo:lo + per]
+            check(ref.shape == got.shape, "logit shapes agree")
+            errs.append(float((ref - got).abs().max()))
+            # the first token's logits come from the prefill, the rest
+            # from decode steps: where the two paths part, and on what
+            # scale
+            first.append(float((ref[:, 0] - got[:, 0]).abs().max()))
+            aux.append(float(a))
+            del full, ref
+    return dict(forward_max_abs_err=max(errs),
+                forward_max_abs_err_prefill_token=max(first),
+                forward_aux_loss=aux, forward_sequences_per_call=per)
+
+
 def phase_lm_serve(torch) -> dict:
     from repro_torch.launch import serve
-    from repro_torch.models import transformer as tf
     out = {}
-    for arch in ("yi-6b", "rwkv6-1.6b", "zamba2-1.2b"):
+    for label, arch, overrides, prompt, per in LM_RUNS:
         torch.cuda.reset_peak_memory_stats()
         reset_all_counts()
-        run = serve.serve(arch, batch=LM_BATCH, prompt_len=LM_PROMPT,
-                          gen=LM_GEN, device="cuda", verbose=False)
+        kw = dict(batch=LM_BATCH, prompt_len=prompt, gen=LM_GEN,
+                  device="cuda", verbose=False)
+        routes = []
+        with recording_routes(routes):
+            run = (serve.serve_config(lm_config(arch, overrides), **kw)
+                   if overrides else serve.serve(arch, **kw))
         counts = all_counts()
         expect = expected_launches(run.cfg)
         for kernel, n in expect.items():
-            check(counts[kernel] == n, f"{arch}: {kernel} launched {n} "
+            check(counts[kernel] == n, f"{label}: {kernel} launched {n} "
                   f"times in the prefill (counted {counts[kernel]})")
         launches = {k: counts[k] for k, n in expect.items() if n}
-        # the serving invariant: teacher-forced logits over prompt +
-        # generated tokens match the prefill and decode logits
         res = run.result
-        seq = torch.cat([run.prompt["tokens"], res.tokens[:, :-1]], dim=1)
-        with torch.inference_mode():
-            full, _ = tf.forward(run.params, run.cfg, seq)
-        ref = full[:, LM_PROMPT - 1:]
-        check(ref.shape == res.logits.shape, "logit shapes agree")
-        fwd_err = float((ref - res.logits).abs().max())
-        # the first token's logits come from the prefill, the rest from
-        # decode steps: where the two paths part, and on what scale
-        prefill_err = float((ref[:, 0] - res.logits[:, 0]).abs().max())
-        check(bool(torch.isfinite(res.logits).all()), f"{arch} finite")
-        check(fwd_err <= 1e-3, f"{arch}: forward matches prefill + decode "
-              f"logits within 1e-3 ({fwd_err})")
+        check(bool(torch.isfinite(res.logits).all()), f"{label} finite")
+        check(res.logits.shape == (LM_BATCH, LM_GEN, run.cfg.vocab_size),
+              f"{label}: logits of every generated token")
+        extra = {}
+        if per is not None:
+            extra = lm_forward_check(torch, run, per)
+            check(extra["forward_max_abs_err"] <= 1e-3,
+                  f"{label}: forward matches prefill + decode logits "
+                  f"within 1e-3 ({extra['forward_max_abs_err']})")
+        n_moe = run.cfg.block_kinds().count("moe")
+        if n_moe:
+            extra["moe"] = dict(drop_counts(routes, n_moe),
+                                capacity_factor=run.cfg.moe.capacity_factor)
+            check(extra["moe"]["prefill_calls"] == n_moe
+                  and extra["moe"]["decode_calls"] == n_moe * (LM_GEN - 1),
+                  f"{label}: one dispatch per moe block and step")
+            check(extra["moe"]["decode_dropless"],
+                  f"{label}: decode dispatch drops nothing")
+        del routes
+        ring = res.cache["layers"][0].get("k")
+        if ring is not None:
+            extra["kv_ring"] = dict(capacity=ring.shape[1],
+                                    wrapped=prompt > ring.shape[1])
+        if run.cfg.sliding_window and prompt > run.cfg.sliding_window:
+            check(ring.shape[1] == run.cfg.sliding_window,
+                  f"{label}: the prompt of {prompt} wraps the "
+                  f"{run.cfg.sliding_window}-slot ring")
         rep = run.report
         prof = profile_lm(torch, run, rep)
-        out[arch] = dict(
-            params=rep["params"], batch=LM_BATCH, prompt=LM_PROMPT,
-            gen=LM_GEN, prefill_ms=rep["prefill_ms"],
+        out[label] = dict(
+            arch=arch, overrides=overrides, params=rep["params"],
+            batch=LM_BATCH, prompt=prompt, gen=LM_GEN,
+            prefill_ms=rep["prefill_ms"],
             decode_ms_per_token=rep["decode_ms_per_token"],
             tokens_per_s=rep["tokens_per_s"],
             decode_tokens_per_s=rep["decode_tokens_per_s"],
             launches=launches, launches_per_prefill=launches,
-            forward_max_abs_err=fwd_err,
-            forward_max_abs_err_prefill_token=prefill_err,
+            **decode_bound(run, prompt), **extra,
             max_abs_logit=float(res.logits.abs().max()),
             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
             profile=prof, sample=rep["tokens"][0][:8])
-        del run, res, full, ref, seq
+        print(json.dumps({"lm_run": label, **{
+            k: out[label][k] for k in (
+                "prefill_ms", "decode_ms_per_token", "tokens_per_s",
+                "peak_mem_gb", "launches", "decode_bound_ms")},
+            "forward_max_abs_err": extra.get("forward_max_abs_err"),
+            "busy_share": {k: prof[k]["busy_share"]
+                           for k in ("prefill", "decode_per_token")}}),
+            flush=True)
+        del run, res, ring
         torch.cuda.empty_cache()
     emit("lm_serve", **out)
     return out
+
+
+def routes_parity(torch, cpu: list, gpu: list) -> dict:
+    """Every MoE dispatch of a generation on the CPU against the card's,
+    call by call: keep flags identical, and routed ids identical but for
+    tokens whose CPU probabilities hold a near-tie among the top k + 1
+    (adjacent gap <= 1e-5).  Returns the count of tokens whose ids
+    differ, the largest of their gaps, and the smallest gap between the
+    k-th and (k+1)-th probability over every routed token."""
+    check(len(cpu) == len(gpu), "as many MoE dispatches on CPU and card")
+    n_diff, gaps, kth = 0, [], []
+    for rc, rg in zip(cpu, gpu):
+        check(rc.capacity == rg.capacity, "capacities agree")
+        k = rc.ids.shape[-1]
+        top = torch.sort(rc.probs, dim=-1, descending=True).values
+        kth.append(float((top[..., k - 1] - top[..., k]).min()))
+        differ = (rc.ids != rg.ids.cpu()).any(-1)
+        n_diff += int(differ.sum())
+        if differ.any():
+            near = top[differ][:, :k + 1]
+            gaps.append(float((near[:, :-1] - near[:, 1:]).min(-1).values
+                              .max()))
+        check(torch.equal(rc.keep, rg.keep.cpu()) or bool(differ.any()),
+              "keep flags identical on CPU and card")
+    gap = max(gaps) if gaps else None
+    check(gap is None or gap <= 1e-5, f"routed ids differ only at near-ties "
+          f"(largest gap {gap})")
+    return dict(dispatches=len(cpu), tokens_with_ids_differing=n_diff,
+                largest_gap_where_ids_differ=gap,
+                smallest_kth_gap=min(kth))
 
 
 def phase_lm_parity(torch) -> None:
@@ -1412,17 +1598,21 @@ def phase_lm_parity(torch) -> None:
     from repro_torch.models import transformer as tf
     from repro_torch.serving.engine import generate
     out = {}
-    for arch in ("yi-6b", "h2o-danube-3-4b", "rwkv6-1.6b", "zamba2-1.2b"):
+    for arch in ("yi-6b", "h2o-danube-3-4b", "rwkv6-1.6b", "zamba2-1.2b",
+                 "mistral-nemo-12b", "nemotron-4-15b", "mixtral-8x7b"):
         cfg = get_smoke_config(arch)
         cpu_params = tf.init_params(cfg, seed=SEED, device="cpu")
         gpu_params = copy.deepcopy(cpu_params).to("cuda")
-        # 40 tokens: past the danube and zamba2 smoke windows (32), so
-        # the rings wrap
+        # 40 tokens: past the danube, zamba2 and mixtral smoke windows
+        # (32), so the rings wrap
         prompt = make_batch(cfg, rnd.PRNGKey(SEED, "cpu"), 2, 40,
                             with_labels=False)
-        cpu = generate(cpu_params, cfg, prompt, steps=8)
-        gpu = generate(gpu_params, cfg,
-                       {"tokens": prompt["tokens"].to("cuda")}, steps=8)
+        cpu_routes, gpu_routes = [], []
+        with recording_routes(cpu_routes):
+            cpu = generate(cpu_params, cfg, prompt, steps=8)
+        with recording_routes(gpu_routes):
+            gpu = generate(gpu_params, cfg,
+                           {"tokens": prompt["tokens"].to("cuda")}, steps=8)
         err = float((cpu.logits - gpu.logits.cpu()).abs().max())
         check(err <= 1e-4, f"{arch}: CPU and card logits within 1e-4 "
               f"({err})")
@@ -1430,6 +1620,12 @@ def phase_lm_parity(torch) -> None:
               f"{arch}: greedy tokens identical on CPU and card")
         out[arch] = dict(max_abs_logit_err=err,
                          tokens=gpu.tokens[0].tolist())
+        if cfg.moe is not None:
+            out[arch]["moe"] = dict(
+                routes_parity(torch, cpu_routes, gpu_routes),
+                prefill_dropped=drop_counts(
+                    cpu_routes, cfg.block_kinds().count("moe"))[
+                        "prefill_dropped"])
     emit("lm_parity", **out)
 
 

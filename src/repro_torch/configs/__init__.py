@@ -1,8 +1,8 @@
 """Architecture registry of the port: ``--arch <id>`` → ModelConfig.
 
 The same ids as the reference's ``repro.configs``.  The port runs the
-architectures whose blocks it has (``attn``, ``rwkv6`` and ``mamba2``
-with zamba2's shared attention block); the others
+architectures whose blocks it has (``attn``, ``moe``, ``rwkv6`` and
+``mamba2`` with zamba2's shared attention block); the others
 raise ``NotImplementedError`` naming the work in ``ROADMAP.md`` that
 ports them.  Each ported architecture has its own module with
 ``config()`` (the published hyper-parameters) and ``smoke_config()`` (a
@@ -31,9 +31,6 @@ ARCH_IDS = (
 # what each architecture not yet ported still needs (ROADMAP.md queue 1
 # item 10 lists these slices in order)
 _LATER = {
-    "mistral-nemo-12b": "the remaining dense configs",
-    "nemotron-4-15b": "the remaining dense configs",
-    "mixtral-8x7b": "the MoE slice",
     "qwen2-vl-7b": "the M-RoPE and patch-embedding slice",
     "musicgen-medium": "the multi-codebook slice",
     "deepseek-v2-236b": "the MLA + MoE slice",

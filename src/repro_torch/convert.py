@@ -120,7 +120,9 @@ def lm_params(params, cfg: ModelConfig, device="cuda") -> tf.LM:
     ``segments``, each a dict of arrays with a leading layer axis, and
     zamba2's ``shared_block``) as the port's
     :class:`~repro_torch.models.transformer.LM`: every segment is
-    unstacked into one block module per layer, in order."""
+    unstacked into one block module per layer, in order, each array in
+    its own dtype (an ``moe`` segment's nested ``moe`` tree too, its
+    ``router`` float32 whatever the parameter dtype)."""
     tf.check_supported(cfg)
     dev = resolve_device(device)
     tensor = lambda a: torch.as_tensor(np.array(a), device=dev)

@@ -39,15 +39,21 @@ def device_name(dev: torch.device) -> str:
             else "CPU")
 
 
-def serve(arch: str = "yi-6b", *, smoke: bool = False, batch: int = 4,
-          prompt_len: int = 32, gen: int = 16, sample: str = "greedy",
-          temperature: float = 0.8, device="cuda",
-          verbose: bool = True) -> ServeRun:
-    """Build the model on ``device``, draw a prompt and generate ``gen``
-    tokens per sequence.  The report holds the timings (device
+def serve(arch: str = "yi-6b", *, smoke: bool = False, **kw) -> ServeRun:
+    """Serve ``arch``'s published config (or its smoke config): the CLI's
+    path; ``kw`` as :func:`serve_config`'s."""
+    return serve_config(get_smoke_config(arch) if smoke
+                        else get_config(arch), **kw)
+
+
+def serve_config(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 32,
+                 gen: int = 16, sample: str = "greedy",
+                 temperature: float = 0.8, device="cuda",
+                 verbose: bool = True) -> ServeRun:
+    """Build the model of ``cfg`` on ``device``, draw a prompt and generate
+    ``gen`` tokens per sequence.  The report holds the timings (device
     synchronised) and the generated tokens."""
     dev = resolve_device(device)
-    cfg = get_smoke_config(arch) if smoke else get_config(arch)
     if verbose:
         print(f"serving {cfg.name} ({cfg.num_params() / 1e6:.1f}M params) "
               f"on {device_name(dev)}", flush=True)

@@ -2,8 +2,8 @@
 counterpart).
 
 One ``ModelConfig`` describes every architecture family of the zoo; the
-port runs the ``attn``, ``rwkv6`` and ``mamba2`` block kinds and keeps
-the MoE and MLA sub-configs as plain data so that ``block_kinds`` and
+port runs the ``attn``, ``moe``, ``rwkv6`` and ``mamba2`` block kinds
+and keeps the MLA sub-config as plain data so that ``block_kinds`` and
 ``num_params`` agree with the reference for every architecture.  The
 reference's ``use_pallas`` switch and its three sharding specs have no
 meaning here and are left out: the tensor's device picks the kernel

@@ -36,6 +36,9 @@ class ParamTree(nn.Module):
     def __getitem__(self, name: str):
         return getattr(self, name)
 
+    def __contains__(self, name: str) -> bool:
+        return name in self._modules or name in self._parameters
+
 
 # ---------------------------------------------------------------------------
 # init helpers

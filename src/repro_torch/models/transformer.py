@@ -1,9 +1,10 @@
-"""The LM: attention, RWKV6 and Mamba2 blocks composed per config
-(``repro.models.transformer``'s counterpart for the ``attn``, ``rwkv6``
-and ``mamba2`` block kinds and zamba2's shared attention block).
+"""The LM: attention, MoE, RWKV6 and Mamba2 blocks composed per config
+(``repro.models.transformer``'s counterpart for the ``attn``, ``moe``,
+``rwkv6`` and ``mamba2`` block kinds and zamba2's shared attention
+block).
 
 Structure: an :class:`LM` module holds the embedding, one block module
-per layer (:class:`AttnBlock`, :class:`RWKV6Block` or
+per layer (:class:`AttnBlock`, :class:`MoEBlock`, :class:`RWKV6Block` or
 :class:`Mamba2Block`, parameters in the reference's ``(d_in, d_out)``
 layout and names), zamba2's one weight-shared ``shared_block`` (an
 :class:`AttnBlock` applied after every ``shared_attn_every`` layers,
@@ -18,10 +19,14 @@ Entry points, as in the reference:
   * ``decode_step``  — one token against the cache.
 
 Prefill runs every block's full-sequence path, which reaches the
-hand-written kernels: flash attention in every ``attn`` block and every
-application of the shared block, WKV6 in every ``rwkv6`` block, the SSD
-scan in every ``mamba2`` block (on CPU tensors their plain versions).
-Decode runs plain torch, as the reference does outside any kernel.
+hand-written kernels: flash attention in every ``attn`` and ``moe`` block
+and every application of the shared block, WKV6 in every ``rwkv6``
+block, the SSD scan in every ``mamba2`` block (on CPU tensors their
+plain versions).  Decode runs plain torch, as the reference does outside
+any kernel; so does the MoE's routing, dispatch and expert products
+(``repro_torch.models.moe``), which the reference computes outside any
+kernel too.  Decode dispatches MoE tokens dropless (``_dropless_cf``);
+prefill and forward at the config's capacity factor.
 
 Cache: ``{"pos": int, "layers": [per-layer dict]}`` plus, with a shared
 block, ``"shared": [per-application {"k", "v"}]``; KV caches are ring
@@ -40,12 +45,13 @@ from torch import nn
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as m2
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv6 as r6
 from repro_torch.models.attention import decode_attention
 from repro_torch.models.config import ModelConfig
 
-PORTED_KINDS = ("attn", "rwkv6", "mamba2")
-_LATER_KINDS = {"moe": "the MoE slice", "mla_dense": "the MLA + MoE slice",
+PORTED_KINDS = ("attn", "moe", "rwkv6", "mamba2")
+_LATER_KINDS = {"mla_dense": "the MLA + MoE slice",
                 "mla_moe": "the MLA + MoE slice"}
 
 
@@ -120,10 +126,17 @@ def _ring_from_prefill(k: torch.Tensor, cap: int) -> torch.Tensor:
     return out
 
 
+def _dropless_cf(cfg: ModelConfig):
+    """Capacity factor making decode dispatch dropless (capacity = T)."""
+    if cfg.moe is None:
+        return None
+    return cfg.moe.num_experts / cfg.moe.num_experts_per_tok
+
+
 class AttnBlock(L.ParamTree):
     """Attention + dense MLP: ``ln1``, ``attn`` {wq, wk, wv, wo}, ``ln2``,
     ``mlp``.  ``seq`` and ``decode`` are the reference's ``block_seq`` and
-    ``block_decode`` for this kind."""
+    ``block_decode`` for this kind; ``seq`` returns (x, cache, aux loss)."""
 
     def _qkv(self, x, cos, sin, cfg: ModelConfig):
         b, s, _ = x.shape
@@ -135,9 +148,10 @@ class AttnBlock(L.ParamTree):
         v = (h @ a["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
         return L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin), v
 
-    def _ffn(self, x, cfg: ModelConfig):
+    def _ffn(self, x, cfg: ModelConfig, capacity_factor=None):
+        """(x + FFN(ln2(x)), aux loss)."""
         h = L.rmsnorm(self["ln2"], x, cfg.norm_eps)
-        return x + L.apply_mlp(self["mlp"], h, cfg.mlp_kind)
+        return x + L.apply_mlp(self["mlp"], h, cfg.mlp_kind), 0.0
 
     def seq(self, x, ctx, return_cache: bool):
         cfg: ModelConfig = ctx["cfg"]
@@ -145,13 +159,13 @@ class AttnBlock(L.ParamTree):
         q, k, v = self._qkv(x, ctx["cos"], ctx["sin"], cfg)
         o = flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
         x = x + o.reshape(b, s, cfg.attn_out_dim) @ self["attn"]["wo"]
-        x = self._ffn(x, cfg)
+        x, aux = self._ffn(x, cfg)
         cache = None
         if return_cache:
             cap = ctx["cache_cap"]
             cache = {"k": _ring_from_prefill(k, cap),
                      "v": _ring_from_prefill(v, cap)}
-        return x, cache
+        return x, cache, aux
 
     def decode(self, x, cache, ctx):
         cfg: ModelConfig = ctx["cfg"]
@@ -166,7 +180,18 @@ class AttnBlock(L.ParamTree):
                  < min(pos + 1, cap))[None].expand(b, cap)
         o = decode_attention(q, cache["k"], cache["v"], valid)
         x = x + o.reshape(b, 1, cfg.attn_out_dim) @ self["attn"]["wo"]
-        return self._ffn(x, cfg), cache
+        return self._ffn(x, cfg, _dropless_cf(cfg))[0], cache
+
+
+class MoEBlock(AttnBlock):
+    """Attention + MoE FFN: ``ln1``, ``attn``, ``ln2``, ``moe`` (the
+    reference's ``"moe"`` kind); decode dispatches dropless."""
+
+    def _ffn(self, x, cfg: ModelConfig, capacity_factor=None):
+        h = L.rmsnorm(self["ln2"], x, cfg.norm_eps)
+        y, aux = moe_lib.apply_moe(self["moe"], h, cfg.moe,
+                                   capacity_factor=capacity_factor)
+        return x + y, aux
 
 
 class RWKV6Block(L.ParamTree):
@@ -184,7 +209,7 @@ class RWKV6Block(L.ParamTree):
         cache = None
         if return_cache:
             cache = {"x_tm": h1[:, -1], "x_cm": h2[:, -1], "wkv": wkv_state}
-        return x, cache
+        return x, cache, 0.0
 
     def decode(self, x, cache, ctx):
         cfg: ModelConfig = ctx["cfg"]
@@ -209,7 +234,7 @@ class Mamba2Block(L.ParamTree):
         y, (conv_tail, ssm) = m2.mamba2_forward(self["mamba"], h, cfg.mamba2,
                                                 cfg.norm_eps)
         cache = {"conv": conv_tail, "ssm": ssm} if return_cache else None
-        return x + y, cache
+        return x + y, cache, 0.0
 
     def decode(self, x, cache, ctx):
         cfg: ModelConfig = ctx["cfg"]
@@ -220,7 +245,8 @@ class Mamba2Block(L.ParamTree):
         return x + y, cache
 
 
-BLOCKS = {"attn": AttnBlock, "rwkv6": RWKV6Block, "mamba2": Mamba2Block}
+BLOCKS = {"attn": AttnBlock, "moe": MoEBlock, "rwkv6": RWKV6Block,
+          "mamba2": Mamba2Block}
 
 
 class LM(nn.Module):
@@ -260,17 +286,21 @@ class LM(nn.Module):
 def init_layer(gen: torch.Generator, kind: str, cfg: ModelConfig, device
                ) -> L.ParamTree:
     dt, d = cfg.param_torch_dtype, cfg.d_model
-    if kind == "attn":
+    if kind in ("attn", "moe"):
         hd = cfg.resolved_head_dim
         dense = lambda shape: L.dense_init(gen, shape, dt, device)
-        return AttnBlock({
-            "ln1": L.init_rmsnorm(d, dt, device),
-            "attn": {"wq": dense((d, cfg.n_heads * hd)),
-                     "wk": dense((d, cfg.n_kv_heads * hd)),
-                     "wv": dense((d, cfg.n_kv_heads * hd)),
-                     "wo": dense((cfg.n_heads * hd, d))},
-            "ln2": L.init_rmsnorm(d, dt, device),
-            "mlp": L.init_mlp(gen, d, cfg.d_ff, cfg.mlp_kind, dt, device)})
+        tree = {"ln1": L.init_rmsnorm(d, dt, device),
+                "attn": {"wq": dense((d, cfg.n_heads * hd)),
+                         "wk": dense((d, cfg.n_kv_heads * hd)),
+                         "wv": dense((d, cfg.n_kv_heads * hd)),
+                         "wo": dense((cfg.n_heads * hd, d))},
+                "ln2": L.init_rmsnorm(d, dt, device)}
+        if kind == "moe":
+            tree["moe"] = moe_lib.init_moe(gen, d, cfg.moe, dt, device)
+        else:
+            tree["mlp"] = L.init_mlp(gen, d, cfg.d_ff, cfg.mlp_kind, dt,
+                                     device)
+        return BLOCKS[kind](tree)
     if kind == "rwkv6":
         tree = r6.init_rwkv6(gen, d, cfg.d_ff, cfg.rwkv6, dt, device)
         tree["ln1"] = L.init_rmsnorm(d, dt, device)
@@ -329,13 +359,16 @@ def _ctx(cfg: ModelConfig, positions: torch.Tensor) -> dict:
 
 
 def forward(params: LM, cfg: ModelConfig, tokens):
-    """Teacher-forced logits.  tokens: (B, S) → (logits (B, S, V), aux
-    loss 0.0 — no MoE here)."""
+    """Teacher-forced logits.  tokens: (B, S) → (logits (B, S, V), the
+    MoE blocks' summed aux loss as a 0-d float32 tensor, 0 without
+    MoE)."""
     x = embed_inputs(params, cfg, tokens)
     ctx = _ctx(cfg, torch.arange(x.shape[1], device=x.device))
+    aux_total = torch.zeros((), device=x.device)
     for _, _, block in params.scheduled():
-        x, _ = block.seq(x, ctx, return_cache=False)
-    return lm_logits(params, cfg, x), 0.0
+        x, _, aux = block.seq(x, ctx, return_cache=False)
+        aux_total = aux_total + aux
+    return lm_logits(params, cfg, x), aux_total
 
 
 def cache_capacity(cfg: ModelConfig, max_len: int) -> int:
@@ -355,7 +388,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                     "v": zeros(batch, cap, cfg.n_kv_heads, hd)}
     layers = []
     for kind in cfg.block_kinds():
-        if kind == "attn":
+        if kind in ("attn", "moe"):
             layers.append(ring())
         elif kind == "mamba2":
             mc = cfg.mamba2
@@ -384,7 +417,7 @@ def prefill(params: LM, cfg: ModelConfig, tokens,
     ctx["cache_cap"] = cache_capacity(cfg, max_len or s)
     caches = {"layer": [], "shared": []}
     for kind, _, block in params.scheduled():
-        x, cache = block.seq(x, ctx, return_cache=True)
+        x, cache, _ = block.seq(x, ctx, return_cache=True)
         caches[kind].append(cache)
     logits = lm_logits(params, cfg, x[:, -1:])
     out = {"pos": s, "layers": caches["layer"]}

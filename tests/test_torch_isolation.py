@@ -48,7 +48,9 @@ def test_port_files_found():
                 "economy/__init__.py", "economy/tiers.py",
                 "economy/routing.py", "env/edge_cloud.py", "core/agent.py",
                 "core/baselines.py", "core/replay.py",
-                "core/orchestrator.py", "configs/mobilenet_pool.py"):
+                "core/orchestrator.py", "configs/mobilenet_pool.py",
+                "models/moe.py", "configs/mixtral_8x7b.py",
+                "configs/mistral_nemo_12b.py", "configs/nemotron_4_15b.py"):
         assert (PORT / rel) in FILES, rel
 
 

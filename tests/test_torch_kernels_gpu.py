@@ -294,6 +294,21 @@ def test_flash_kernel_bf16_and_strided(cuda):
                             want)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,kv,d", [(4, 2048, 32, 8, 128),
+                                        (4, 2048, 48, 8, 128)],
+                         ids=["mistral-nemo-12b", "nemotron-4-15b"])
+def test_flash_kernel_dense_serving_shapes(cuda, b, s, h, kv, d):
+    """mistral-nemo-12b's and nemotron-4-15b's prefill attention (f32,
+    causal, GQA 4:1 and 6:1), the plain version on the card beside."""
+    q, k, v = (t.to(cuda) for t in _flash_inputs(h, b, s, s, h, kv, d, d,
+                                                 torch.float32))
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    got = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    _assert_flash_close(got, want.cpu())
+
+
 def _wkv_inputs(seed, b, s, h, n, decay_scale=1.0):
     rng = np.random.default_rng(seed)
     mk = lambda *sh: rng.standard_normal(sh).astype(np.float32)

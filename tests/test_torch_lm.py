@@ -1,12 +1,15 @@
 """The port's LM serving path against the JAX reference on the CPU.
 
-At the yi, h2o-danube, rwkv6 and zamba2 smoke configs, with the
-reference's weights carried across by ``convert.lm_params``: prefill and
-decode logits within 1e-4 of the reference's (the bar of
-``tests/test_models_consistency.py``), the ring cache past the window,
-several decode steps against the teacher-forced forward, greedy and
-categorical generation token for token, ``make_batch`` prompts, the
-configs, and the serving CLI.
+At the yi, h2o-danube, rwkv6, zamba2, mistral-nemo, nemotron and
+mixtral smoke configs, with the reference's weights carried across by
+``convert.lm_params``: prefill and decode logits within 1e-4 of the
+reference's (the bar of ``tests/test_models_consistency.py``, which holds
+MoE configs to it dropless), the forward's aux loss within 1e-6, the ring
+cache past the window (danube, and mixtral dropless), several decode
+steps against the teacher-forced forward, greedy and categorical
+generation token for token (mixtral at its published capacity factor,
+whose prefill drops tokens), ``make_batch`` prompts, the configs, and
+the serving CLI.
 """
 import dataclasses
 import json
@@ -29,12 +32,22 @@ from repro_torch.launch import serve
 from repro_torch.models import config as port_config
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as tf
-from repro_torch.models.config import ModelConfig, MoEConfig
+from repro_torch.models.config import MLAConfig, ModelConfig, MoEConfig
 from repro_torch.serving.engine import generate
 
 CPU = torch.device("cpu")
-PORTED = ("yi-6b", "h2o-danube-3-4b", "rwkv6-1.6b", "zamba2-1.2b")
+PORTED = ("yi-6b", "h2o-danube-3-4b", "rwkv6-1.6b", "zamba2-1.2b",
+          "mistral-nemo-12b", "nemotron-4-15b", "mixtral-8x7b")
 TOL = 1e-4
+
+
+def _dropless(cfg):
+    """``tests/test_models_consistency.py``'s: capacity_factor = E, so no
+    MoE dispatch drops a token (the weights do not depend on it)."""
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
 
 
 def _both(arch, seed=0):
@@ -57,6 +70,7 @@ def _err(a, b):
 @pytest.mark.parametrize("arch", PORTED)
 def test_prefill_and_decode_logits_match(arch):
     jcfg, jparams, cfg, params = _both(arch)
+    jcfg, cfg = _dropless(jcfg), _dropless(cfg)
     s = 33
     toks = _tokens(jcfg, 0, 2, s)
     t = torch.as_tensor(np.array(toks))
@@ -67,9 +81,11 @@ def test_prefill_and_decode_logits_match(arch):
     pd, cache = tf.decode_step(params, cfg, t[:, s - 1], cache)
     assert _err(jd, pd) < TOL
     assert cache["pos"] == s
-    full, _ = tf.forward(params, cfg, t)
-    jfull, _ = jtf.forward(jparams, jcfg, toks, remat=False)
+    full, aux = tf.forward(params, cfg, t)
+    jfull, jaux = jtf.forward(jparams, jcfg, toks, remat=False)
     assert _err(jfull, full) < TOL
+    assert aux.shape == () and abs(float(aux) - float(jaux)) <= 1e-6
+    assert (float(aux) > 0) == (cfg.moe is not None)
     assert float((full[:, s - 1] - pd).abs().max()) < TOL
 
 
@@ -116,7 +132,18 @@ def test_layers_match(kind):
 
 def test_ring_cache_past_the_window():
     """Decode once the danube ring buffer has wrapped (pos > window)."""
-    jcfg, jparams, cfg, params = _both("h2o-danube-3-4b", seed=1)
+    _ring_past_the_window("h2o-danube-3-4b")
+
+
+def test_moe_ring_cache_past_the_window_dropless():
+    """The same for mixtral, dropless as
+    ``tests/test_models_consistency.py`` runs it."""
+    _ring_past_the_window("mixtral-8x7b")
+
+
+def _ring_past_the_window(arch):
+    jcfg, jparams, cfg, params = _both(arch, seed=1)
+    jcfg, cfg = _dropless(jcfg), _dropless(cfg)
     s = cfg.sliding_window + 17
     toks = _tokens(jcfg, 1, 2, s)
     t = torch.as_tensor(np.array(toks))
@@ -201,9 +228,10 @@ def test_other_archs_raise_naming_the_roadmap():
             get_smoke_config(arch)
     with pytest.raises(KeyError):
         get_config("gpt-2")
-    moe = ModelConfig(name="moe-tiny", moe=MoEConfig(num_experts=4))
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        tf.init_params(moe, device=CPU)
+    mla = ModelConfig(name="mla-tiny", moe=MoEConfig(num_experts=4),
+                      mla=MLAConfig())
+    with pytest.raises(NotImplementedError, match="MLA \\+ MoE slice"):
+        tf.init_params(mla, device=CPU)
 
 
 def _port_cfg(jc):
