@@ -58,12 +58,16 @@ CUDA toolkit's nvcc.  Phases, each printing one JSON line:
    plain versions on the card at the LM serving shapes (yi-6b f32 and
    bf16, h2o-danube's window and head_dim 120 in f32 and bf16,
    zamba2-1.2b's shared block, mistral-nemo-12b's H 32 / KV 8 and
-   nemotron-4-15b's H 48 / KV 8 at D 128; rwkv6-1.6b's WKV6, also at a ragged S and
+   nemotron-4-15b's H 48 / KV 8 at D 128, deepseek-v2-236b's MLA prefill
+   at H = KV = 128, Dk 192, Dv 128 (the f32 kernel's D > 128 tiling) and
+   qwen2-vl-7b's 3,072 positions (1,024 patches and 2,048 text) at H 28 /
+   KV 4; rwkv6-1.6b's WKV6, also at a ragged S and
    in bf16, against its plain version in float64, with its kernels'
    ptxas registers and spills; zamba2-1.2b's Mamba2 scan, also at a
    ragged S and at G = 2; bf16 flash also row by row, each (query, head)
    row within 1e-2 of the plain row's norm), timed like phase 3 beside
-   one ``F.scaled_dot_product_attention`` call for attention, with their
+   one ``F.scaled_dot_product_attention`` call for attention (should its
+   backend refuse a shape, the refusal is recorded instead), with their
    bound (operations at the data-sheet peak of what runs them, or bytes
    at 3.35 TB/s, whichever is larger: the f32 flash kernel's three TF32
    products at the TF32 peak, with its FP32 CUDA-core bound beside; bf16
@@ -76,24 +80,31 @@ CUDA toolkit's nvcc.  Phases, each printing one JSON line:
 8. lm_serve: ``repro_torch.launch.serve`` at full width — yi-6b,
    rwkv6-1.6b, zamba2-1.2b, mistral-nemo-12b and nemotron-4-15b at
    prompt 2048, h2o-danube-3-4b at prompt 4,608 (past its 4,096-token
-   window, so the KV ring wraps), and mixtral-8x7b at 8 of its 32 layers
-   through ``serve_config`` (the registry's ``n_layers`` override) at
-   the published capacity factor 1.25 and dropless (8.0); weights from a
+   window, so the KV ring wraps), mixtral-8x7b at 8 of its 32 layers and
+   deepseek-v2-236b at 3 of its 60 (its dense first layer and two MLA +
+   MoE layers) through ``serve_config`` (the registry's ``n_layers``
+   override), each at the published capacity factor 1.25 and dropless
+   (deepseek's dropless run one sequence), and qwen2-vl-7b with 1,024
+   patch positions before its 2,048 text tokens; weights from a
    ``torch.Generator`` on the card, batch 4, 32 greedy tokens — with
    launch counts read around each run (each kernel launched as often as
-   the config's blocks call it in one prefill: flash once per attn and
-   moe block and per application of zamba2's shared block, WKV6 once per
-   rwkv6 block, SSD once per mamba2 block, the others not at all), the
-   decode's byte bound, mixtral's dropped share of the prefill's (token,
-   slot) pairs and a dropless decode, and the serving invariant: a
-   teacher-forced forward over prompt + generated tokens matches the
-   prefill and decode logits within 1e-3 (nemotron's forward one
-   sequence at a time; mixtral's dropless only, the reference's rule);
-9. lm_parity: the yi, h2o-danube, rwkv6, zamba2, mistral-nemo, nemotron
-   and mixtral smoke configs from one seed on the CPU and on the card —
-   logits within 1e-4, greedy tokens identical, mixtral's routed ids and
-   keep flags of every MoE dispatch identical (an id may differ only at
-   a near-tie of the CPU's probabilities, within 1e-5);
+   the config's blocks call it in one prefill: flash once per attn, moe,
+   mla_dense and mla_moe block and per application of zamba2's shared
+   block, WKV6 once per rwkv6 block, SSD once per mamba2 block, the
+   others not at all), the decode's byte bound, the MoE runs' dropped
+   share of the prefill's (token, slot) pairs and a dropless decode, and
+   the serving invariant: a teacher-forced forward over prompt +
+   generated tokens matches the prefill and decode logits within 1e-3
+   (nemotron's and deepseek's forward one sequence at a time; the MoE
+   runs' dropless only, the reference's rule; qwen2-vl's with its own
+   prefill, whose cache covers patches, text and generated tokens and
+   whose decode steps get the forward's M-RoPE positions);
+9. lm_parity: the yi, h2o-danube, rwkv6, zamba2, mistral-nemo, nemotron,
+   mixtral, deepseek-v2 and qwen2-vl (its patch embeds and positions
+   too) smoke configs from one seed on the CPU and on the card — logits
+   within 1e-4, greedy tokens identical, the MoE configs' routed ids and
+   keep flags of every dispatch identical (an id may differ only at a
+   near-tie of the CPU's probabilities, within 1e-5);
 10. hltrain: fleet Hybrid Learning training (Algorithm 1).  (a) The
    deployment (65,536 cells, n_max 5, ``full``, shared cloud and edge,
    4 cells per edge) trained through ``rl_train --fleet`` for 4 epochs
@@ -998,15 +1009,19 @@ def phase_round_replay(torch) -> dict:
 
 
 # ------------------------------------------------------------- LM phases
-# (name, B, S, H, KV, D, window, dtype): the LM serving shapes
+# (name, B, S, H, KV, D, Dv, window, dtype): the LM serving shapes;
+# deepseek-v2-236b's MLA prefill attends with Dk 192 (nope 128 + rope 64)
+# and Dv 128, qwen2-vl-7b's over 2,048 text and 1,024 patch positions
 FLASH_SHAPES = (
-    ("yi-6b", 4, 2048, 32, 4, 128, 0, "float32"),
-    ("yi-6b_bf16", 4, 2048, 32, 4, 128, 0, "bfloat16"),
-    ("h2o-danube-3-4b", 1, 8192, 32, 8, 120, 4096, "float32"),
-    ("zamba2-1.2b_shared", 4, 2048, 32, 32, 64, 4096, "float32"),
-    ("h2o-danube-3-4b_bf16", 1, 8192, 32, 8, 120, 4096, "bfloat16"),
-    ("mistral-nemo-12b", 4, 2048, 32, 8, 128, 0, "float32"),
-    ("nemotron-4-15b", 4, 2048, 48, 8, 128, 0, "float32"),
+    ("yi-6b", 4, 2048, 32, 4, 128, 128, 0, "float32"),
+    ("yi-6b_bf16", 4, 2048, 32, 4, 128, 128, 0, "bfloat16"),
+    ("h2o-danube-3-4b", 1, 8192, 32, 8, 120, 120, 4096, "float32"),
+    ("zamba2-1.2b_shared", 4, 2048, 32, 32, 64, 64, 4096, "float32"),
+    ("h2o-danube-3-4b_bf16", 1, 8192, 32, 8, 120, 120, 4096, "bfloat16"),
+    ("mistral-nemo-12b", 4, 2048, 32, 8, 128, 128, 0, "float32"),
+    ("nemotron-4-15b", 4, 2048, 48, 8, 128, 128, 0, "float32"),
+    ("deepseek-v2-236b_mla", 4, 2048, 128, 128, 192, 128, 0, "float32"),
+    ("qwen2-vl-7b", 4, 3072, 28, 4, 128, 128, 0, "float32"),
 )
 # (name, B, S, H, N, dtype): rwkv6-1.6b's prefill, a ragged S, bf16
 WKV_SHAPES = (
@@ -1085,10 +1100,10 @@ def phase_lm_kernels(torch, dev, ptxas: dict) -> dict:
         check(bool(found), f"cuobjdump lists an instance of {inst}")
         for fn, ops in found.items():
             check(ops[key] > 0, f"{fn} runs {key} on the tensor cores")
-    for name, b, s, h, kv, d, window, dt in FLASH_SHAPES:
+    for name, b, s, h, kv, d, dv, window, dt in FLASH_SHAPES:
         dtype = getattr(torch, dt)
-        q, k, v = (torch.randn(b, s, n, d, generator=g, device=dev)
-                   .to(dtype) for n in (h, kv, kv))
+        q, k, v = (torch.randn(b, s, n, w, generator=g, device=dev)
+                   .to(dtype) for n, w in ((h, d), (kv, d), (kv, dv)))
         got = fa.flash_attention(q, k, v, causal=True, window=window)
         want = fa.flash_attention_plain(q, k, v, causal=True, window=window)
         torch.cuda.synchronize()
@@ -1118,17 +1133,25 @@ def phase_lm_kernels(torch, dev, ptxas: dict) -> dict:
         lib = lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, is_causal=mask is None,
             enable_gqa=True)
-        lib_err = float((lib().transpose(1, 2).float()
-                         - want.float()).abs().max())
+        # SDPA takes Dv != D; should the backend it picks refuse a shape,
+        # the refusal is recorded in place of its time
+        try:
+            lib_err = float((lib().transpose(1, 2).float()
+                             - want.float()).abs().max())
+            library, lib_refused = cuda_ms(torch, lib, iters=10), None
+        except RuntimeError as e:
+            lib_err, library = None, dict(ms=None, call_ms=None,
+                                          blocker_held=True)
+            lib_refused = str(e).splitlines()[0][:300]
         kern = cuda_ms(torch, lambda: fa.flash_attention(
             q, k, v, causal=True, window=window), iters=10)
         plain = cuda_ms(torch, lambda: fa.flash_attention_plain(
             q, k, v, causal=True, window=window), iters=3, warmup=1)
-        library = cuda_ms(torch, lib, iters=10)
         pairs = b * h * visible_pairs(s, window)
         size = q.element_size()
-        n_bytes = size * (2 * b * s * h * d + 2 * b * s * kv * d)
-        flops = 4 * d * pairs
+        # q and k read, v read, o written once each
+        n_bytes = size * b * s * (h * d + kv * d + kv * dv + h * dv)
+        flops = 2 * (d + dv) * pairs
         # f32: three TF32 products per product (3xTF32) at the TF32 peak,
         # the FP32 CUDA-core bound of the same function beside
         bound = (roofline(n_bytes, 3 * flops, PEAK_TF32)
@@ -1149,9 +1172,11 @@ def phase_lm_kernels(torch, dev, ptxas: dict) -> dict:
                 k: v for k, v in sass.items() if inst in k},
             call_ms=kern["call_ms"], plain_call_ms=plain["call_ms"],
             library_call_ms=library["call_ms"], library_max_abs_err=lib_err,
+            library_refused=lib_refused,
             blocker_held=kern["blocker_held"] and library["blocker_held"],
-            shape=dict(B=b, S=s, H=h, KV=kv, D=d, window=window, dtype=dt,
-                       visible_pairs=pairs))
+            shape=dict(B=b, S=s, H=h, KV=kv, D=d, Dv=dv, window=window,
+                       dtype=dt, visible_pairs=pairs))
+        del q, k, v, got, want, qt, kt, vt
     wkv_ptxas = {k: v for k, v in ptxas.items() if "wkv6_kernel" in k}
     for name, b, s, h, n, dt in WKV_SHAPES:
         out[name] = dict(wkv6_entry(torch, dev, b=b, s=s, h=h, n=n, dt=dt),
@@ -1320,15 +1345,16 @@ def _device_time(torch, fn, matches=(), before=None) -> tuple[dict, object]:
 
 def profile_lm(torch, run, rep: dict, steps: int = 2) -> dict:
     """Device time of one more prefill and ``steps`` decode steps of the
-    run's model and prompt, against the unprofiled run's wall times."""
-    from repro_torch.models import transformer as tf
-    from repro_torch.serving.engine import make_serve_step
+    run's model and prompt (patch embeds and positions included), against
+    the unprofiled run's wall times."""
+    from repro_torch.serving.engine import make_prefill, make_serve_step
     cfg, params, tokens = run.cfg, run.params, run.prompt["tokens"]
     step = make_serve_step(cfg)
+    prefill = make_prefill(cfg)
     kernels = [k for k, n in expected_launches(cfg).items() if n]
     with torch.inference_mode():
-        pre, (logits, cache) = _device_time(torch, lambda: tf.prefill(
-            params, cfg, tokens, max_len=tokens.shape[1] + steps + 1),
+        pre, (logits, cache) = _device_time(torch, lambda: prefill(
+            params, run.prompt, tokens.shape[1] + steps + 1),
             [DEVICE_NAMES[k] for k in kernels])
         tok0 = torch.argmax(logits, dim=-1).to(torch.int32)
         pos0 = cache["pos"]
@@ -1357,37 +1383,58 @@ def profile_lm(torch, run, rep: dict, steps: int = 2) -> dict:
 
 
 def expected_launches(cfg) -> dict:
-    """LM kernel launches of one prefill of ``cfg``: flash per attn and
-    moe block and per application of the shared block, WKV6 per rwkv6
-    block, SSD per mamba2 block."""
+    """LM kernel launches of one prefill of ``cfg``: flash per attn, moe,
+    mla_dense and mla_moe block and per application of the shared block,
+    WKV6 per rwkv6 block, SSD per mamba2 block."""
     from repro_torch.models import transformer as tf
     kinds = cfg.block_kinds()
-    return {"flash_attention": kinds.count("attn") + kinds.count("moe")
+    return {"flash_attention": sum(kinds.count(k) for k in (
+                "attn", "moe", "mla_dense", "mla_moe"))
             + tf.n_shared_applications(cfg),
             "wkv6": kinds.count("rwkv6"), "ssd": kinds.count("mamba2")}
 
 
+def n_moe_blocks(cfg) -> int:
+    """Blocks whose FFN is the MoE dispatch: one ``route`` call each per
+    prefill and per decode step."""
+    return sum(k in ("moe", "mla_moe") for k in cfg.block_kinds())
+
+
 # the LM serving runs at full width: (label, arch, config overrides,
-# prompt length, sequences per teacher-forced forward; None: no forward
-# check).  mixtral runs 8 of its 32 layers (47.5 GB of the 187 GB in
-# f32), at the published capacity factor and dropless; the serving
-# invariant holds only dropless (tests/test_models_consistency.py:16-20),
-# since prefill and forward drop different tokens.  nemotron's forward
-# runs one sequence at a time (62.5 GB of weights).  danube's prompt
-# passes its 4,096-token window, so its KV ring wraps.
+# batch, text prompt length, sequences per teacher-forced forward; None:
+# no forward check).  mixtral runs 8 of its 32 layers (47.5 GB of the 187
+# GB in f32) and deepseek-v2 3 of its 60 (its dense first layer and two
+# MLA + MoE layers of 160 experts: 37.3 GB of ~944 GB), each at the
+# published capacity factor and dropless; the serving invariant holds
+# only dropless (tests/test_models_consistency.py:16-20), since prefill
+# and forward drop different tokens.  nemotron's forward runs one
+# sequence at a time (62.5 GB of weights), and so does all of deepseek's
+# dropless run: its (G, E, C, D) dispatch buffer at C = S is 6.7 GB a
+# sequence.  danube's prompt passes its 4,096-token window, so its KV
+# ring wraps.  qwen2-vl's prompt is 1,024 patch positions and 2,048 text
+# tokens; its invariant needs its own prefill (``vision_forward_check``).
 MIXTRAL_LAYERS, MIXTRAL_DROPLESS_CF = 8, 8.0
+DEEPSEEK_LAYERS, DEEPSEEK_DROPLESS_CF = 3, 160.0
 LM_RUNS = (
-    ("yi-6b", "yi-6b", {}, LM_PROMPT, LM_BATCH),
-    ("rwkv6-1.6b", "rwkv6-1.6b", {}, LM_PROMPT, LM_BATCH),
-    ("zamba2-1.2b", "zamba2-1.2b", {}, LM_PROMPT, LM_BATCH),
-    ("mistral-nemo-12b", "mistral-nemo-12b", {}, LM_PROMPT, LM_BATCH),
-    ("nemotron-4-15b", "nemotron-4-15b", {}, LM_PROMPT, 1),
-    ("h2o-danube-3-4b", "h2o-danube-3-4b", {}, 4096 + 512, LM_BATCH),
+    ("yi-6b", "yi-6b", {}, LM_BATCH, LM_PROMPT, LM_BATCH),
+    ("rwkv6-1.6b", "rwkv6-1.6b", {}, LM_BATCH, LM_PROMPT, LM_BATCH),
+    ("zamba2-1.2b", "zamba2-1.2b", {}, LM_BATCH, LM_PROMPT, LM_BATCH),
+    ("mistral-nemo-12b", "mistral-nemo-12b", {}, LM_BATCH, LM_PROMPT,
+     LM_BATCH),
+    ("nemotron-4-15b", "nemotron-4-15b", {}, LM_BATCH, LM_PROMPT, 1),
+    ("h2o-danube-3-4b", "h2o-danube-3-4b", {}, LM_BATCH, 4096 + 512,
+     LM_BATCH),
     ("mixtral-8x7b_L8", "mixtral-8x7b", {"n_layers": MIXTRAL_LAYERS},
-     LM_PROMPT, None),
+     LM_BATCH, LM_PROMPT, None),
     ("mixtral-8x7b_L8_dropless", "mixtral-8x7b",
      {"n_layers": MIXTRAL_LAYERS, "capacity_factor": MIXTRAL_DROPLESS_CF},
-     LM_PROMPT, LM_BATCH),
+     LM_BATCH, LM_PROMPT, LM_BATCH),
+    ("deepseek-v2-236b_L3", "deepseek-v2-236b",
+     {"n_layers": DEEPSEEK_LAYERS}, LM_BATCH, LM_PROMPT, None),
+    ("deepseek-v2-236b_L3_dropless", "deepseek-v2-236b",
+     {"n_layers": DEEPSEEK_LAYERS, "capacity_factor": DEEPSEEK_DROPLESS_CF},
+     1, LM_PROMPT, 1),
+    ("qwen2-vl-7b", "qwen2-vl-7b", {}, LM_BATCH, LM_PROMPT, LM_BATCH),
 )
 
 
@@ -1437,21 +1484,22 @@ def drop_counts(routes: list, n_moe: int) -> dict:
                 decode_dropless=all(bool(r.keep.all()) for r in dec))
 
 
-def decode_bound(run, prompt: int) -> dict:
+def decode_bound(run, batch: int, prompt: int) -> dict:
     """The least time of the run's last decode step: every weight read
     once (of an untied embedding table, only the batch's rows), the KV
-    rings' valid entries read, recurrent states read and written once,
-    at 3.35 TB/s."""
+    rings' and MLA latent caches' valid entries read, recurrent states
+    read and written once, at 3.35 TB/s.  ``prompt`` counts patch
+    positions."""
     cfg, params = run.cfg, run.params
     size = lambda t: t.numel() * t.element_size()
     weights = sum(size(p) for p in params.parameters())
     if not cfg.tie_embeddings:
         tok = params.embed["tok"]
-        weights -= size(tok) - LM_BATCH * tok.shape[1] * tok.element_size()
+        weights -= size(tok) - batch * tok.shape[1] * tok.element_size()
     state = 0
     for c in run.result.cache["layers"] + run.result.cache.get("shared", []):
         for name, t in c.items():
-            if name in ("k", "v"):
+            if name in ("k", "v", "ckv", "kpe"):
                 valid = min(prompt + LM_GEN - 1, t.shape[1])
                 state += size(t) * valid // t.shape[1]
             else:
@@ -1486,13 +1534,60 @@ def lm_forward_check(torch, run, per: int) -> dict:
                 forward_aux_loss=aux, forward_sequences_per_call=per)
 
 
+def vision_forward_check(torch, run, per: int) -> dict:
+    """qwen2-vl's serving invariant, with its own prefill.  The served
+    run sizes its cache from the text alone and decodes at
+    ``cache["pos"]``, as the reference's ``generate`` does, so its logits
+    are not the forward's.  Here the cache covers patches, text and the
+    generated tokens, and the prompt's M-RoPE positions, continued over
+    the generated tokens, go to the forward and to every decode step;
+    ``per`` sequences at a time."""
+    from repro_torch.configs.shapes import mrope_positions
+    from repro_torch.models import transformer as tf
+    cfg, params, prompt = run.cfg, run.params, run.prompt
+    p, text = cfg.num_patch_positions, prompt["tokens"].shape[1]
+    seq = torch.cat([prompt["tokens"], run.result.tokens[:, :-1]], dim=1)
+    n = p + seq.shape[1]
+    pos = mrope_positions(p, n, seq.shape[0], seq.device)
+    check(torch.equal(pos[:, :, :p + text], prompt["positions"]),
+          "the prompt's M-RoPE positions continue over the generated "
+          "tokens")
+    errs, first = [], []
+    with torch.inference_mode():
+        for lo in range(0, seq.shape[0], per):
+            rows = slice(lo, lo + per)
+            pe = prompt["patch_embeds"][rows]
+            logits, cache = tf.prefill(
+                params, cfg, seq[rows, :text],
+                positions=pos[:, rows, :p + text], patch_embeds=pe,
+                max_len=n)
+            outs = [logits]
+            for i in range(LM_GEN - 1):
+                at = p + text + i
+                logits, cache = tf.decode_step(
+                    params, cfg, seq[rows, text + i], cache,
+                    positions=pos[:, rows, at:at + 1])
+                outs.append(logits)
+            del cache
+            got = torch.stack(outs, dim=1)
+            full, _ = tf.forward(params, cfg, seq[rows], pos[:, rows], pe)
+            ref = full[:, p + text - 1:]
+            check(ref.shape == got.shape, "logit shapes agree")
+            errs.append(float((ref - got).abs().max()))
+            first.append(float((ref[:, 0] - got[:, 0]).abs().max()))
+            del full, ref, got
+    return dict(forward_max_abs_err=max(errs),
+                forward_max_abs_err_prefill_token=max(first),
+                forward_sequences_per_call=per, forward_cache_len=n)
+
+
 def phase_lm_serve(torch) -> dict:
     from repro_torch.launch import serve
     out = {}
-    for label, arch, overrides, prompt, per in LM_RUNS:
+    for label, arch, overrides, batch, prompt, per in LM_RUNS:
         torch.cuda.reset_peak_memory_stats()
         reset_all_counts()
-        kw = dict(batch=LM_BATCH, prompt_len=prompt, gen=LM_GEN,
+        kw = dict(batch=batch, prompt_len=prompt, gen=LM_GEN,
                   device="cuda", verbose=False)
         routes = []
         with recording_routes(routes):
@@ -1505,16 +1600,20 @@ def phase_lm_serve(torch) -> dict:
                   f"times in the prefill (counted {counts[kernel]})")
         launches = {k: counts[k] for k, n in expect.items() if n}
         res = run.result
+        # the positions a prefill covers: patches and text
+        positions = prompt + run.cfg.num_patch_positions
         check(bool(torch.isfinite(res.logits).all()), f"{label} finite")
-        check(res.logits.shape == (LM_BATCH, LM_GEN, run.cfg.vocab_size),
+        check(res.logits.shape == (batch, LM_GEN, run.cfg.vocab_size),
               f"{label}: logits of every generated token")
         extra = {}
         if per is not None:
-            extra = lm_forward_check(torch, run, per)
+            extra = (vision_forward_check(torch, run, per)
+                     if run.cfg.num_patch_positions
+                     else lm_forward_check(torch, run, per))
             check(extra["forward_max_abs_err"] <= 1e-3,
                   f"{label}: forward matches prefill + decode logits "
                   f"within 1e-3 ({extra['forward_max_abs_err']})")
-        n_moe = run.cfg.block_kinds().count("moe")
+        n_moe = n_moe_blocks(run.cfg)
         if n_moe:
             extra["moe"] = dict(drop_counts(routes, n_moe),
                                 capacity_factor=run.cfg.moe.capacity_factor)
@@ -1527,7 +1626,7 @@ def phase_lm_serve(torch) -> dict:
         ring = res.cache["layers"][0].get("k")
         if ring is not None:
             extra["kv_ring"] = dict(capacity=ring.shape[1],
-                                    wrapped=prompt > ring.shape[1])
+                                    wrapped=positions > ring.shape[1])
         if run.cfg.sliding_window and prompt > run.cfg.sliding_window:
             check(ring.shape[1] == run.cfg.sliding_window,
                   f"{label}: the prompt of {prompt} wraps the "
@@ -1536,13 +1635,14 @@ def phase_lm_serve(torch) -> dict:
         prof = profile_lm(torch, run, rep)
         out[label] = dict(
             arch=arch, overrides=overrides, params=rep["params"],
-            batch=LM_BATCH, prompt=prompt, gen=LM_GEN,
+            batch=batch, prompt=prompt,
+            patch_positions=run.cfg.num_patch_positions, gen=LM_GEN,
             prefill_ms=rep["prefill_ms"],
             decode_ms_per_token=rep["decode_ms_per_token"],
             tokens_per_s=rep["tokens_per_s"],
             decode_tokens_per_s=rep["decode_tokens_per_s"],
             launches=launches, launches_per_prefill=launches,
-            **decode_bound(run, prompt), **extra,
+            **decode_bound(run, batch, positions), **extra,
             max_abs_logit=float(res.logits.abs().max()),
             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
             profile=prof, sample=rep["tokens"][0][:8])
@@ -1599,12 +1699,14 @@ def phase_lm_parity(torch) -> None:
     from repro_torch.serving.engine import generate
     out = {}
     for arch in ("yi-6b", "h2o-danube-3-4b", "rwkv6-1.6b", "zamba2-1.2b",
-                 "mistral-nemo-12b", "nemotron-4-15b", "mixtral-8x7b"):
+                 "mistral-nemo-12b", "nemotron-4-15b", "mixtral-8x7b",
+                 "deepseek-v2-236b", "qwen2-vl-7b"):
         cfg = get_smoke_config(arch)
         cpu_params = tf.init_params(cfg, seed=SEED, device="cpu")
         gpu_params = copy.deepcopy(cpu_params).to("cuda")
         # 40 tokens: past the danube, zamba2 and mixtral smoke windows
-        # (32), so the rings wrap
+        # (32), so the rings wrap; qwen2-vl's 16 patch positions and 24
+        # text tokens wrap its 33-slot ring (the reference's sizing)
         prompt = make_batch(cfg, rnd.PRNGKey(SEED, "cpu"), 2, 40,
                             with_labels=False)
         cpu_routes, gpu_routes = [], []
@@ -1612,7 +1714,8 @@ def phase_lm_parity(torch) -> None:
             cpu = generate(cpu_params, cfg, prompt, steps=8)
         with recording_routes(gpu_routes):
             gpu = generate(gpu_params, cfg,
-                           {"tokens": prompt["tokens"].to("cuda")}, steps=8)
+                           {k: v.to("cuda") for k, v in prompt.items()},
+                           steps=8)
         err = float((cpu.logits - gpu.logits.cpu()).abs().max())
         check(err <= 1e-4, f"{arch}: CPU and card logits within 1e-4 "
               f"({err})")
@@ -1624,8 +1727,7 @@ def phase_lm_parity(torch) -> None:
             out[arch]["moe"] = dict(
                 routes_parity(torch, cpu_routes, gpu_routes),
                 prefill_dropped=drop_counts(
-                    cpu_routes, cfg.block_kinds().count("moe"))[
-                        "prefill_dropped"])
+                    cpu_routes, n_moe_blocks(cfg))["prefill_dropped"])
     emit("lm_parity", **out)
 
 

@@ -1,10 +1,11 @@
 """Architecture registry of the port: ``--arch <id>`` → ModelConfig.
 
 The same ids as the reference's ``repro.configs``.  The port runs the
-architectures whose blocks it has (``attn``, ``moe``, ``rwkv6`` and
-``mamba2`` with zamba2's shared attention block); the others
-raise ``NotImplementedError`` naming the work in ``ROADMAP.md`` that
-ports them.  Each ported architecture has its own module with
+architectures whose blocks it has (``attn``, ``moe``, ``mla_dense``,
+``mla_moe``, ``rwkv6`` and ``mamba2`` with zamba2's shared attention
+block, M-RoPE and patch embeddings); musicgen-medium's codebooks raise
+``NotImplementedError`` naming the work in ``ROADMAP.md`` that ports
+them.  Each ported architecture has its own module with
 ``config()`` (the published hyper-parameters) and ``smoke_config()`` (a
 reduced same-family variant for CPU tests).
 """
@@ -31,9 +32,7 @@ ARCH_IDS = (
 # what each architecture not yet ported still needs (ROADMAP.md queue 1
 # item 10 lists these slices in order)
 _LATER = {
-    "qwen2-vl-7b": "the M-RoPE and patch-embedding slice",
     "musicgen-medium": "the multi-codebook slice",
-    "deepseek-v2-236b": "the MLA + MoE slice",
 }
 
 

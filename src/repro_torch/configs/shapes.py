@@ -1,9 +1,11 @@
-"""Concrete prompt batches (``repro.configs.shapes.make_batch``, text-only
-branch).
+"""Concrete prompt batches (``repro.configs.shapes.make_batch``: the text
+and patch-embedding branches).
 
 Tokens are drawn with the port's threefry ``randint``, so the same key
-gives the same prompt as the reference.  Multi-codebook and
-patch-embedding batches belong to the slices that port those models.
+gives the same prompt as the reference; patch embeddings with its
+``normal``, which differs from ``jax.random.normal`` in the last bit of
+about 1% of values (tests carry the reference's across).  Multi-codebook
+batches belong to the slice that ports that model.
 """
 from __future__ import annotations
 
@@ -13,16 +15,44 @@ from repro_torch import random as rnd
 from repro_torch.models.config import ModelConfig
 
 
+def mrope_positions(p: int, s: int, b: int, device) -> torch.Tensor:
+    """(3, B, S) int32 M-RoPE positions of ``p`` patch positions on a
+    square (t = 0, h, w) grid followed by ``s - p`` text positions, which
+    count on from the grid's side on all three rows."""
+    side = int(p ** 0.5)
+    idx = torch.arange(p, dtype=torch.int32, device=device)
+    text = torch.arange(side, side + (s - p), dtype=torch.int32,
+                        device=device)
+    pos = torch.stack([torch.cat([torch.zeros_like(idx), text]),
+                       torch.cat([idx // side, text]),
+                       torch.cat([idx % side, text])])
+    return pos[:, None].expand(3, b, s)
+
+
 def make_batch(cfg: ModelConfig, key: torch.Tensor, b: int, s: int, *,
                with_labels: bool = True) -> dict:
-    """{"tokens": (B, S) int32[, "labels": (B, S) int32]} on the key's
-    device, as the reference draws them from ``split(key, 3)``."""
-    if cfg.num_codebooks or cfg.num_patch_positions:
+    """On the key's device, as the reference draws them from ``split(key,
+    3)``: {"tokens": (B, S) int32[, "labels": (B, S) int32]}; with patch
+    positions P, S counts them: {"tokens": (B, S - P), "patch_embeds":
+    (B, P, D), "positions": (3, B, S)[, "labels": (B, S)]}."""
+    if cfg.num_codebooks:
         raise NotImplementedError(
-            "codebook and patch-embedding batches are not ported yet "
-            "(ROADMAP.md queue 1 item 10)")
-    k1, k2, _ = rnd.split(key, 3)
-    batch = {"tokens": rnd.randint(k1, (b, s), 0, cfg.vocab_size)}
+            "codebook batches are not ported yet (ROADMAP.md queue 1 "
+            "item 10)")
+    k1, k2, k3 = rnd.split(key, 3)
+    if not cfg.num_patch_positions:
+        batch = {"tokens": rnd.randint(k1, (b, s), 0, cfg.vocab_size)}
+        if with_labels:
+            batch["labels"] = rnd.randint(k2, (b, s), 0, cfg.vocab_size)
+        return batch
+    p = cfg.num_patch_positions
+    if s <= p:
+        raise ValueError(f"a batch of {s} positions leaves no text after "
+                         f"{p} patch positions")
+    batch = {"tokens": rnd.randint(k1, (b, s - p), 0, cfg.vocab_size),
+             "patch_embeds": (0.02 * rnd.normal(k3, (b, p, cfg.d_model)))
+             .to(cfg.compute_torch_dtype),
+             "positions": mrope_positions(p, s, b, key.device)}
     if with_labels:
         batch["labels"] = rnd.randint(k2, (b, s), 0, cfg.vocab_size)
     return batch

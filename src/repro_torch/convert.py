@@ -121,8 +121,8 @@ def lm_params(params, cfg: ModelConfig, device="cuda") -> tf.LM:
     zamba2's ``shared_block``) as the port's
     :class:`~repro_torch.models.transformer.LM`: every segment is
     unstacked into one block module per layer, in order, each array in
-    its own dtype (an ``moe`` segment's nested ``moe`` tree too, its
-    ``router`` float32 whatever the parameter dtype)."""
+    its own dtype (the nested ``moe`` and ``mla`` trees too, the
+    router float32 whatever the parameter dtype)."""
     tf.check_supported(cfg)
     dev = resolve_device(device)
     tensor = lambda a: torch.as_tensor(np.array(a), device=dev)

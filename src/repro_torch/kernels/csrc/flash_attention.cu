@@ -50,6 +50,14 @@
 // its 16 rows cannot see and masks only tiles that cut the mask.  Shared
 // memory: (256 pitch(D) + 128 pitch(64 or 128)) floats, 202,752 bytes at
 // D = Dv = 128; at Dv <= 64 two CTAs share an SM.
+// D in (128, 192] with Dv <= 128 (MLA's prefill: Dk = 128 + 64, Dv = 128)
+// is the same kernel with another tiling, chosen at launch by D: at 128
+// query rows and 64-key tiles it would need (256 pitch(192) + 128
+// pitch(128)) floats = 268,288 bytes, more than a CTA may hold (232,448).
+// It takes kWideWarps warps of 16 query rows and kWideBK-key tiles
+// instead (below), with the pitch still 4 mod 8 (pitch(192) = 196).
+// Keeping Q's split fragments in registers instead would not fit beside
+// the accumulator: 96 floats x 2 a thread beside 64.
 //
 // bfloat16 (flash_fwd_kernel_wgmma): TMA + wgmma, warp-specialised.  A
 // CTA of three warpgroups owns 128 query rows: two consumer warpgroups
@@ -87,7 +95,8 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;  // the reference's NEG_INF
-constexpr int kMaxD = 128;
+constexpr int kMaxD = 128;      // bf16's D and Dv, and every Dv
+constexpr int kMaxDF32 = 192;   // float32's D
 
 struct Strides {  // element strides of the (B, S, H, D) operands
   long long q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, o_b, o_s, o_h;
@@ -123,9 +132,12 @@ __device__ __forceinline__ bool visible(int col, int row, int Sk, int causal,
 }
 
 // ------------------------------------------------------- float32: 3xTF32
-constexpr int kBQ = 128;  // query rows per CTA (8 warps x 16)
-constexpr int kBK = 64;   // keys per tile
-constexpr int kThreads = 256;
+// D <= 128: 8 warps x 16 query rows a CTA, 64-key tiles.  D in (128,
+// 192]: 8 warps and 32-key tiles, (128 pitch(D) + 64 (pitch(D) +
+// pitch(128))) floats = 184,320 bytes at D = 192; the other layout that
+// fits, 4 warps (64 query rows) and 64-key tiles (218,112 bytes), ran
+// slower on an H100 (tools/flash_wide_layout.py times both).
+constexpr int kWideWarps = 8, kWideBK = 32;
 
 // shared-memory row pitch in floats: D rounded up to 8, plus 4, so the
 // pitch is 4 mod 8 (conflict-free fragment reads, 16-byte rows)
@@ -175,8 +187,9 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src,
                : "memory");
 }
 
-// rows [k0, k0 + 64) of a (S, d) operand into a shared tile of pitch ld;
-// rows past S are zero-filled
+// rows [k0, k0 + kBK) of a (S, d) operand into a shared tile of pitch
+// ld, by a CTA of kThreads; rows past S are zero-filled
+template <int kBK, int kThreads>
 __device__ __forceinline__ void load_kv_tile(float* dst, int ld,
                                              const float* src,
                                              long long row_stride, int k0,
@@ -192,12 +205,15 @@ __device__ __forceinline__ void load_kv_tile(float* dst, int ld,
   }
 }
 
-template <int kNT>  // 8-column tiles of the output: 8 (Dv <= 64) or 16
-__global__ void __launch_bounds__(kThreads, kNT == 8 ? 2 : 1)
+// kNT: 8-column tiles of the output, 8 (Dv <= 64) or 16; kWarps: warps
+// of 16 query rows a CTA; kBK: keys per tile
+template <int kNT, int kWarps, int kBK>
+__global__ void __launch_bounds__(32 * kWarps, kNT == 8 ? 2 : 1)
 flash_fwd_kernel_tf32(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ o,
                       int H, int KV, int Sq, int Sk, int D, int Dv,
                       Strides st, float scale, int causal, int window) {
+  constexpr int kBQ = 16 * kWarps, kThreads = 32 * kWarps, kJ = kBK / 8;
   extern __shared__ float4 smem4[];
   const int ldk = pitch(D), ldv = pitch(8 * kNT);  // V: every output tile
   float* sQ = reinterpret_cast<float*>(smem4);  // kBQ x ldk
@@ -261,8 +277,8 @@ flash_fwd_kernel_tf32(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
 
   if (n_tiles > 0) {
-    load_kv_tile(sK, ldk, kb, st.k_s, k_first, Sk, D);
-    load_kv_tile(sV, ldv, vb, st.v_s, k_first, Sk, Dv);
+    load_kv_tile<kBK, kThreads>(sK, ldk, kb, st.k_s, k_first, Sk, D);
+    load_kv_tile<kBK, kThreads>(sV, ldv, vb, st.v_s, k_first, Sk, Dv);
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 
@@ -270,8 +286,10 @@ flash_fwd_kernel_tf32(const float* __restrict__ q, const float* __restrict__ k,
     const int k0 = k_first + it * kBK;
     if (it + 1 < n_tiles) {  // the next tile into the other stage
       const int nx = (it + 1) & 1;
-      load_kv_tile(sK + nx * kBK * ldk, ldk, kb, st.k_s, k0 + kBK, Sk, D);
-      load_kv_tile(sV + nx * kBK * ldv, ldv, vb, st.v_s, k0 + kBK, Sk, Dv);
+      load_kv_tile<kBK, kThreads>(sK + nx * kBK * ldk, ldk, kb, st.k_s,
+                                  k0 + kBK, Sk, D);
+      load_kv_tile<kBK, kThreads>(sV + nx * kBK * ldv, ldv, vb, st.v_s,
+                                  k0 + kBK, Sk, Dv);
     }
     asm volatile("cp.async.commit_group;\n" ::: "memory");
     asm volatile("cp.async.wait_group 1;\n" ::: "memory");
@@ -288,9 +306,9 @@ flash_fwd_kernel_tf32(const float* __restrict__ q, const float* __restrict__ k,
       const float* tV = sV + (it & 1) * kBK * ldv;
 
       // S = Q K^T over 8-wide steps of D
-      float s[8][4];
+      float s[kJ][4];
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < kJ; ++j)
 #pragma unroll
         for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
       const float* qr = sQ + (16 * warp + g) * ldk + t;
@@ -302,7 +320,7 @@ flash_fwd_kernel_tf32(const float* __restrict__ q, const float* __restrict__ k,
         split(qr[kk + 4], ah[2], al[2]);
         split(qr[8 * ldk + kk + 4], ah[3], al[3]);
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < kJ; ++j)
           mma_3xtf32(s[j], ah, al, kr[8 * j * ldk + kk],
                      kr[8 * j * ldk + kk + 4]);
       }
@@ -310,7 +328,7 @@ flash_fwd_kernel_tf32(const float* __restrict__ q, const float* __restrict__ k,
       // mask, online softmax; rows g and g + 8 of the warp's 16
       float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < kJ; ++j)
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int col = k0 + 8 * j + 2 * t + (c & 1);
@@ -333,7 +351,7 @@ flash_fwd_kernel_tf32(const float* __restrict__ q, const float* __restrict__ k,
       m1 = mn1;
       float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < kJ; ++j) {
         s[j][0] = exp_f32(s[j][0] - mn0);
         s[j][1] = exp_f32(s[j][1] - mn0);
         s[j][2] = exp_f32(s[j][2] - mn1);
@@ -354,7 +372,7 @@ flash_fwd_kernel_tf32(const float* __restrict__ q, const float* __restrict__ k,
       // O += P V over 8-key steps: S's C fragment is P's A fragment with
       // A column t = key 2t and column t + 4 = key 2t + 1
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < kJ; ++j) {
         uint32_t ah[4], al[4];
         split(s[j][0], ah[0], al[0]);
         split(s[j][2], ah[1], al[1]);
@@ -884,6 +902,27 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+template <int kNT, int kWarps, int kBK>
+int launch_tf32(const float* q, const float* k, const float* v, float* o,
+                const Strides& st, int B, int H, int KV, int Sq, int Sk,
+                int D, int Dv, float scale, int causal, int window,
+                cudaStream_t stream) {
+  constexpr int kBQ = 16 * kWarps;
+  const int ldk = pitch(D), ldv = pitch(8 * kNT);
+  const size_t smem = sizeof(float) *
+                      static_cast<size_t>(kBQ * ldk + 2 * kBK * (ldk + ldv));
+  const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
+  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel_tf32<kNT, kWarps, kBK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_fwd_kernel_tf32<kNT, kWarps, kBK><<<grid, 32 * kWarps, smem,
+                                            stream>>>(
+      q, k, v, o, H, KV, Sq, Sk, D, Dv, st, scale, causal, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
 int flash_launch_f32(const void* q, const void* k, const void* v, void* o,
                      const Strides& st, int B, int H, int KV, int Sq, int Sk,
                      int D, int Dv, float scale, int causal, int window,
@@ -895,31 +934,19 @@ int flash_launch_f32(const void* q, const void* k, const void* v, void* o,
     if (s % 4) return static_cast<int>(cudaErrorInvalidValue);
   if (!aligned16(q) || !aligned16(k) || !aligned16(v) || o == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int ldk = pitch(D), ldv = pitch(Dv <= 64 ? 64 : 128);
-  const size_t smem = sizeof(float) *
-                      static_cast<size_t>(2 * kBQ * ldk + kBQ * ldv);
-  const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
-  cudaError_t err;
-  if (Dv <= 64) {
-    err = cudaFuncSetAttribute(flash_fwd_kernel_tf32<8>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_fwd_kernel_tf32<8><<<grid, kThreads, smem, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), H, KV, Sq, Sk,
-        D, Dv, st, scale, causal, window);
-  } else {
-    err = cudaFuncSetAttribute(flash_fwd_kernel_tf32<16>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_fwd_kernel_tf32<16><<<grid, kThreads, smem, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), H, KV, Sq, Sk,
-        D, Dv, st, scale, causal, window);
-  }
-  return static_cast<int>(cudaGetLastError());
+  auto* qf = static_cast<const float*>(q);
+  auto* kf = static_cast<const float*>(k);
+  auto* vf = static_cast<const float*>(v);
+  auto* of = static_cast<float*>(o);
+  if (D > 128)
+    return launch_tf32<16, kWideWarps, kWideBK>(qf, kf, vf, of, st, B, H, KV,
+                                                Sq, Sk, D, Dv, scale, causal,
+                                                window, stream);
+  if (Dv <= 64)
+    return launch_tf32<8, 8, 64>(qf, kf, vf, of, st, B, H, KV, Sq, Sk, D, Dv,
+                                 scale, causal, window, stream);
+  return launch_tf32<16, 8, 64>(qf, kf, vf, of, st, B, H, KV, Sq, Sk, D, Dv,
+                                scale, causal, window, stream);
 }
 
 template <int kNPK, int kNPV>
@@ -982,7 +1009,8 @@ int flash_launch(bool bf16, const void* q, const void* k, const void* v,
                  void* o, const long long* strides, int B, int H, int KV,
                  int Sq, int Sk, int D, int Dv, float scale, int causal,
                  int window, int device, void* stream) {
-  if (D > kMaxD || Dv > kMaxD || D % 4 || Dv % 4 || H % KV)
+  if (D > (bf16 ? kMaxD : kMaxDF32) || Dv > kMaxD || D % 4 || Dv % 4 ||
+      H % KV)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);

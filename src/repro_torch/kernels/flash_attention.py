@@ -12,12 +12,15 @@ Layouts: q (B, Sq, H, D), k (B, Sk, KV, D), v (B, Sk, KV, Dv), H a
 multiple of KV, all float32 or all bfloat16; the output is a new
 (B, Sq, H, Dv) tensor of q's dtype.  Operands are read through their
 strides (the last axis must be contiguous).  The kernel takes any S, and
-D, Dv up to 128 in multiples of 4; causal attention needs Sq <= Sk (every
-query row then sees at least one key).
+D, Dv in multiples of 4: float32 D up to 192 and Dv up to 128 (MLA's
+prefill attends with Dk = 192, Dv = 128), bfloat16 both up to 128 (bf16
+at D > 128 is still to do, ROADMAP.md); causal attention needs Sq <= Sk
+(every query row then sees at least one key).
 
 Both instances run on the tensor cores: float32 as 3xTF32 ``mma.sync``
-fed by ``cp.async`` (float32-level accuracy), bfloat16 as ``wgmma`` fed
-by TMA, with P rounded to bfloat16 before P V.  Their copies move 16-byte
+fed by ``cp.async`` (float32-level accuracy; at D > 128 with 32-key
+tiles, so that its shared memory fits), bfloat16 as ``wgmma`` fed by
+TMA, with P rounded to bfloat16 before P V.  Their copies move 16-byte
 chunks, so an operand must start on 16 bytes and have strides that are
 multiples of 16 bytes; one that does not (an odd view, or bfloat16 with
 D or Dv not a multiple of 8) is first copied into an aligned buffer whose
@@ -35,7 +38,8 @@ from repro_torch.kernels import _build
 from repro_torch.models.attention import flash_attention_plain
 
 LAUNCHES = {"flash_attention": 0}
-MAX_HEAD_DIM = 128
+# the kernel's largest (D, Dv) per dtype
+MAX_HEAD_DIMS = {torch.float32: (192, 128), torch.bfloat16: (128, 128)}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P]
@@ -77,10 +81,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if _build.route(dev) == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale)
-    if d > MAX_HEAD_DIM or dv > MAX_HEAD_DIM or d % 4 or dv % 4:
-        raise ValueError(f"the flash kernel takes head dims up to "
-                         f"{MAX_HEAD_DIM} in multiples of 4, got D={d}, "
-                         f"Dv={dv}")
+    max_d, max_dv = MAX_HEAD_DIMS[q.dtype]
+    if d > max_d or dv > max_dv or d % 4 or dv % 4:
+        later = (" (bfloat16 at D > 128 is not ported yet: ROADMAP.md "
+                 "queue 1 item 10)" if q.dtype == torch.bfloat16
+                 and d > max_d else "")
+        raise ValueError(f"the {q.dtype} flash kernel takes D up to {max_d} "
+                         f"and Dv up to {max_dv}, in multiples of 4, got "
+                         f"D={d}, Dv={dv}{later}")
     if (sq + 127) // 128 > 65535:
         raise ValueError(f"the flash kernel takes Sq up to {128 * 65535}, "
                          f"got {sq}")

@@ -6,8 +6,10 @@
 The reference's flags plus ``--device`` (default ``cuda``; a missing card
 raises).  Weights come from ``torch.Generator(device).manual_seed(0)``;
 the prompt from ``make_batch`` under ``PRNGKey(0)`` and categorical draws
-under ``PRNGKey(1)``, the reference CLI's keys.  The last line printed is
-the report as JSON.
+under ``PRNGKey(1)``, the reference CLI's keys.  A config with patch
+positions (qwen2-vl-7b) gets ``--prompt-len`` text tokens after its patch
+embeddings, as the reference CLI sizes it.  The last line printed is the
+report as JSON.
 """
 from __future__ import annotations
 
@@ -58,7 +60,8 @@ def serve_config(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 32,
         print(f"serving {cfg.name} ({cfg.num_params() / 1e6:.1f}M params) "
               f"on {device_name(dev)}", flush=True)
     params = tf.init_params(cfg, seed=0, device=dev)
-    prompt = make_batch(cfg, rnd.PRNGKey(0, dev), batch, prompt_len,
+    plen = prompt_len + cfg.num_patch_positions
+    prompt = make_batch(cfg, rnd.PRNGKey(0, dev), batch, plen,
                         with_labels=False)
     res = generate(params, cfg, prompt, steps=gen, sample=sample,
                    temperature=temperature, key=rnd.PRNGKey(1, dev))
@@ -67,7 +70,9 @@ def serve_config(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 32,
     report = {
         "arch": cfg.name, "params": cfg.num_params(), "device": str(dev),
         "device_name": device_name(dev), "batch": batch,
-        "prompt_len": prompt_len, "gen": gen, "sample": sample,
+        "prompt_len": prompt_len,
+        "patch_positions": cfg.num_patch_positions, "gen": gen,
+        "sample": sample,
         "prefill_ms": res.prefill_s * 1e3,
         "decode_ms_per_token": (res.decode_s * 1e3 / (gen - 1)
                                 if gen > 1 else None),

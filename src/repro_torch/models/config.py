@@ -1,10 +1,10 @@
 """Model configuration of the LM substrate (``repro.models.config``'s
 counterpart).
 
-One ``ModelConfig`` describes every architecture family of the zoo; the
-port runs the ``attn``, ``moe``, ``rwkv6`` and ``mamba2`` block kinds
-and keeps the MLA sub-config as plain data so that ``block_kinds`` and
-``num_params`` agree with the reference for every architecture.  The
+One ``ModelConfig`` describes every architecture family of the zoo, so
+that ``block_kinds`` and ``num_params`` agree with the reference for
+every architecture; the port runs every block kind, M-RoPE and patch
+embeddings, and not yet the codebooks of musicgen-medium.  The
 reference's ``use_pallas`` switch and its three sharding specs have no
 meaning here and are left out: the tensor's device picks the kernel
 route, and the port runs on one card.

@@ -93,7 +93,7 @@ def gated_rmsnorm(params, x: torch.Tensor, gate: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Rotary position embeddings (standard; M-RoPE comes with qwen2-vl)
+# Rotary position embeddings (standard and M-RoPE)
 # ---------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -108,6 +108,28 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
     """positions (..., S) int → cos, sin (..., S, head_dim // 2) float32."""
     inv = rope_freqs(head_dim, theta, positions.device)
     ang = positions.float()[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def mrope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
+                  sections: tuple[int, ...]):
+    """Multimodal RoPE (Qwen2-VL §2.1): positions (3, ..., S) for (t, h,
+    w) → cos, sin (..., S, head_dim // 2) float32.  ``sections`` (half-dim
+    sizes summing to head_dim // 2) cut the frequency axis; section i
+    takes its angle from positions[i]."""
+    if positions.shape[0] != len(sections):
+        raise ValueError(f"M-RoPE needs {len(sections)} position rows, got "
+                         f"{positions.shape[0]}")
+    if sum(sections) != head_dim // 2:
+        raise ValueError(f"M-RoPE sections {sections} must sum to "
+                         f"{head_dim // 2}")
+    inv = rope_freqs(head_dim, theta, positions.device)
+    ang = positions.float()[..., None] * inv  # (3, ..., S, half)
+    bounds = [0]
+    for sec in sections:
+        bounds.append(bounds[-1] + sec)
+    ang = torch.cat([ang[i, ..., lo:hi] for i, (lo, hi)
+                     in enumerate(zip(bounds, bounds[1:]))], dim=-1)
     return torch.cos(ang), torch.sin(ang)
 
 

@@ -1,12 +1,14 @@
-"""The LM: attention, MoE, RWKV6 and Mamba2 blocks composed per config
-(``repro.models.transformer``'s counterpart for the ``attn``, ``moe``,
-``rwkv6`` and ``mamba2`` block kinds and zamba2's shared attention
-block).
+"""The LM: attention, MLA, MoE, RWKV6 and Mamba2 blocks composed per
+config (``repro.models.transformer``'s counterpart for the ``attn``,
+``moe``, ``mla_dense``, ``mla_moe``, ``rwkv6`` and ``mamba2`` block
+kinds, zamba2's shared attention block, and qwen2-vl's M-RoPE positions
+and patch embeddings).
 
 Structure: an :class:`LM` module holds the embedding, one block module
-per layer (:class:`AttnBlock`, :class:`MoEBlock`, :class:`RWKV6Block` or
-:class:`Mamba2Block`, parameters in the reference's ``(d_in, d_out)``
-layout and names), zamba2's one weight-shared ``shared_block`` (an
+per layer (:class:`AttnBlock`, :class:`MoEBlock`, :class:`MLADenseBlock`,
+:class:`MLAMoEBlock`, :class:`RWKV6Block` or :class:`Mamba2Block`,
+parameters in the reference's ``(d_in, d_out)`` layout and names),
+zamba2's one weight-shared ``shared_block`` (an
 :class:`AttnBlock` applied after every ``shared_attn_every`` layers,
 each application with its own KV ring) and the final norm and head.
 The reference stacks identical layers into scanned segments; the port
@@ -19,21 +21,29 @@ Entry points, as in the reference:
   * ``decode_step``  — one token against the cache.
 
 Prefill runs every block's full-sequence path, which reaches the
-hand-written kernels: flash attention in every ``attn`` and ``moe`` block
-and every application of the shared block, WKV6 in every ``rwkv6``
-block, the SSD scan in every ``mamba2`` block (on CPU tensors their
-plain versions).  Decode runs plain torch, as the reference does outside
-any kernel; so does the MoE's routing, dispatch and expert products
-(``repro_torch.models.moe``), which the reference computes outside any
-kernel too.  Decode dispatches MoE tokens dropless (``_dropless_cf``);
-prefill and forward at the config's capacity factor.
+hand-written kernels: flash attention in every ``attn``, ``moe``,
+``mla_dense`` and ``mla_moe`` block (MLA at Dk 192, Dv 128) and every
+application of the shared block, WKV6 in every ``rwkv6`` block, the SSD
+scan in every ``mamba2`` block (on CPU tensors their plain versions).
+Decode runs plain torch, as the reference does outside any kernel (MLA
+in its weight-absorbed form); so does the MoE's routing, dispatch and
+expert products (``repro_torch.models.moe``), which the reference
+computes outside any kernel too.  Decode dispatches MoE tokens dropless
+(``_dropless_cf``); prefill and forward at the config's capacity factor.
+
+Positions: (S,) by default, or the caller's (B, S); with M-RoPE
+(``cfg.mrope_sections``) (3, B, S), by default the text position on all
+three rows.  ``patch_embeds`` (B, P, D) go in front of the token
+embeddings.  A decode step's default position is ``cache["pos"]``, on
+all three rows under M-RoPE, as in the reference.
 
 Cache: ``{"pos": int, "layers": [per-layer dict]}`` plus, with a shared
 block, ``"shared": [per-application {"k", "v"}]``; KV caches are ring
-buffers of capacity ``min(max_len, window)``.  ``decode_step`` updates
-the cache **in place** (the KV slot write and the recurrent states) and
-returns it: the reference returns a fresh copy, which at full width
-would copy the whole KV cache every token.
+buffers of capacity ``min(max_len, window)``, MLA's latent caches
+``{"ckv", "kpe"}`` hold ``max_len`` tokens.  ``decode_step`` updates the
+cache **in place** (the KV or latent slot write and the recurrent
+states) and returns it: the reference returns a fresh copy, which at
+full width would copy the whole KV cache every token.
 """
 from __future__ import annotations
 
@@ -45,31 +55,21 @@ from torch import nn
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as m2
+from repro_torch.models import mla as mla_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv6 as r6
 from repro_torch.models.attention import decode_attention
 from repro_torch.models.config import ModelConfig
 
-PORTED_KINDS = ("attn", "moe", "rwkv6", "mamba2")
-_LATER_KINDS = {"mla_dense": "the MLA + MoE slice",
-                "mla_moe": "the MLA + MoE slice"}
-
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` naming the later slice for anything
-    this port does not run yet."""
-    later = []
-    for kind in dict.fromkeys(cfg.block_kinds()):
-        if kind not in PORTED_KINDS:
-            later.append(f"{kind} blocks ({_LATER_KINDS.get(kind, kind)})")
+    this port does not run yet: every block kind runs (``BLOCKS``), the
+    codebooks of musicgen-medium do not."""
     if cfg.num_codebooks:
-        later.append("codebooks (the multi-codebook slice)")
-    if cfg.mrope_sections or cfg.num_patch_positions:
-        later.append("M-RoPE and patch embeddings (the M-RoPE slice)")
-    if later:
         raise NotImplementedError(
-            f"{cfg.name} needs {', '.join(later)}: not ported yet "
-            f"(ROADMAP.md queue 1 item 10)")
+            f"{cfg.name} needs codebooks (the multi-codebook slice): not "
+            f"ported yet (ROADMAP.md queue 1 item 10)")
 
 
 def segment_plan(cfg: ModelConfig) -> list[tuple[str, int]]:
@@ -126,6 +126,13 @@ def _ring_from_prefill(k: torch.Tensor, cap: int) -> torch.Tensor:
     return out
 
 
+def _filled(cap: int, pos: int, b: int, device) -> torch.Tensor:
+    """(B, cap) bool: the cache slots a decode step at ``pos`` attends
+    to (all of them once the ring has wrapped)."""
+    return (torch.arange(cap, device=device)
+            < min(pos + 1, cap))[None].expand(b, cap)
+
+
 def _dropless_cf(cfg: ModelConfig):
     """Capacity factor making decode dispatch dropless (capacity = T)."""
     if cfg.moe is None:
@@ -176,9 +183,8 @@ class AttnBlock(L.ParamTree):
         slot = pos % cap
         cache["k"][:, slot] = k[:, 0]
         cache["v"][:, slot] = v[:, 0]
-        valid = (torch.arange(cap, device=x.device)
-                 < min(pos + 1, cap))[None].expand(b, cap)
-        o = decode_attention(q, cache["k"], cache["v"], valid)
+        o = decode_attention(q, cache["k"], cache["v"],
+                             _filled(cap, pos, b, x.device))
         x = x + o.reshape(b, 1, cfg.attn_out_dim) @ self["attn"]["wo"]
         return self._ffn(x, cfg, _dropless_cf(cfg))[0], cache
 
@@ -192,6 +198,53 @@ class MoEBlock(AttnBlock):
         y, aux = moe_lib.apply_moe(self["moe"], h, cfg.moe,
                                    capacity_factor=capacity_factor)
         return x + y, aux
+
+
+class MLADenseBlock(AttnBlock):
+    """Multi-head latent attention + dense MLP: ``ln1``, ``mla``, ``ln2``,
+    ``mlp`` (the reference's ``"mla_dense"`` kind).  ``seq`` returns the
+    latent caches padded to ``ctx["max_len"]`` tokens; ``decode`` writes
+    the new token's latents at slot ``pos`` in place."""
+
+    def seq(self, x, ctx, return_cache: bool):
+        cfg: ModelConfig = ctx["cfg"]
+        s = x.shape[1]
+        h = L.rmsnorm(self["ln1"], x, cfg.norm_eps)
+        o, ckv, kpe = mla_lib.mla_prefill(self["mla"], h, ctx["cos"],
+                                          ctx["sin"], cfg.n_heads, cfg.mla,
+                                          cfg.norm_eps)
+        x, aux = self._ffn(x + o, cfg)
+        cache = None
+        if return_cache:
+            pad = max(0, ctx["max_len"] - s)
+            cache = {"ckv": torch.nn.functional.pad(ckv, (0, 0, 0, pad)),
+                     "kpe": torch.nn.functional.pad(kpe, (0, 0, 0, pad))}
+        return x, cache, aux
+
+    def decode(self, x, cache, ctx):
+        cfg: ModelConfig = ctx["cfg"]
+        b = x.shape[0]
+        pos = ctx["pos"]
+        h = L.rmsnorm(self["ln1"], x, cfg.norm_eps)
+        ckv, kpe = mla_lib.mla_latents(self["mla"], h, ctx["cos"],
+                                       ctx["sin"], cfg.mla, cfg.norm_eps)
+        cap = cache["ckv"].shape[1]
+        slot = pos % cap
+        cache["ckv"][:, slot] = ckv[:, 0]
+        cache["kpe"][:, slot] = kpe[:, 0]
+        o = mla_lib.mla_decode(self["mla"], h, ctx["cos"], ctx["sin"],
+                               cache["ckv"], cache["kpe"],
+                               _filled(cap, pos, b, x.device), cfg.n_heads,
+                               cfg.mla, cfg.norm_eps)
+        return self._ffn(x + o, cfg, _dropless_cf(cfg))[0], cache
+
+
+class MLAMoEBlock(MLADenseBlock):
+    """Multi-head latent attention + MoE FFN (shared experts included):
+    ``ln1``, ``mla``, ``ln2``, ``moe`` (the reference's ``"mla_moe"``
+    kind)."""
+
+    _ffn = MoEBlock._ffn
 
 
 class RWKV6Block(L.ParamTree):
@@ -245,7 +298,8 @@ class Mamba2Block(L.ParamTree):
         return x + y, cache
 
 
-BLOCKS = {"attn": AttnBlock, "moe": MoEBlock, "rwkv6": RWKV6Block,
+BLOCKS = {"attn": AttnBlock, "moe": MoEBlock, "mla_dense": MLADenseBlock,
+          "mla_moe": MLAMoEBlock, "rwkv6": RWKV6Block,
           "mamba2": Mamba2Block}
 
 
@@ -286,16 +340,20 @@ class LM(nn.Module):
 def init_layer(gen: torch.Generator, kind: str, cfg: ModelConfig, device
                ) -> L.ParamTree:
     dt, d = cfg.param_torch_dtype, cfg.d_model
-    if kind in ("attn", "moe"):
-        hd = cfg.resolved_head_dim
-        dense = lambda shape: L.dense_init(gen, shape, dt, device)
-        tree = {"ln1": L.init_rmsnorm(d, dt, device),
-                "attn": {"wq": dense((d, cfg.n_heads * hd)),
-                         "wk": dense((d, cfg.n_kv_heads * hd)),
-                         "wv": dense((d, cfg.n_kv_heads * hd)),
-                         "wo": dense((cfg.n_heads * hd, d))},
-                "ln2": L.init_rmsnorm(d, dt, device)}
-        if kind == "moe":
+    if kind in ("attn", "moe", "mla_dense", "mla_moe"):
+        tree = {"ln1": L.init_rmsnorm(d, dt, device)}
+        if kind.startswith("mla"):
+            tree["mla"] = mla_lib.init_mla(gen, d, cfg.n_heads, cfg.mla, dt,
+                                           device)
+        else:
+            hd = cfg.resolved_head_dim
+            dense = lambda shape: L.dense_init(gen, shape, dt, device)
+            tree["attn"] = {"wq": dense((d, cfg.n_heads * hd)),
+                            "wk": dense((d, cfg.n_kv_heads * hd)),
+                            "wv": dense((d, cfg.n_kv_heads * hd)),
+                            "wo": dense((cfg.n_heads * hd, d))}
+        tree["ln2"] = L.init_rmsnorm(d, dt, device)
+        if kind.endswith("moe"):
             tree["moe"] = moe_lib.init_moe(gen, d, cfg.moe, dt, device)
         else:
             tree["mlp"] = L.init_mlp(gen, d, cfg.d_ff, cfg.mlp_kind, dt,
@@ -336,8 +394,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:
 # embedding / head
 # ---------------------------------------------------------------------------
 
-def embed_inputs(params: LM, cfg: ModelConfig, tokens) -> torch.Tensor:
+def embed_inputs(params: LM, cfg: ModelConfig, tokens,
+                 patch_embeds=None) -> torch.Tensor:
+    """Token embeddings (B, S, D), with ``patch_embeds`` (B, P, D) in
+    front when the config has patch positions."""
     x = params.embed["tok"][tokens.long()]
+    if cfg.num_patch_positions and patch_embeds is not None:
+        x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
     return x.to(cfg.compute_torch_dtype)
 
 
@@ -352,18 +415,37 @@ def lm_logits(params: LM, cfg: ModelConfig, x) -> torch.Tensor:
 # full model entry points
 # ---------------------------------------------------------------------------
 
-def _ctx(cfg: ModelConfig, positions: torch.Tensor) -> dict:
-    cos, sin = L.rope_cos_sin(positions, cfg.resolved_head_dim,
-                              cfg.rope_theta)
+def _ctx(cfg: ModelConfig, positions, b: int, s: int, device,
+         start: int = 0) -> dict:
+    """The rope tables of ``positions``, by default ``start, ..., start +
+    s - 1`` (on all three rows under M-RoPE): at MLA's rope width when
+    the config has MLA, by M-RoPE sections ((3, B, S) positions) when it
+    has them."""
+    if positions is None:
+        positions = torch.arange(start, start + s, dtype=torch.int32,
+                                 device=device)
+        if cfg.mrope_sections:
+            positions = positions.expand(3, b, s)
+    hd = (cfg.mla.qk_rope_head_dim if cfg.mla is not None
+          else cfg.resolved_head_dim)
+    if cfg.mrope_sections:
+        if positions.dim() != 3:
+            raise ValueError(f"M-RoPE needs (3, B, S) positions, got "
+                             f"{tuple(positions.shape)}")
+        cos, sin = L.mrope_cos_sin(positions, hd, cfg.rope_theta,
+                                   cfg.mrope_sections)
+    else:
+        cos, sin = L.rope_cos_sin(positions, hd, cfg.rope_theta)
     return {"cfg": cfg, "cos": cos, "sin": sin}
 
 
-def forward(params: LM, cfg: ModelConfig, tokens):
-    """Teacher-forced logits.  tokens: (B, S) → (logits (B, S, V), the
-    MoE blocks' summed aux loss as a 0-d float32 tensor, 0 without
-    MoE)."""
-    x = embed_inputs(params, cfg, tokens)
-    ctx = _ctx(cfg, torch.arange(x.shape[1], device=x.device))
+def forward(params: LM, cfg: ModelConfig, tokens, positions=None,
+            patch_embeds=None):
+    """Teacher-forced logits.  tokens: (B, S_text); positions and patch
+    embeds as the module docstring says → (logits (B, S, V), the MoE
+    blocks' summed aux loss as a 0-d float32 tensor, 0 without MoE)."""
+    x = embed_inputs(params, cfg, tokens, patch_embeds)
+    ctx = _ctx(cfg, positions, *x.shape[:2], x.device)
     aux_total = torch.zeros((), device=x.device)
     for _, _, block in params.scheduled():
         x, _, aux = block.seq(x, ctx, return_cache=False)
@@ -390,6 +472,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     for kind in cfg.block_kinds():
         if kind in ("attn", "moe"):
             layers.append(ring())
+        elif kind in ("mla_dense", "mla_moe"):
+            m = cfg.mla
+            layers.append({"ckv": zeros(batch, max_len, m.kv_lora_rank),
+                           "kpe": zeros(batch, max_len,
+                                        m.qk_rope_head_dim)})
         elif kind == "mamba2":
             mc = cfg.mamba2
             conv_dim = mc.d_inner(d) + 2 * mc.n_groups * mc.d_state
@@ -407,14 +494,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return cache
 
 
-def prefill(params: LM, cfg: ModelConfig, tokens,
-            max_len: Optional[int] = None):
-    """Run the full prompt (B, S) and build the cache.  Returns
-    (last-token logits (B, V), cache)."""
-    x = embed_inputs(params, cfg, tokens)
+def prefill(params: LM, cfg: ModelConfig, tokens, positions=None,
+            patch_embeds=None, max_len: Optional[int] = None):
+    """Run the full prompt (B, S_text), with its patch embeds in front,
+    and build the cache.  Returns (last-token logits (B, V), cache);
+    ``cache["pos"]`` counts patches and text."""
+    x = embed_inputs(params, cfg, tokens, patch_embeds)
     s = x.shape[1]
-    ctx = _ctx(cfg, torch.arange(s, device=x.device))
+    ctx = _ctx(cfg, positions, x.shape[0], s, x.device)
     ctx["cache_cap"] = cache_capacity(cfg, max_len or s)
+    ctx["max_len"] = max_len or s
     caches = {"layer": [], "shared": []}
     for kind, _, block in params.scheduled():
         x, cache, _ = block.seq(x, ctx, return_cache=True)
@@ -426,14 +515,14 @@ def prefill(params: LM, cfg: ModelConfig, tokens,
     return logits[:, 0], out
 
 
-def decode_step(params: LM, cfg: ModelConfig, token, cache: dict):
-    """token: (B,).  Returns (logits (B, V), cache) — the cache updated in
-    place, ``pos`` advanced by one."""
+def decode_step(params: LM, cfg: ModelConfig, token, cache: dict,
+                positions=None):
+    """token: (B,); positions (B, 1), or (3, B, 1) under M-RoPE, by
+    default ``cache["pos"]``.  Returns (logits (B, V), cache) — the cache
+    updated in place, ``pos`` advanced by one."""
     x = embed_inputs(params, cfg, token[:, None])
-    b = x.shape[0]
     pos = cache["pos"]
-    ctx = _ctx(cfg, torch.full((b, 1), pos, dtype=torch.int32,
-                               device=x.device))
+    ctx = _ctx(cfg, positions, x.shape[0], 1, x.device, start=pos)
     ctx["pos"] = pos
     for kind, i, block in params.scheduled():
         x, _ = block.decode(

@@ -20,7 +20,10 @@ from repro_torch.models.config import ModelConfig
 
 def make_prefill(cfg: ModelConfig):
     def prefill_step(params, batch, max_len):
-        return tf.prefill(params, cfg, batch["tokens"], max_len=max_len)
+        return tf.prefill(params, cfg, batch["tokens"],
+                          positions=batch.get("positions"),
+                          patch_embeds=batch.get("patch_embeds"),
+                          max_len=max_len)
     return prefill_step
 
 
@@ -63,15 +66,20 @@ def _sync(device: torch.device) -> None:
 def generate(params, cfg: ModelConfig, prompt_batch: dict, *, steps: int,
              max_len: int | None = None, sample: str = "greedy",
              temperature: float = 1.0, key=None) -> GenerationResult:
-    """Prefill the prompt, then decode ``steps - 1`` more tokens
-    (``steps`` in all, the first from the prefill logits)."""
+    """Prefill the prompt (with its positions and patch embeds, when it
+    has them), then decode ``steps - 1`` more tokens (``steps`` in all,
+    the first from the prefill logits).
+
+    The cache holds ``max_len`` or, as in the reference, the text length
+    + ``steps`` + 1 tokens: patch positions are not counted, so with
+    patches a KV ring holds fewer slots than the prompt."""
     tokens = prompt_batch["tokens"]
     dev = tokens.device
     total = max_len or (tokens.shape[-1] + steps + 1)
     serve_step = make_serve_step(cfg, sample=sample, temperature=temperature)
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = tf.prefill(params, cfg, tokens, max_len=total)
+    logits, cache = make_prefill(cfg)(params, prompt_batch, total)
     k0 = None
     if sample != "greedy":
         key, k0 = rnd.split(key, 2)

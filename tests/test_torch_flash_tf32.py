@@ -19,11 +19,13 @@ import torch
 
 from repro.models.attention import flash_attention_jnp
 from repro_torch.kernels import flash_attention as fa
-from test_torch_kernels_gpu import FLASH_CASES, _flash_inputs
+from test_torch_kernels_gpu import (FLASH_CASES, WIDE_FLASH_CASES,
+                                    _flash_inputs)
 
 F32_TOL = dict(atol=3e-5, rtol=1e-4)
 NEG_INF = -1e30
-TILE = 64  # keys per tile, as the kernel
+TILE = 64  # keys per tile, as the kernel at D <= 128
+WIDE_TILE = 32  # and at D in (128, 192]
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
@@ -47,10 +49,10 @@ def mm_1xtf32(a, b):
     return tf32(a) @ tf32(b)
 
 
-def emulated_flash(q, k, v, *, causal, window, mm):
+def emulated_flash(q, k, v, *, causal, window, mm, tile=TILE):
     """The kernel's forward: q pre-scaled in f32, products by ``mm``,
     masked scores at -1e30, running max / sum / accumulator in f32 over
-    64-key tiles, out = acc / max(l, 1e-30)."""
+    ``tile``-key tiles, out = acc / max(l, 1e-30)."""
     b, sq, h, d = q.shape
     sk, n_kv = k.shape[1], k.shape[2]
     qf = (q.float() * d ** -0.5).permute(0, 2, 1, 3)
@@ -60,8 +62,8 @@ def emulated_flash(q, k, v, *, causal, window, mm):
     m = torch.full((b, h, sq, 1), NEG_INF)
     l = torch.zeros((b, h, sq, 1))
     acc = torch.zeros((b, h, sq, v.shape[-1]))
-    for k0 in range(0, sk, TILE):
-        k1 = min(k0 + TILE, sk)
+    for k0 in range(0, sk, tile):
+        k1 = min(k0 + tile, sk)
         s = mm(qf, kf[:, :, k0:k1].transpose(-1, -2))
         cols = torch.arange(k0, k1)[None, :]
         ok = torch.ones((sq, k1 - k0), dtype=torch.bool)
@@ -100,12 +102,13 @@ def test_tf32_rounds_as_cvt_rna():
     assert float(((hi + lo - r).abs() / r.abs()).max()) <= 2.0 ** -21
 
 
-@pytest.mark.parametrize("b,sq,sk,h,kv,d,dv,causal,window", FLASH_CASES)
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,dv,causal,window",
+                         FLASH_CASES + WIDE_FLASH_CASES)
 def test_3xtf32_matches_plain_and_reference(b, sq, sk, h, kv, d, dv, causal,
                                             window):
     q, k, v = _flash_inputs(sq + d, b, sq, sk, h, kv, d, dv, torch.float32)
     got = emulated_flash(q, k, v, causal=causal, window=window,
-                         mm=mm_3xtf32)
+                         mm=mm_3xtf32, tile=TILE if d <= 128 else WIDE_TILE)
     plain = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
     ref = flash_attention_jnp(*(jnp.asarray(t.numpy()) for t in (q, k, v)),
                               causal=causal, window=window, q_block=sq,

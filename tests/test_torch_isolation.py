@@ -50,7 +50,9 @@ def test_port_files_found():
                 "core/baselines.py", "core/replay.py",
                 "core/orchestrator.py", "configs/mobilenet_pool.py",
                 "models/moe.py", "configs/mixtral_8x7b.py",
-                "configs/mistral_nemo_12b.py", "configs/nemotron_4_15b.py"):
+                "configs/mistral_nemo_12b.py", "configs/nemotron_4_15b.py",
+                "models/mla.py", "configs/deepseek_v2_236b.py",
+                "configs/qwen2_vl_7b.py"):
         assert (PORT / rel) in FILES, rel
 
 

@@ -202,6 +202,21 @@ FLASH_CASES = [
     (1, 300, 300, 4, 2, 128, 128, True, 16),
     (2, 150, 150, 4, 4, 64, 64, True, 1),
 ]
+# the float32 kernel's layout for D in (128, 192] (MLA's prefill: Dk 192,
+# Dv 128): ragged S, one key past a 32-key tile (33), GQA, a continuation,
+# a window smaller than a tile, D not a multiple of 8 (132), Dv < 128,
+# full attention, one query row against 4097 keys
+WIDE_FLASH_CASES = [
+    (1, 128, 128, 4, 4, 192, 128, True, 0),
+    (2, 100, 100, 4, 2, 192, 128, True, 0),
+    (1, 33, 33, 2, 1, 192, 128, True, 0),
+    (1, 37, 165, 4, 2, 192, 128, True, 0),
+    (1, 300, 300, 4, 2, 160, 128, True, 16),
+    (1, 130, 130, 2, 2, 132, 100, True, 0),
+    (1, 129, 129, 2, 1, 192, 64, True, 0),
+    (1, 128, 128, 2, 2, 192, 128, False, 0),
+    (1, 1, 4097, 4, 2, 192, 128, True, 0),
+]
 TOL = {torch.float32: dict(atol=3e-5, rtol=1e-4),
        torch.bfloat16: dict(atol=3e-2, rtol=3e-2)}
 # bf16 is also held row by row: one bf16 step is at most 2^-7 of a value,
@@ -268,6 +283,47 @@ def test_flash_kernel_matches_plain(cuda, b, sq, sk, h, kv, d, dv, causal,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,dv,causal,window", WIDE_FLASH_CASES)
+def test_flash_kernel_wide_head_dims(cuda, b, sq, sk, h, kv, d, dv, causal,
+                                     window):
+    q, k, v = _flash_inputs(sq + d + dv, b, sq, sk, h, kv, d, dv,
+                            torch.float32)
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q.to(cuda), k.to(cuda), v.to(cuda),
+                             causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    assert got.shape == (b, sq, h, dv)
+    _assert_flash_close(got, want)
+
+
+@pytest.mark.gpu
+def test_flash_kernel_mla_views_and_bf16_limit(cuda):
+    """MLA's operands as ``mla_prefill`` hands them over: K the
+    concatenation of 128 nope and 64 rope columns, V the strided view
+    ``kv[..., 128:]`` of the decompressed (B, S, H, 256) latents, read in
+    place; bfloat16 at D 192 raises, naming the roadmap."""
+    b, s, h = 2, 160, 4
+    rng = np.random.default_rng(192)
+    mk = lambda *sh: torch.as_tensor(
+        rng.standard_normal(sh).astype(np.float32))
+    q, kv, k_pe = mk(b, s, h, 192), mk(b, s, h, 256), mk(b, s, 1, 64)
+    k = torch.cat([kv[..., :128], k_pe.expand(b, s, h, 64)], -1)
+    v = kv[..., 128:]
+    want = fa.flash_attention_plain(q, k, v, causal=True, scale=192 ** -0.5)
+    kv_c = kv.to(cuda)
+    v_c = kv_c[..., 128:]
+    assert not v_c.is_contiguous() and fa._build.aligned(v_c) is v_c
+    got = fa.flash_attention(q.to(cuda), k.to(cuda), v_c, causal=True,
+                             scale=192 ** -0.5)
+    _assert_flash_close(got, want)
+    with pytest.raises(ValueError, match="ROADMAP.md"):
+        fa.flash_attention(*(t.to(cuda, torch.bfloat16)
+                             for t in (q, k, v)), causal=True)
+
+
+@pytest.mark.gpu
 def test_flash_kernel_bf16_and_strided(cuda):
     q, k, v = _flash_inputs(3, 2, 192, 192, 8, 2, 128, 128, torch.float32)
     want = fa.flash_attention_plain(q, k, v, causal=True)
@@ -295,13 +351,18 @@ def test_flash_kernel_bf16_and_strided(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,s,h,kv,d", [(4, 2048, 32, 8, 128),
-                                        (4, 2048, 48, 8, 128)],
-                         ids=["mistral-nemo-12b", "nemotron-4-15b"])
-def test_flash_kernel_dense_serving_shapes(cuda, b, s, h, kv, d):
-    """mistral-nemo-12b's and nemotron-4-15b's prefill attention (f32,
-    causal, GQA 4:1 and 6:1), the plain version on the card beside."""
-    q, k, v = (t.to(cuda) for t in _flash_inputs(h, b, s, s, h, kv, d, d,
+@pytest.mark.parametrize("b,s,h,kv,d,dv", [(4, 2048, 32, 8, 128, 128),
+                                           (4, 2048, 48, 8, 128, 128),
+                                           (4, 2048, 128, 128, 192, 128),
+                                           (4, 3072, 28, 4, 128, 128)],
+                         ids=["mistral-nemo-12b", "nemotron-4-15b",
+                              "deepseek-v2-236b_mla", "qwen2-vl-7b"])
+def test_flash_kernel_dense_serving_shapes(cuda, b, s, h, kv, d, dv):
+    """The prefill attention of mistral-nemo-12b, nemotron-4-15b,
+    deepseek-v2-236b (MLA: Dk 192, Dv 128, 128 heads) and qwen2-vl-7b
+    (2,048 text and 1,024 patch positions) in f32, causal, the plain
+    version on the card beside."""
+    q, k, v = (t.to(cuda) for t in _flash_inputs(h, b, s, s, h, kv, d, dv,
                                                  torch.float32))
     want = fa.flash_attention_plain(q, k, v, causal=True)
     got = fa.flash_attention(q, k, v, causal=True)

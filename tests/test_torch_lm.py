@@ -1,7 +1,10 @@
 """The port's LM serving path against the JAX reference on the CPU.
 
-At the yi, h2o-danube, rwkv6, zamba2, mistral-nemo, nemotron and
-mixtral smoke configs, with the reference's weights carried across by
+At the yi, h2o-danube, rwkv6, zamba2, mistral-nemo, nemotron,
+mixtral, deepseek-v2 (MLA + MoE with a shared expert and a first dense
+layer) and qwen2-vl (M-RoPE; its prompts with patch embeddings, which
+the tests carry across with the prompt) smoke configs, with the
+reference's weights carried across by
 ``convert.lm_params``: prefill and decode logits within 1e-4 of the
 reference's (the bar of ``tests/test_models_consistency.py``, which holds
 MoE configs to it dropless), the forward's aux loss within 1e-6, the ring
@@ -32,12 +35,13 @@ from repro_torch.launch import serve
 from repro_torch.models import config as port_config
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as tf
-from repro_torch.models.config import MLAConfig, ModelConfig, MoEConfig
+from repro_torch.models.config import ModelConfig
 from repro_torch.serving.engine import generate
 
 CPU = torch.device("cpu")
 PORTED = ("yi-6b", "h2o-danube-3-4b", "rwkv6-1.6b", "zamba2-1.2b",
-          "mistral-nemo-12b", "nemotron-4-15b", "mixtral-8x7b")
+          "mistral-nemo-12b", "nemotron-4-15b", "mixtral-8x7b",
+          "deepseek-v2-236b", "qwen2-vl-7b")
 TOL = 1e-4
 
 
@@ -59,8 +63,17 @@ def _both(arch, seed=0):
 
 
 def _tokens(jcfg, seed, b, s):
-    return jmake_batch(jcfg, jax.random.PRNGKey(seed), b, s,
+    """(B, S) text tokens (a config with patch positions draws S text
+    tokens after them)."""
+    return jmake_batch(jcfg, jax.random.PRNGKey(seed), b,
+                       s + jcfg.num_patch_positions,
                        with_labels=False)["tokens"]
+
+
+def _torch_batch(batch):
+    """A reference prompt batch (tokens, and patch embeds and positions
+    where it has them) as tensors."""
+    return {k: torch.as_tensor(np.array(v)) for k, v in batch.items()}
 
 
 def _err(a, b):
@@ -177,8 +190,7 @@ def test_generate_matches_reference_tokens(arch, sample):
     key = jax.random.PRNGKey(1)
     want = jgenerate(jparams, jcfg, batch, steps=8, sample=sample,
                      temperature=0.8, key=key)
-    got = generate(params, cfg,
-                   {"tokens": torch.as_tensor(np.asarray(batch["tokens"]))},
+    got = generate(params, cfg, _torch_batch(batch),
                    steps=8, sample=sample, temperature=0.8,
                    key=convert.key_from_data(np.asarray(key), CPU))
     np.testing.assert_array_equal(got.tokens.numpy(),
@@ -191,12 +203,15 @@ def test_generate_matches_reference_tokens(arch, sample):
 @pytest.mark.parametrize("b,s,seed", [(2, 33, 0), (4, 2048, 7)])
 def test_make_batch_prompts_match(arch, b, s, seed):
     jcfg = jget_config(arch)
+    s += jcfg.num_patch_positions
     want = jmake_batch(jcfg, jax.random.PRNGKey(seed), b, s)
     got = make_batch(get_config(arch), torch.as_tensor(
         np.asarray(jax.random.PRNGKey(seed)).astype(np.int64)), b, s)
-    for name in ("tokens", "labels"):
-        np.testing.assert_array_equal(got[name].numpy(),
-                                      np.asarray(want[name]))
+    assert got.keys() == want.keys()
+    for name in ("tokens", "labels", "positions"):
+        if name in want:
+            np.testing.assert_array_equal(got[name].numpy(),
+                                          np.asarray(want[name]))
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -228,10 +243,9 @@ def test_other_archs_raise_naming_the_roadmap():
             get_smoke_config(arch)
     with pytest.raises(KeyError):
         get_config("gpt-2")
-    mla = ModelConfig(name="mla-tiny", moe=MoEConfig(num_experts=4),
-                      mla=MLAConfig())
-    with pytest.raises(NotImplementedError, match="MLA \\+ MoE slice"):
-        tf.init_params(mla, device=CPU)
+    codebooks = ModelConfig(name="codebook-tiny", num_codebooks=4)
+    with pytest.raises(NotImplementedError, match="multi-codebook slice"):
+        tf.init_params(codebooks, device=CPU)
 
 
 def _port_cfg(jc):

@@ -98,11 +98,12 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = []
-    for name, b, s, h, kv, d, window, dt in FLASH_SHAPES:
+    for name, b, s, h, kv, d, dv, window, dt in FLASH_SHAPES:
         # every row draws its inputs, as chip_smoke.py does, so each f32
         # row sees the same inputs there and here
-        q, k, v = (torch.randn(b, s, n, d, generator=gen, device=dev)
-                   .to(getattr(torch, dt)) for n in (h, kv, kv))
+        q, k, v = (torch.randn(b, s, n, w, generator=gen, device=dev)
+                   .to(getattr(torch, dt))
+                   for n, w in ((h, d), (kv, d), (kv, dv)))
         if dt != "float32":
             continue
         plain = fa.flash_attention_plain(q, k, v, causal=True,
