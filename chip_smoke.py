@@ -76,7 +76,14 @@ CUDA toolkit's nvcc.  Phases, each printing one JSON line:
    products at the TF32 peak, with the exact recurrence's FP32 bound
    beside) and the flash and SSD kernels' tensor-core instruction counts
    from ``cuobjdump -sass`` of the built libraries (every instance must
-   hold some);
+   hold some); then the flash backward (``BWD_SHAPES``: musicgen-medium's
+   and yi-6b's training shapes, h2o-danube's window 4,096 at D 120 and S
+   4,608, a continuation Sq < Sk, Dk != Dv): the forward kernel's LSE
+   within 1e-5 of the plain version's, and the backward kernel's dq, dk,
+   dv from the same o, LSE and dO each within 1e-4 of the plain tensor's
+   largest magnitude, timed beside the plain backward, one SDPA forward
+   plus ``autograd.grad`` through it, and its bound (five products a
+   visible pair at the 3xTF32 rate, the FP32 CUDA-core bound beside);
 8. lm_serve: ``repro_torch.launch.serve`` at full width — yi-6b,
    rwkv6-1.6b, zamba2-1.2b, mistral-nemo-12b and nemotron-4-15b at
    prompt 2048, h2o-danube-3-4b at prompt 4,608 (past its 4,096-token
@@ -85,7 +92,9 @@ CUDA toolkit's nvcc.  Phases, each printing one JSON line:
    MoE layers) through ``serve_config`` (the registry's ``n_layers``
    override), each at the published capacity factor 1.25 and dropless
    (deepseek's dropless run one sequence), and qwen2-vl-7b with 1,024
-   patch positions before its 2,048 text tokens; weights from a
+   patch positions before its 2,048 text tokens, and musicgen-medium (48
+   layers, 2,048 positions of 4 codebooks, (B, 4) codes a step); weights
+   from a
    ``torch.Generator`` on the card, batch 4, 32 greedy tokens — with
    launch counts read around each run (each kernel launched as often as
    the config's blocks call it in one prefill: flash once per attn, moe,
@@ -100,8 +109,9 @@ CUDA toolkit's nvcc.  Phases, each printing one JSON line:
    prefill, whose cache covers patches, text and generated tokens and
    whose decode steps get the forward's M-RoPE positions);
 9. lm_parity: the yi, h2o-danube, rwkv6, zamba2, mistral-nemo, nemotron,
-   mixtral, deepseek-v2 and qwen2-vl (its patch embeds and positions
-   too) smoke configs from one seed on the CPU and on the card — logits
+   mixtral, deepseek-v2, qwen2-vl (its patch embeds and positions
+   too) and musicgen (codes) smoke configs from one seed on the CPU and
+   on the card — logits
    within 1e-4, greedy tokens identical, the MoE configs' routed ids and
    keep flags of every dispatch identical (an id may differ only at a
    near-tie of the CPU's probabilities, within 1e-5);
@@ -224,6 +234,26 @@ CUDA toolkit's nvcc.  Phases, each printing one JSON line:
    1 of the greedy deployment (``set_sync_debug_mode("warn")``): none
    inside the tick, the same lines as phase 12's count.  Prints its
    seconds.
+16. lm_train: LM training (``repro_torch.training``).  (a) musicgen-medium
+   whole (48 layers, full width, 1.38e9 parameters) through
+   ``repro_torch.launch.train``'s path: batch 4, 2,048 positions of 4
+   codebooks, 4 steps of adamw with cosine warm-up and per-layer
+   recomputation; loss and grad norm finite, grad norm > 0, every
+   parameter moved; flash launches, zeroed just before the run and read
+   just after, exactly 48 forward + 48 recomputed forward and 48
+   backward calls (two kernels each) a step, WKV6 and SSD none; ms a
+   step and positions a second from the second step on, peak memory,
+   device ops and busy share of one more step in the profiler; the
+   ~16.6 GB ``TrainState`` checkpoint it writes read back equal, tensor
+   by tensor, then deleted.  (b) yi-6b at full width and 4 of its 32
+   layers on the synthetic corpus, 20 steps: the last three steps' mean
+   loss at least 10% under the first, ms a step.  (c) One and two sgd
+   steps at smoke size from one state on the CPU and the card (yi-6b,
+   h2o-danube-3-4b, musicgen-medium): loss, CE, grad norm within 1e-5
+   relative, parameters within 1e-5.  (d) An rwkv6, a zamba2 and a
+   bf16 yi-6b smoke train step on the card raise
+   ``NotImplementedError`` naming ``ROADMAP.md`` (no backward kernel
+   for WKV6, SSD or bf16 flash yet), as they must.  Prints its seconds.
 
 Any failed check raises, so the exit code is non-zero.  Ends with the
 ``nvidia-smi`` line, the kernels' JSON summary and, last,
@@ -262,6 +292,8 @@ ORCH_CU = "src/repro_torch/kernels/csrc/orchestration.cu"
 REPLACES = {"queue_admit": "src/repro/kernels/orchestration.py:114",
             "group_occupancy": "src/repro/kernels/orchestration.py:55",
             "flash_attention": "src/repro/kernels/flash_attention.py:69",
+            # no TPU kernel: the reference's custom VJP in jnp
+            "flash_attention_backward": "src/repro/models/attention.py:147",
             "wkv6": "src/repro/kernels/wkv6.py:83",
             "ssd": "src/repro/kernels/ssd.py:66"}
 SOURCES = {"flash_attention":
@@ -889,7 +921,8 @@ def phase_round_replay(torch) -> dict:
                   f"{name} round {r['round']}: ART {r['mean_art_ms']} at "
                   f"least the oracle's {r['opt_art_ms']} - 1e-2")
         want = {"group_occupancy": per_round * REPLAY_ROUNDS,
-                "queue_admit": 0, "flash_attention": 0, "wkv6": 0, "ssd": 0}
+                "queue_admit": 0, "flash_attention": 0, "flash_attention_backward": 0,
+                "wkv6": 0, "ssd": 0}
         check(launches == want, f"{name}: launches {launches}, want {want}")
         coupled[name] = dict(_replay_summary(rep), launches=launches,
                              rounds=[dict(round=r["round"],
@@ -1039,6 +1072,19 @@ SSD_CHUNK = 256  # the config's chunk, which the plain version uses
 # bf16 flash: largest |kernel row - plain row| / |plain row| over the
 # (query, head) rows, beside the element-wise 3e-2 / 3e-2
 BF16_ROW_BAR = 1e-2
+# the flash backward kernel (float32), (name, B, Sq, Sk, H, KV, D, Dv,
+# window): musicgen-medium's and yi-6b's training shapes,
+# h2o-danube-3-4b's window past 4,096 at D 120, a continuation (Sq < Sk)
+# and Dk != Dv; dq, dk, dv within BWD_BAR of each plain tensor's largest
+# magnitude, the forward's LSE within LSE_BAR of the plain version's
+BWD_SHAPES = (
+    ("musicgen-medium", 4, 2048, 2048, 24, 24, 64, 64, 0),
+    ("yi-6b", 4, 2048, 2048, 32, 4, 128, 128, 0),
+    ("h2o-danube-3-4b", 2, 4608, 4608, 32, 8, 120, 120, 4096),
+    ("sq_lt_sk", 4, 1024, 2048, 32, 8, 128, 128, 0),
+    ("dk_ne_dv", 4, 2048, 2048, 32, 8, 128, 64, 0),
+)
+BWD_BAR, LSE_BAR = 1e-4, 1e-5
 
 
 def visible_pairs(s: int, window: int) -> int:
@@ -1047,6 +1093,15 @@ def visible_pairs(s: int, window: int) -> int:
         return s * (s + 1) // 2
     w = min(window, s)
     return w * (w + 1) // 2 + (s - w) * w
+
+
+def visible_pairs_aligned(sq: int, sk: int, window: int) -> int:
+    """Causal pairs per head with the ends aligned: query row i sees keys
+    up to i + sk - sq, within the window if any."""
+    if sq == sk:
+        return visible_pairs(sq, window)
+    return sum(min(r + 1, window) if window else r + 1
+               for r in range(sk - sq, sk))
 
 
 def sass_tensor_ops(lib: Path) -> dict | None:
@@ -1184,8 +1239,99 @@ def phase_lm_kernels(torch, dev, ptxas: dict) -> dict:
     for name, b, s, h, p, g, n in SSD_SHAPES:
         out[name] = dict(ssd_entry(torch, dev, g_=g, b=b, s=s, h=h, p=p,
                                    n=n), sass_tensor_ops=ssd_sass)
+    bwd_ptxas = {k: v for k, v in ptxas.items() if "flash_bwd" in k}
+    for name, b, sq, sk, h, kv, d, dv, window in BWD_SHAPES:
+        out[f"{name}_backward"] = dict(flash_backward_entry(
+            torch, dev, b=b, sq=sq, sk=sk, h=h, kv=kv, d=d, dv=dv,
+            window=window), ptxas=bwd_ptxas)
+        torch.cuda.empty_cache()
     emit("lm_kernels", **out)
     return out
+
+
+def flash_backward_entry(torch, dev, *, b, sq, sk, h, kv, d, dv,
+                         window) -> dict:
+    """The forward kernel's LSE and the backward kernel against their
+    plain versions on the card, from the same o, LSE and dO; timed beside
+    the plain backward and, as the library yardstick, one
+    ``F.scaled_dot_product_attention`` forward plus ``autograd.grad``
+    through it (a refusal is recorded in place of its time)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    q, k, v = (torch.randn(bb, ss, n, w, generator=gen, device=dev)
+               for bb, ss, n, w in ((b, sq, h, d), (b, sk, kv, d),
+                                    (b, sk, kv, dv)))
+    do = torch.randn(b, sq, h, dv, generator=gen, device=dev)
+    scale = d ** -0.5
+    o, lse = fa._forward(q, k, v, True, window, scale, with_lse=True)
+    _, lse_plain = fa.flash_attention_plain(q, k, v, causal=True,
+                                            window=window, return_lse=True)
+    torch.cuda.synchronize()
+    lse_err = float((lse - lse_plain).abs().max())
+    check(lse_err <= LSE_BAR, f"flash LSE at ({b}, {sq}, {sk}, {h}, {kv}, "
+          f"{d}, {dv}, {window}) within {LSE_BAR} of plain ({lse_err})")
+    del lse_plain
+    args = (q, k, v, o, lse, do)
+    kw = dict(causal=True, window=window, scale=scale)
+    got = fa.flash_attention_backward(*args, **kw)
+    want = fa.flash_attention_backward_plain(*args, **kw)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, g_, w_ in zip(("dq", "dk", "dv"), got, want):
+        errs[name] = float((g_ - w_).abs().max() / w_.abs().max())
+        check(errs[name] <= BWD_BAR, f"flash backward {name} within "
+              f"{BWD_BAR} of the plain tensor's largest magnitude "
+              f"({errs[name]})")
+    max_abs = max(float((g_ - w_).abs().max()) for g_, w_ in zip(got, want))
+    del got, want
+    kern = cuda_ms(torch, lambda: fa.flash_attention_backward(*args, **kw),
+                   iters=5)
+    plain = cuda_ms(torch, lambda: fa.flash_attention_backward_plain(
+        *args, **kw), iters=2, warmup=1)
+    # the yardstick: SDPA forward and backward on (B, H, S, D) views; a
+    # window or a continuation as an explicit mask built outside
+    leaves = [t.transpose(1, 2).detach().requires_grad_(True)
+              for t in (q, k, v)]
+    do_t = do.transpose(1, 2)
+    mask = None
+    if window or sq != sk:
+        rows = torch.arange(sq, device=dev)[:, None] + (sk - sq)
+        cols = torch.arange(sk, device=dev)[None, :]
+        mask = cols <= rows
+        if window:
+            mask &= cols > rows - window
+
+    def lib():
+        out = F.scaled_dot_product_attention(
+            *leaves, attn_mask=mask, is_causal=mask is None, enable_gqa=True)
+        return torch.autograd.grad(out, leaves, do_t)
+    try:
+        library, lib_refused = cuda_ms(torch, lib, iters=3, warmup=1), None
+    except RuntimeError as e:
+        library = dict(ms=None, call_ms=None, blocker_held=True)
+        lib_refused = str(e).splitlines()[0][:300]
+    pairs = b * h * visible_pairs_aligned(sq, sk, window)
+    # q, k, v, o, dO and the LSE read once; dq, dk, dv written once
+    n_bytes = 4 * (b * sq * h * (2 * d + 2 * dv) + b * sk * kv * 2 * (d + dv)
+                   + b * h * sq)
+    # five products a visible pair: S, dP, dV, dK, dQ
+    flops = 2 * (3 * d + 2 * dv) * pairs
+    return dict(
+        name="flash_attention_backward", route="cuda",
+        source=SOURCES["flash_attention"],
+        replaces=REPLACES["flash_attention_backward"],
+        max_abs_err=max_abs, max_rel_to_max_err=errs, lse_max_abs_err=lse_err,
+        ms=kern["ms"], plain_ms=plain["ms"], library_ms=library["ms"],
+        library="scaled_dot_product_attention forward + autograd.grad",
+        library_refused=lib_refused,
+        **roofline(n_bytes, 3 * flops, PEAK_TF32),
+        fp32_bound_ms=roofline(n_bytes, flops, PEAK_FP32)["bound_ms"],
+        call_ms=kern["call_ms"], plain_call_ms=plain["call_ms"],
+        library_call_ms=library["call_ms"],
+        blocker_held=kern["blocker_held"] and library["blocker_held"],
+        shape=dict(B=b, Sq=sq, Sk=sk, H=h, KV=kv, D=d, Dv=dv, window=window,
+                   dtype="float32", visible_pairs=pairs))
 
 
 def wkv6_entry(torch, dev, *, b, s, h, n, dt) -> dict:
@@ -1354,7 +1500,7 @@ def profile_lm(torch, run, rep: dict, steps: int = 2) -> dict:
     kernels = [k for k, n in expected_launches(cfg).items() if n]
     with torch.inference_mode():
         pre, (logits, cache) = _device_time(torch, lambda: prefill(
-            params, run.prompt, tokens.shape[1] + steps + 1),
+            params, run.prompt, tokens.shape[-1] + steps + 1),
             [DEVICE_NAMES[k] for k in kernels])
         tok0 = torch.argmax(logits, dim=-1).to(torch.int32)
         pos0 = cache["pos"]
@@ -1413,6 +1559,7 @@ def n_moe_blocks(cfg) -> int:
 # sequence.  danube's prompt passes its 4,096-token window, so its KV
 # ring wraps.  qwen2-vl's prompt is 1,024 patch positions and 2,048 text
 # tokens; its invariant needs its own prefill (``vision_forward_check``).
+# musicgen-medium's prompt is 2,048 positions of 4 codebooks, (B, 4, S).
 MIXTRAL_LAYERS, MIXTRAL_DROPLESS_CF = 8, 8.0
 DEEPSEEK_LAYERS, DEEPSEEK_DROPLESS_CF = 3, 160.0
 LM_RUNS = (
@@ -1435,6 +1582,8 @@ LM_RUNS = (
      {"n_layers": DEEPSEEK_LAYERS, "capacity_factor": DEEPSEEK_DROPLESS_CF},
      1, LM_PROMPT, 1),
     ("qwen2-vl-7b", "qwen2-vl-7b", {}, LM_BATCH, LM_PROMPT, LM_BATCH),
+    ("musicgen-medium", "musicgen-medium", {}, LM_BATCH, LM_PROMPT,
+     LM_BATCH),
 )
 
 
@@ -1494,8 +1643,10 @@ def decode_bound(run, batch: int, prompt: int) -> dict:
     size = lambda t: t.numel() * t.element_size()
     weights = sum(size(p) for p in params.parameters())
     if not cfg.tie_embeddings:
+        # one row of each (codebook) table a sequence
         tok = params.embed["tok"]
-        weights -= size(tok) - batch * tok.shape[1] * tok.element_size()
+        rows = batch * max(1, cfg.num_codebooks)
+        weights -= size(tok) - rows * tok.shape[-1] * tok.element_size()
     state = 0
     for c in run.result.cache["layers"] + run.result.cache.get("shared", []):
         for name, t in c.items():
@@ -1514,12 +1665,16 @@ def lm_forward_check(torch, run, per: int) -> dict:
     sequences a forward call."""
     from repro_torch.models import transformer as tf
     res, prompt = run.result, run.prompt["tokens"]
-    seq = torch.cat([prompt, res.tokens[:, :-1]], dim=1)
+    # tokens (B, S) or codes (B, K, S): generated ones on the last axis
+    seq = torch.cat([prompt, res.tokens[..., :-1]], dim=-1)
     errs, first, aux = [], [], []
     with torch.inference_mode():
         for lo in range(0, seq.shape[0], per):
             full, a = tf.forward(run.params, run.cfg, seq[lo:lo + per])
-            ref = full[:, prompt.shape[1] - 1:]
+            # (B, S, V), or (B, K, S, V) as (B, S, K, V): res.logits' order
+            if run.cfg.num_codebooks:
+                full = full.transpose(1, 2)
+            ref = full[:, prompt.shape[-1] - 1:]
             got = res.logits[lo:lo + per]
             check(ref.shape == got.shape, "logit shapes agree")
             errs.append(float((ref - got).abs().max()))
@@ -1603,7 +1758,8 @@ def phase_lm_serve(torch) -> dict:
         # the positions a prefill covers: patches and text
         positions = prompt + run.cfg.num_patch_positions
         check(bool(torch.isfinite(res.logits).all()), f"{label} finite")
-        check(res.logits.shape == (batch, LM_GEN, run.cfg.vocab_size),
+        k = (run.cfg.num_codebooks,) if run.cfg.num_codebooks else ()
+        check(res.logits.shape == (batch, LM_GEN, *k, run.cfg.vocab_size),
               f"{label}: logits of every generated token")
         extra = {}
         if per is not None:
@@ -1700,7 +1856,7 @@ def phase_lm_parity(torch) -> None:
     out = {}
     for arch in ("yi-6b", "h2o-danube-3-4b", "rwkv6-1.6b", "zamba2-1.2b",
                  "mistral-nemo-12b", "nemotron-4-15b", "mixtral-8x7b",
-                 "deepseek-v2-236b", "qwen2-vl-7b"):
+                 "deepseek-v2-236b", "qwen2-vl-7b", "musicgen-medium"):
         cfg = get_smoke_config(arch)
         cpu_params = tf.init_params(cfg, seed=SEED, device="cpu")
         gpu_params = copy.deepcopy(cpu_params).to("cuda")
@@ -1945,7 +2101,8 @@ def phase_hltrain(torch) -> dict:
     want = train_launches(hp, n_stages, TRAIN_EPOCHS)
     check(curriculum_counts == {"queue_admit": 0,
                                 "group_occupancy": want["group_occupancy"],
-                                "flash_attention": 0, "wkv6": 0, "ssd": 0},
+                                "flash_attention": 0, "flash_attention_backward": 0,
+                "wkv6": 0, "ssd": 0},
           f"launches around run_curriculum {curriculum_counts}, want "
           f"group_occupancy {want['group_occupancy']} and nothing else")
     # the two evaluations: one quiet round each, 3 sums a decision step
@@ -2094,7 +2251,8 @@ def phase_economy(torch) -> dict:
     n_ticks = rep["n_ticks"]
     check(launches == {"queue_admit": n_ticks,
                        "group_occupancy": 3 * n_ticks,
-                       "flash_attention": 0, "wkv6": 0, "ssd": 0},
+                       "flash_attention": 0, "flash_attention_backward": 0,
+                "wkv6": 0, "ssd": 0},
           f"spot run: queue_admit once and group_occupancy 3 times a tick "
           f"({launches} in {n_ticks} ticks)")
     eco = rep["economy"]
@@ -2347,7 +2505,8 @@ def phase_telemetry(torch) -> dict:
     n_ticks = rep["n_ticks"]
     check(launches == {"queue_admit": n_ticks,
                        "group_occupancy": 3 * n_ticks,
-                       "flash_attention": 0, "wkv6": 0, "ssd": 0},
+                       "flash_attention": 0, "flash_attention_backward": 0,
+                "wkv6": 0, "ssd": 0},
           f"telemetry run: queue_admit once and group_occupancy 3 times a "
           f"tick ({launches} in {n_ticks} ticks)")
     for k, v in off["records"].items():
@@ -3188,6 +3347,243 @@ def phase_single_cell(torch) -> dict:
     return out
 
 
+# ----------------------------------------------------- LM training phase
+# (a) musicgen-medium whole: 48 layers at full width, batch 4, 2,048
+# positions of 4 codebooks, 4 steps of the CLI's adamw with cosine
+# warm-up, per-layer recomputation; the checkpoint it writes (~16.6 GB:
+# parameters and two Adam moments in float32) is read back and deleted
+TRAIN_LM = dict(arch="musicgen-medium", steps=4, batch=4, seq=2048)
+# (b) yi-6b at full width, 4 of its 32 layers, on the synthetic corpus:
+# steps, batch, positions, peak rate of adamw(cosine_with_warmup(lr, 2,
+# steps)); the last LEARN_TAIL steps' mean loss must fall LEARN_DROP
+# below the first step's
+LEARN = dict(arch="yi-6b", n_layers=4, steps=20, batch=4, seq=512, lr=1e-3)
+LEARN_TAIL, LEARN_DROP = 3, 0.10
+# (c) CPU against the card: smoke configs, sgd steps, batch, positions
+TRAIN_PARITY_ARCHS = ("yi-6b", "h2o-danube-3-4b", "musicgen-medium")
+TRAIN_PARITY = dict(steps=2, batch=2, seq=40, lr=0.05)
+
+
+def flash_train_launches(cfg, steps: int) -> dict:
+    """Flash launches of ``steps`` train steps with recomputation: each
+    attention layer's forward twice (the step's and the backward's
+    recomputation) and its backward once (two kernels a call)."""
+    n = expected_launches(cfg)["flash_attention"]
+    return {"flash_attention": 2 * n * steps,
+            "flash_attention_backward": n * steps, "wkv6": 0, "ssd": 0}
+
+
+def checkpoint_round_trip(torch, state, path: str) -> dict:
+    """The ``TrainState`` file read back (``restore``) against the live
+    state, tensor by tensor, bit for bit."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.training.train_step import param_tree
+    t0 = time.perf_counter()
+    tree = ckpt.restore(path)
+    read_s = time.perf_counter() - t0
+    live = param_tree(state.params)
+    check(set(tree["params"]) == set(live), "checkpoint holds every "
+          "parameter")
+    n = 0
+    for name, p in live.items():
+        for saved, t in ((tree["params"][name], p),
+                         (tree["opt_state"]["mu"][name],
+                          state.opt_state.mu[name]),
+                         (tree["opt_state"]["nu"][name],
+                          state.opt_state.nu[name])):
+            check(torch.equal(saved, t.detach().cpu()),
+                  f"checkpoint {name} read back equal")
+            n += saved.numel()
+    check(int(tree["step"]) == int(state.step)
+          and int(tree["opt_state"]["step"]) == int(state.opt_state.step),
+          "checkpoint steps read back equal")
+    return dict(bytes=Path(path).stat().st_size, read_s=read_s,
+                compared_values=n)
+
+
+def train_profile(torch, cfg, state, batch: dict) -> dict:
+    """Device ops, busy ms and the flash kernels' ms of one more train
+    step, in the profiler."""
+    from repro_torch.training.optimizer import adamw
+    from repro_torch.training.schedule import cosine_with_warmup
+    from repro_torch.training.train_step import make_train_step
+    opt = adamw(lr=cosine_with_warmup(3e-4, 20, 100))
+    step = make_train_step(cfg, opt)
+    prof, _ = _device_time(torch, lambda: step(state, batch),
+                           ["flash_fwd_kernel", "flash_bwd"])
+    return prof
+
+
+def train_cpu_vs_card_lm(torch) -> dict:
+    """One and two sgd steps at smoke size from one state, on the CPU and
+    on the card: loss, CE and grad norm within 1e-5 relative, parameters
+    within 1e-5 absolute."""
+    import copy
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import batch_for_config
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training import train_step as ts
+    out = {}
+    for arch in TRAIN_PARITY_ARCHS:
+        cfg = get_smoke_config(arch)
+        opt = opt_lib.sgd(TRAIN_PARITY["lr"])
+        cpu = ts.init_train_state(cfg, opt, seed=SEED, device="cpu")
+        gpu = ts.init_train_state(cfg, opt, params=copy.deepcopy(
+            cpu.params).to("cuda"))
+        step = ts.make_train_step(cfg, opt)
+        rows = []
+        for i in range(TRAIN_PARITY["steps"]):
+            batch = batch_for_config(cfg, i, TRAIN_PARITY["batch"],
+                                     TRAIN_PARITY["seq"])
+            cpu, mc = step(cpu, batch)
+            gpu, mg = step(gpu, {k: v.cuda() for k, v in batch.items()})
+            rel = {k: abs(float(mc[k]) - float(mg[k]))
+                   / max(abs(float(mc[k])), 1e-30)
+                   for k in ("loss", "ce", "grad_norm")}
+            pc, pg = ts.param_tree(cpu.params), ts.param_tree(gpu.params)
+            perr = max(float((pc[n] - pg[n].cpu()).detach().abs().max())
+                       for n in pc)
+            for k, r in rel.items():
+                check(r <= 1e-5, f"{arch} step {i + 1}: {k} on CPU and card "
+                      f"within 1e-5 relative ({r})")
+            check(perr <= 1e-5, f"{arch} step {i + 1}: parameters on CPU "
+                  f"and card within 1e-5 ({perr})")
+            rows.append(dict(rel, param_max_abs_err=perr,
+                             loss=float(mg["loss"])))
+        out[arch] = rows
+    return out
+
+
+def refused_train_steps(torch) -> dict:
+    """A train step that would need a backward kernel the port does not
+    have yet raises on the card, naming the roadmap: rwkv6 (WKV6),
+    zamba2 (SSD) and a bf16 config (flash)."""
+    import dataclasses as dc
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import batch_for_config
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training import train_step as ts
+    out = {}
+    for label, arch, over in (("rwkv6", "rwkv6-1.6b", {}),
+                              ("zamba2", "zamba2-1.2b", {}),
+                              ("yi_bf16", "yi-6b", dict(
+                                  param_dtype="bfloat16",
+                                  compute_dtype="bfloat16"))):
+        cfg = dc.replace(get_smoke_config(arch), **over)
+        opt = opt_lib.sgd(0.1)
+        state = ts.init_train_state(cfg, opt, seed=SEED, device="cuda")
+        batch = batch_for_config(cfg, 0, 2, 40, "cuda")
+        try:
+            ts.make_train_step(cfg, opt)(state, batch)
+            raised = None
+        except NotImplementedError as e:
+            raised = str(e)
+        check(raised is not None and "ROADMAP.md" in raised,
+              f"a {label} train step on the card raises naming the roadmap "
+              f"({raised})")
+        out[label] = raised
+    return out
+
+
+def phase_lm_train(torch) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import batch_for_config
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import transformer as tf
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training import schedule as sched
+    from repro_torch.training import train_step as ts
+    import math
+    import shutil
+    t_phase = time.perf_counter()
+    out = {}
+    # (a) musicgen-medium whole through the CLI's path; launches counted
+    # around the run (zeroed just before it, read just after)
+    ckpt_dir = OUT / "lm_train_ckpt"
+    ckpt_dir.mkdir(exist_ok=True)
+    path = str(ckpt_dir / "musicgen_medium.state.msgpack")
+    try:
+        reset_all_counts()
+        t0 = time.perf_counter()
+        run = train_cli.train(TRAIN_LM["arch"], steps=TRAIN_LM["steps"],
+                              batch=TRAIN_LM["batch"], seq=TRAIN_LM["seq"],
+                              ckpt=path, device="cuda")
+        wall_s = time.perf_counter() - t0
+        launches = {k: v for k, v in all_counts().items()
+                    if k in ("flash_attention", "flash_attention_backward",
+                             "wkv6", "ssd")}
+        cfg, rep = run.cfg, run.report
+        want = flash_train_launches(cfg, TRAIN_LM["steps"])
+        check(launches == want, f"musicgen-medium training launches "
+              f"{launches}, expected {want}")
+        check(all(math.isfinite(x) for x in rep["loss"] + rep["grad_norm"])
+              and min(rep["grad_norm"]) > 0,
+              "musicgen-medium loss and grad norm finite, grad norm > 0")
+        fresh = ts.param_tree(tf.init_params(cfg, seed=0, device="cuda"))
+        moved = {n: not torch.equal(p, fresh[n])
+                 for n, p in ts.param_tree(run.state.params).items()}
+        del fresh
+        check(all(moved.values()), "every musicgen-medium parameter moved "
+              f"({[n for n, m in moved.items() if not m][:5]})")
+        ck = checkpoint_round_trip(torch, run.state, path)
+        prof = train_profile(torch, cfg, run.state, batch_for_config(
+            cfg, TRAIN_LM["steps"], TRAIN_LM["batch"], TRAIN_LM["seq"],
+            "cuda"))
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    out["musicgen-medium"] = dict(
+        {k: rep[k] for k in ("params", "n_layers", "steps", "batch", "seq",
+                             "loss", "grad_norm", "first_step_ms",
+                             "ms_per_step", "tokens_per_s", "peak_mem_gb")},
+        launches=launches, launches_per_step={
+            k: v // TRAIN_LM["steps"] for k, v in launches.items()},
+        wall_s=wall_s, checkpoint=ck,
+        profile=dict(prof, busy_share=prof["device_busy_ms"]
+                     / rep["ms_per_step"]))
+    print(json.dumps({"lm_train": "musicgen-medium", **{
+        k: out["musicgen-medium"][k] for k in (
+            "ms_per_step", "tokens_per_s", "peak_mem_gb", "loss",
+            "launches_per_step")}}), flush=True)
+    del run
+    torch.cuda.empty_cache()
+    # (b) yi-6b at full width, 4 layers: the loss falls
+    cfg = get_config(LEARN["arch"], n_layers=LEARN["n_layers"])
+    opt = opt_lib.adamw(sched.cosine_with_warmup(LEARN["lr"], 2,
+                                                 LEARN["steps"]))
+    state = ts.init_train_state(cfg, opt, seed=SEED, device="cuda")
+    step = ts.make_train_step(cfg, opt)
+    losses = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(LEARN["steps"]):
+        if i == 1:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        state, m = step(state, batch_for_config(cfg, i, LEARN["batch"],
+                                                LEARN["seq"], "cuda"))
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t1) * 1e3 / (LEARN["steps"] - 1)
+    losses = [float(x) for x in losses]
+    tail = sum(losses[-LEARN_TAIL:]) / LEARN_TAIL
+    check(tail <= (1 - LEARN_DROP) * losses[0], f"yi-6b (4 layers) loss "
+          f"falls {LEARN_DROP:.0%} from {losses[0]} (last {LEARN_TAIL} "
+          f"mean {tail})")
+    out["yi-6b_L4"] = dict(LEARN, params=cfg.num_params(), loss=losses,
+                           tail_mean_loss=tail, ms_per_step=ms,
+                           tokens_per_s=LEARN["batch"] * LEARN["seq"]
+                           / ms * 1e3,
+                           peak_mem_gb=torch.cuda.max_memory_allocated()
+                           / 1e9)
+    del state, step
+    torch.cuda.empty_cache()
+    # (c) CPU against the card; (d) the refusals
+    out["cpu_vs_card"] = train_cpu_vs_card_lm(torch)
+    out["refused"] = refused_train_steps(torch)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("lm_train", **out)
+    return out
+
+
 # ------------------------------------------------------- analysis phase
 GATE_TIMEOUT_S = 300
 ENGINE_PY = "src/repro_torch/serve/engine.py"
@@ -3274,7 +3670,8 @@ def phase_analysis(torch) -> dict:
         n_ticks = rep["n_ticks"]
         check(launches == {"queue_admit": n_ticks,
                            "group_occupancy": 3 * n_ticks,
-                           "flash_attention": 0, "wkv6": 0, "ssd": 0},
+                           "flash_attention": 0, "flash_attention_backward": 0,
+                "wkv6": 0, "ssd": 0},
               f"{name}: the sync-free ticks launch queue_admit once and "
               f"group_occupancy 3 times a tick ({launches} in {n_ticks})")
         for k, v in free["records"].items():
@@ -3352,6 +3749,7 @@ def main() -> int:
     phase_sharded(torch)
     phase_single_cell(torch)
     phase_analysis(torch)
+    lm_train = phase_lm_train(torch)
     for name, k in kernels.items():
         k["launches"] = serve["greedy"]["launches"][name]
     kernels["flash_attention"] = dict(
@@ -3363,6 +3761,10 @@ def main() -> int:
     kernels["ssd"] = dict(
         lm_kernels["zamba2-1.2b"],
         launches=lm_serve["zamba2-1.2b"]["launches"]["ssd"])
+    kernels["flash_attention_backward"] = dict(
+        lm_kernels["musicgen-medium_backward"],
+        launches=lm_train["musicgen-medium"]["launches"][
+            "flash_attention_backward"])
     summary = {"kernels": [
         {key: k[key] for key in ("name", "route", "source", "replaces",
                                  "launches", "max_abs_err", "ms",

@@ -8,9 +8,17 @@ so this module encodes and decodes the subset of MessagePack that format
 uses — maps, arrays, str, bin, int, float, bool and nil — with the same
 bytes ``msgpack.packb`` writes (smallest encoding of every int, float64
 floats, str8 and bin types on).  Restored arrays are CPU tensors.
+
+``save`` streams the file leaf by leaf and ``restore`` reads it through
+a memory map, so a checkpoint of several GB (an LM's training state)
+never sits in host memory twice.  ``save_train_state`` /
+``load_train_state`` write and read an LM ``TrainState``
+(``repro_torch.training.train_step``): parameters by name, the
+optimizer's state and the step.
 """
 from __future__ import annotations
 
+import mmap
 import os
 import struct
 from typing import Any
@@ -42,6 +50,8 @@ def _encode(obj):
 
 
 def _decode(obj):
+    if isinstance(obj, memoryview):  # a bin read as a view (restore)
+        return bytes(obj)
     if isinstance(obj, dict):
         if obj.get(_ARR):
             arr = np.frombuffer(obj["data"], dtype=np.dtype(obj["dtype"]))
@@ -88,31 +98,55 @@ def _pack_int(v: int) -> bytes:
 def packb(obj) -> bytes:
     """``msgpack.packb(obj, use_bin_type=True)`` for the subset above."""
     out = bytearray()
+    _pack(obj, out.extend, encode=False)
+    return bytes(out)
+
+
+def _is_array(o) -> bool:
+    return isinstance(o, (torch.Tensor, np.ndarray)) or hasattr(o, "dtype")
+
+
+def _pack(obj, write, encode: bool = True) -> None:
+    """Write ``obj`` through ``write``.  ``encode``: arrays and tuples are
+    encoded as :func:`_encode` encodes them when they are reached, one at
+    a time, and an array's bytes go out as a view, uncopied (without it,
+    ``obj`` is already encoded, as :func:`packb` takes it)."""
 
     def put(o):
-        if o is None:
-            out.append(0xC0)
+        if encode and _is_array(o):
+            if isinstance(o, torch.Tensor):
+                o = o.detach().cpu().numpy()
+            arr = np.asarray(o)
+            if not arr.flags.c_contiguous:  # (ascontiguousarray makes 0-d 1-d)
+                arr = arr.copy()
+            put({_ARR: True, "dtype": str(arr.dtype),
+                 "shape": list(arr.shape),
+                 "data": memoryview(arr.reshape(-1)).cast("B")})
+        elif encode and isinstance(o, tuple):
+            put({_TUP: list(o)})
+        elif o is None:
+            write(b"\xc0")
         elif o is True or o is False:
-            out.append(0xC3 if o else 0xC2)
+            write(b"\xc3" if o else b"\xc2")
         elif isinstance(o, int):
-            out.extend(_pack_int(o))
+            write(_pack_int(o))
         elif isinstance(o, float):
-            out.append(0xCB)
-            out.extend(struct.pack(">d", o))
+            write(b"\xcb")
+            write(struct.pack(">d", o))
         elif isinstance(o, str):
             b = o.encode("utf-8")
-            out.extend(_head(len(b), 0xA0, 31, {1: 0xD9, 2: 0xDA, 4: 0xDB}))
-            out.extend(b)
+            write(_head(len(b), 0xA0, 31, {1: 0xD9, 2: 0xDA, 4: 0xDB}))
+            write(b)
         elif isinstance(o, (bytes, bytearray, memoryview)):
-            b = bytes(o)
-            out.extend(_head(len(b), None, 0, {1: 0xC4, 2: 0xC5, 4: 0xC6}))
-            out.extend(b)
+            n = o.nbytes if isinstance(o, memoryview) else len(o)
+            write(_head(n, None, 0, {1: 0xC4, 2: 0xC5, 4: 0xC6}))
+            write(o)
         elif isinstance(o, (list, tuple)):
-            out.extend(_head(len(o), 0x90, 15, {2: 0xDC, 4: 0xDD}))
+            write(_head(len(o), 0x90, 15, {2: 0xDC, 4: 0xDD}))
             for v in o:
                 put(v)
         elif isinstance(o, dict):
-            out.extend(_head(len(o), 0x80, 15, {2: 0xDE, 4: 0xDF}))
+            write(_head(len(o), 0x80, 15, {2: 0xDE, 4: 0xDF}))
             for k, v in o.items():
                 put(k)
                 put(v)
@@ -120,12 +154,12 @@ def packb(obj) -> bytes:
             raise TypeError(f"cannot pack {type(o)}")
 
     put(obj)
-    return bytes(out)
 
 
-def unpackb(data: bytes):
+def unpackb(data: bytes, *, views: bool = False):
     """Inverse of :func:`packb` (also reads float32 and raw str8/16/32
-    as ``msgpack.unpackb(raw=False)`` does)."""
+    as ``msgpack.unpackb(raw=False)`` does).  ``views``: bin payloads
+    come back as memoryviews of ``data``, uncopied."""
     buf = memoryview(data)
     pos = 0
 
@@ -171,7 +205,7 @@ def unpackb(data: bytes):
             if t in (0xD9, 0xDA, 0xDB):
                 return bytes(take(n)).decode("utf-8")
             if t in (0xC4, 0xC5, 0xC6):
-                return bytes(take(n))
+                return take(n) if views else bytes(take(n))
             return items(n, t in (0xDE, 0xDF))
         raise ValueError(f"unsupported MessagePack type byte 0x{t:02x}")
 
@@ -191,10 +225,63 @@ def save(path: str, tree: Any) -> None:
     tmp = path + ".tmp"
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(tmp, "wb") as f:
-        f.write(packb(_encode(tree)))
+        _pack(tree, f.write)
     os.replace(tmp, path)
 
 
 def restore(path: str) -> Any:
+    """The tree saved at ``path``; arrays are decoded from a read-only map
+    of the file (unmapped once the last view of it is gone)."""
     with open(path, "rb") as f:
-        return _decode(unpackb(f.read()))
+        if os.fstat(f.fileno()).st_size == 0:
+            return _decode(unpackb(b""))
+        mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+    return _decode(unpackb(memoryview(mm), views=True))
+
+
+# ------------------------------------------------------ LM training state
+def save_train_state(path: str, state) -> None:
+    """An LM ``TrainState``: {"params": {name: tensor}, "opt_state":
+    {"kind": the state's class, field: value ...}, "step": tensor}."""
+    from repro_torch.training.train_step import param_tree
+    opt = state.opt_state
+    save(path, {"params": param_tree(state.params),
+                "opt_state": {"kind": type(opt).__name__,
+                              **opt._asdict()},
+                "step": state.step})
+
+
+def load_train_state(path: str, like):
+    """The ``TrainState`` saved at ``path``, in the structure and on the
+    device of ``like`` (a state of the same config and optimizer): its
+    parameters are overwritten in place, the optimizer's state and the
+    step are new tensors.  Raises if a name or shape differs."""
+    from repro_torch.training.train_step import TrainState, param_tree
+    tree = restore(path)
+    params = param_tree(like.params)
+    if set(tree["params"]) != set(params):
+        raise ValueError("checkpoint parameters differ from the model's")
+    opt = like.opt_state
+    if tree["opt_state"].pop("kind") != type(opt).__name__:
+        raise ValueError(f"checkpoint holds another optimizer state than "
+                         f"{type(opt).__name__}")
+
+    def to_like(saved, live):
+        if isinstance(live, dict):
+            if set(saved) != set(live):
+                raise ValueError("checkpoint optimizer state differs")
+            return {k: to_like(saved[k], v) for k, v in live.items()}
+        if live is None:
+            return None
+        if tuple(saved.shape) != tuple(live.shape):
+            raise ValueError(f"checkpoint shape {tuple(saved.shape)} != "
+                             f"{tuple(live.shape)}")
+        return saved.to(live.device, live.dtype)
+
+    with torch.no_grad():
+        for name, p in params.items():
+            p.copy_(to_like(tree["params"][name], p))
+    fields = {f: to_like(tree["opt_state"][f], getattr(opt, f))
+              for f in opt._fields}
+    return TrainState(like.params, type(opt)(**fields),
+                      to_like(tree["step"], like.step))

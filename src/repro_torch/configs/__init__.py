@@ -1,13 +1,11 @@
 """Architecture registry of the port: ``--arch <id>`` → ModelConfig.
 
-The same ids as the reference's ``repro.configs``.  The port runs the
-architectures whose blocks it has (``attn``, ``moe``, ``mla_dense``,
-``mla_moe``, ``rwkv6`` and ``mamba2`` with zamba2's shared attention
-block, M-RoPE and patch embeddings); musicgen-medium's codebooks raise
-``NotImplementedError`` naming the work in ``ROADMAP.md`` that ports
-them.  Each ported architecture has its own module with
-``config()`` (the published hyper-parameters) and ``smoke_config()`` (a
-reduced same-family variant for CPU tests).
+The same ids as the reference's ``repro.configs``, all ten ported
+(``attn``, ``moe``, ``mla_dense``, ``mla_moe``, ``rwkv6`` and ``mamba2``
+blocks with zamba2's shared attention block, M-RoPE and patch
+embeddings, musicgen-medium's codebooks).  Each architecture has its own
+module with ``config()`` (the published hyper-parameters) and
+``smoke_config()`` (a reduced same-family variant for CPU tests).
 """
 from __future__ import annotations
 
@@ -29,20 +27,10 @@ ARCH_IDS = (
     "deepseek-v2-236b",
 )
 
-# what each architecture not yet ported still needs (ROADMAP.md queue 1
-# item 10 lists these slices in order)
-_LATER = {
-    "musicgen-medium": "the multi-codebook slice",
-}
-
 
 def _module(arch_id: str):
     if arch_id not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
-    if arch_id in _LATER:
-        raise NotImplementedError(
-            f"{arch_id} is not ported yet: ROADMAP.md queue 1 item 10, "
-            f"{_LATER[arch_id]}")
     mod = arch_id.replace("-", "_").replace(".", "p")
     return importlib.import_module(f"repro_torch.configs.{mod}")
 

@@ -1,11 +1,10 @@
-"""Concrete prompt batches (``repro.configs.shapes.make_batch``: the text
-and patch-embedding branches).
+"""Concrete batches (``repro.configs.shapes.make_batch``: the text,
+codebook and patch-embedding branches).
 
 Tokens are drawn with the port's threefry ``randint``, so the same key
-gives the same prompt as the reference; patch embeddings with its
+gives the same batch as the reference; patch embeddings with its
 ``normal``, which differs from ``jax.random.normal`` in the last bit of
-about 1% of values (tests carry the reference's across).  Multi-codebook
-batches belong to the slice that ports that model.
+about 1% of values (tests carry the reference's across).
 """
 from __future__ import annotations
 
@@ -34,12 +33,15 @@ def make_batch(cfg: ModelConfig, key: torch.Tensor, b: int, s: int, *,
     """On the key's device, as the reference draws them from ``split(key,
     3)``: {"tokens": (B, S) int32[, "labels": (B, S) int32]}; with patch
     positions P, S counts them: {"tokens": (B, S - P), "patch_embeds":
-    (B, P, D), "positions": (3, B, S)[, "labels": (B, S)]}."""
-    if cfg.num_codebooks:
-        raise NotImplementedError(
-            "codebook batches are not ported yet (ROADMAP.md queue 1 "
-            "item 10)")
+    (B, P, D), "positions": (3, B, S)[, "labels": (B, S)]}; with K
+    codebooks tokens and labels are (B, K, S)."""
     k1, k2, k3 = rnd.split(key, 3)
+    if cfg.num_codebooks:
+        shape = (b, cfg.num_codebooks, s)
+        batch = {"tokens": rnd.randint(k1, shape, 0, cfg.vocab_size)}
+        if with_labels:
+            batch["labels"] = rnd.randint(k2, shape, 0, cfg.vocab_size)
+        return batch
     if not cfg.num_patch_positions:
         batch = {"tokens": rnd.randint(k1, (b, s), 0, cfg.vocab_size)}
         if with_labels:

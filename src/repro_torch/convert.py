@@ -46,7 +46,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.random import MASK32
 from repro_torch.serve.stream import RequestStream
 from repro_torch.telemetry.metrics import MetricBuffer
-from repro_torch.training.optimizer import AdamState
+from repro_torch.training.optimizer import AdamState, SgdState
+from repro_torch.training.train_step import TrainState, param_tree
 
 
 def mlp_from_layers(layers, device="cuda") -> MLP:
@@ -122,8 +123,8 @@ def lm_params(params, cfg: ModelConfig, device="cuda") -> tf.LM:
     :class:`~repro_torch.models.transformer.LM`: every segment is
     unstacked into one block module per layer, in order, each array in
     its own dtype (the nested ``moe`` and ``mla`` trees too, the
-    router float32 whatever the parameter dtype)."""
-    tf.check_supported(cfg)
+    router float32 whatever the parameter dtype; with codebooks the
+    (K, V, D) embedding and (K, D, V) head as they are)."""
     dev = resolve_device(device)
     tensor = lambda a: torch.as_tensor(np.array(a), device=dev)
     blocks = []
@@ -137,6 +138,31 @@ def lm_params(params, cfg: ModelConfig, device="cuda") -> tf.LM:
     return tf.LM(cfg, _map_tree(params["embed"], tensor),
                  _map_tree(params["final_norm"], tensor), blocks, head,
                  shared)
+
+
+def lm_param_tree(tree, cfg: ModelConfig, device="cuda") -> dict:
+    """A pytree shaped as the reference's LM params (its parameters, or
+    an optimizer moment of them) as the port's ``{name: tensor}`` tree
+    (``repro_torch.training.train_step.param_tree``)."""
+    return {k: v.detach() for k, v in
+            param_tree(lm_params(tree, cfg, device)).items()}
+
+
+def lm_train_state(state, cfg: ModelConfig, device="cuda") -> TrainState:
+    """The reference's LM ``TrainState`` (``repro.training.train_step``;
+    arrays as numpy) as the port's: the LM with gradients on, the
+    ``AdamState`` or ``SgdState`` over its parameter names, the step."""
+    dev = resolve_device(device)
+    params = lm_params(state.params, cfg, dev).requires_grad_(True)
+    opt = state.opt_state
+    step = _array(opt.step, np.int32, dev)
+    if hasattr(opt, "mu"):
+        opt_state = AdamState(step, lm_param_tree(opt.mu, cfg, dev),
+                              lm_param_tree(opt.nu, cfg, dev))
+    else:
+        opt_state = SgdState(step, None if opt.momentum is None else
+                             lm_param_tree(opt.momentum, cfg, dev))
+    return TrainState(params, opt_state, _array(state.step, np.int32, dev))
 
 
 # ------------------------------------------------------------ trainer carry

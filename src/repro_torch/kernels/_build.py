@@ -8,7 +8,8 @@ hash of the source and flags, so a changed source is rebuilt and an
 unchanged one is loaded as it is; processes that build one source at
 once (the ranks of a cells group) take turns on a file lock, so it is
 compiled once.  A missing ``nvcc`` raises.  The
-wrappers' shared checks (``check``, ``route``, ``raise_on``) live here
+wrappers' shared checks (``check``, ``route``, ``refuse_grad``,
+``raise_on``) live here
 too, with the 16-byte alignment helpers of the kernels that copy with
 ``cp.async`` or TMA (``row_strides``, ``aligned``).
 """
@@ -113,6 +114,19 @@ def route(device: torch.device) -> str:
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"no route for tensors on {device}")
     return device.type
+
+
+def refuse_grad(name: str, device: torch.device, *tensors) -> None:
+    """Raise ``NotImplementedError`` naming ``ROADMAP.md`` when a call on
+    CUDA tensors would need a gradient that ``name`` has no backward
+    kernel for (grad mode on and an input requiring one): the kernel's
+    output would carry no gradient path.  CPU tensors pass, since their
+    plain versions differentiate."""
+    if (device.type == "cuda" and torch.is_grad_enabled()
+            and any(t is not None and t.requires_grad for t in tensors)):
+        raise NotImplementedError(
+            f"{name} has no backward kernel yet, so it cannot run under "
+            f"autograd on the card (ROADMAP.md queue 1 item 10)")
 
 
 def raise_on(err: int, name: str) -> None:

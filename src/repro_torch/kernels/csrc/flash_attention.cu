@@ -211,7 +211,7 @@ template <int kNT, int kWarps, int kBK>
 __global__ void __launch_bounds__(32 * kWarps, kNT == 8 ? 2 : 1)
 flash_fwd_kernel_tf32(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ o,
-                      int H, int KV, int Sq, int Sk, int D, int Dv,
+                      float* __restrict__ lse, int H, int KV, int Sq, int Sk, int D, int Dv,
                       Strides st, float scale, int causal, int window) {
   constexpr int kBQ = 16 * kWarps, kThreads = 32 * kWarps, kJ = kBK / 8;
   extern __shared__ float4 smem4[];
@@ -406,6 +406,13 @@ flash_fwd_kernel_tf32(const float* __restrict__ q, const float* __restrict__ k,
       *reinterpret_cast<float2*>(ob + static_cast<long long>(r1) * st.o_s +
                                  col) =
           make_float2(acc[n][2] * inv1, acc[n][3] * inv1);
+  }
+  // the backward's softmax statistics: m + log(l) per row, in the units
+  // of the scaled scores, as the reference's _flash_fwd_impl returns them
+  if (lse != nullptr && t == 0) {
+    float* lb = lse + static_cast<long long>(bh) * Sq;
+    if (r0 < Sq) lb[r0] = m0 + logf(fmaxf(l0, 1e-30f));
+    if (r1 < Sq) lb[r1] = m1 + logf(fmaxf(l1, 1e-30f));
   }
 }
 
@@ -904,7 +911,7 @@ bool aligned16(const void* p) {
 
 template <int kNT, int kWarps, int kBK>
 int launch_tf32(const float* q, const float* k, const float* v, float* o,
-                const Strides& st, int B, int H, int KV, int Sq, int Sk,
+                float* lse, const Strides& st, int B, int H, int KV, int Sq, int Sk,
                 int D, int Dv, float scale, int causal, int window,
                 cudaStream_t stream) {
   constexpr int kBQ = 16 * kWarps;
@@ -919,12 +926,12 @@ int launch_tf32(const float* q, const float* k, const float* v, float* o,
   if (err != cudaSuccess) return static_cast<int>(err);
   flash_fwd_kernel_tf32<kNT, kWarps, kBK><<<grid, 32 * kWarps, smem,
                                             stream>>>(
-      q, k, v, o, H, KV, Sq, Sk, D, Dv, st, scale, causal, window);
+      q, k, v, o, lse, H, KV, Sq, Sk, D, Dv, st, scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 int flash_launch_f32(const void* q, const void* k, const void* v, void* o,
-                     const Strides& st, int B, int H, int KV, int Sq, int Sk,
+                     void* lse, const Strides& st, int B, int H, int KV, int Sq, int Sk,
                      int D, int Dv, float scale, int causal, int window,
                      cudaStream_t stream) {
   // cp.async moves 16-byte chunks: 16-byte bases and strides
@@ -938,15 +945,16 @@ int flash_launch_f32(const void* q, const void* k, const void* v, void* o,
   auto* kf = static_cast<const float*>(k);
   auto* vf = static_cast<const float*>(v);
   auto* of = static_cast<float*>(o);
+  auto* lf = static_cast<float*>(lse);
   if (D > 128)
-    return launch_tf32<16, kWideWarps, kWideBK>(qf, kf, vf, of, st, B, H, KV,
-                                                Sq, Sk, D, Dv, scale, causal,
-                                                window, stream);
+    return launch_tf32<16, kWideWarps, kWideBK>(qf, kf, vf, of, lf, st, B, H,
+                                                KV, Sq, Sk, D, Dv, scale,
+                                                causal, window, stream);
   if (Dv <= 64)
-    return launch_tf32<8, 8, 64>(qf, kf, vf, of, st, B, H, KV, Sq, Sk, D, Dv,
-                                 scale, causal, window, stream);
-  return launch_tf32<16, 8, 64>(qf, kf, vf, of, st, B, H, KV, Sq, Sk, D, Dv,
-                                scale, causal, window, stream);
+    return launch_tf32<8, 8, 64>(qf, kf, vf, of, lf, st, B, H, KV, Sq, Sk, D,
+                                 Dv, scale, causal, window, stream);
+  return launch_tf32<16, 8, 64>(qf, kf, vf, of, lf, st, B, H, KV, Sq, Sk, D,
+                                Dv, scale, causal, window, stream);
 }
 
 template <int kNPK, int kNPV>
@@ -1006,7 +1014,7 @@ int flash_launch_bf16(const void* q, const void* k, const void* v, void* o,
 }
 
 int flash_launch(bool bf16, const void* q, const void* k, const void* v,
-                 void* o, const long long* strides, int B, int H, int KV,
+                 void* o, void* lse, const long long* strides, int B, int H, int KV,
                  int Sq, int Sk, int D, int Dv, float scale, int causal,
                  int window, int device, void* stream) {
   if (D > (bf16 ? kMaxD : kMaxDF32) || Dv > kMaxD || D % 4 || Dv % 4 ||
@@ -1020,8 +1028,489 @@ int flash_launch(bool bf16, const void* q, const void* k, const void* v,
   auto s = static_cast<cudaStream_t>(stream);
   return bf16 ? flash_launch_bf16(q, k, v, o, st, B, H, KV, Sq, Sk, D, Dv,
                                   scale, causal, window, s)
-              : flash_launch_f32(q, k, v, o, st, B, H, KV, Sq, Sk, D, Dv,
+              : flash_launch_f32(q, k, v, o, lse, st, B, H, KV, Sq, Sk, D, Dv,
                                  scale, causal, window, s);
+}
+
+// ------------------------------------------------- float32 backward
+// flash_attention_backward_f32: dQ, dK, dV of the forward above, from q,
+// k, v, dO, the forward's LSE and delta = rowsum(dO * O), recomputing P
+// per (query tile, key tile) pair as the reference's custom VJP does
+// (repro/models/attention.py _flash_vjp_bwd, jnp, not a TPU kernel):
+//   p = exp(s - lse), s = (q . k) scale (masked: p = 0),
+//   dv_j = sum_i p_ij do_i,  dp_ij = do_i . v_j,
+//   ds_ij = p_ij (dp_ij - delta_i) scale,
+//   dq_i = sum_j ds_ij k_j,  dk_j = sum_i ds_ij q_i,
+// with causal ends aligned, the window, GQA (dK and dV sum over a kv
+// head's G query heads) and Dk != Dv, D and Dv up to 128.
+//
+// What bounds it: operations, five products a visible (query, key) pair;
+// the design does seven (S and dP in both kernels).  Every product runs
+// on the tensor cores as the forward's 3xTF32 mma.sync (float32-level
+// accuracy), with the forward's register trick: a product's C fragment
+// is the next product's A fragment once the columns of each 8-wide step
+// are relabelled (A column t = row 2t of B, t + 4 = row 2t + 1), so P and
+// dS never leave registers.  Two kernels, no atomics, so every run gives
+// the same gradients:
+//  * flash_bwd_dkdv_kernel: a CTA of 8 warps owns 128 keys of one kv
+//    head (16 a warp), holds their K and V tiles in shared memory and
+//    dK, dV in registers, and walks the query tiles of kBQ rows that can
+//    see them, for each of the G query heads of the group, through a
+//    two-stage cp.async ring of Q, dO, LSE and delta: per warp S^T = K
+//    Q^T, P^T, dV += P^T dO, dP^T = V dO^T, dS^T, dK += dS^T Q.
+//  * flash_bwd_dq_kernel: a CTA of 8 warps owns 128 query rows of one
+//    head (16 a warp), holds Q, dO and each row's LSE and delta, and
+//    walks the visible key tiles through a two-stage ring of K and V:
+//    S = Q K^T, P, dP = dO V^T, dS, dQ += dS K.
+// Tiles that a warp's rows cannot see are skipped, and only tiles that
+// cut the mask are masked.  Shared rows have a pitch of 4 mod 8 floats,
+// so fragment reads are conflict-free.  Shared memory at D = Dv = 128:
+// (128 + 2 x 32) x 264 floats + the LSE / delta ring = 203,264 bytes
+// (dK, dV), (128 + 2 x 32) x 264 floats = 202,752 bytes (dQ); at D = 64
+// two CTAs share an SM.  wgmma and TMA are for a later pass.
+constexpr int kBwdWarps = 8;     // warps a CTA, 16 rows (keys or queries) each
+constexpr int kBwdTile = 32;     // rows of a streamed tile (queries or keys)
+constexpr int kBwdThreads = 32 * kBwdWarps;
+
+// zero columns [d, width) of rows [0, rows) of a shared tile (cp.async
+// writes only the first d); kThreads threads
+template <int kThreads>
+__device__ __forceinline__ void zero_pad_cols(float* dst, int rows, int ld,
+                                              int d, int width) {
+  const int w = width - d;
+  if (w <= 0) return;
+  for (int idx = threadIdx.x; idx < rows * w; idx += kThreads) {
+    const int r = idx / w, c = idx - r * w;
+    dst[r * ld + d + c] = 0.f;
+  }
+}
+
+// s[j] = A rows (16, from a shared tile at `a`, row g at a + g * lda + t)
+// . B rows (8 j + g, at b + g * ldb + t), over d8 columns in 8-wide steps,
+// 3xTF32
+template <int kJ>
+__device__ __forceinline__ void rows_dot(float (&s)[kJ][4], const float* a,
+                                         int lda, const float* b, int ldb,
+                                         int d8) {
+#pragma unroll
+  for (int j = 0; j < kJ; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
+  for (int kk = 0; kk < d8; kk += 8) {
+    uint32_t ah[4], al[4];
+    split(a[kk], ah[0], al[0]);
+    split(a[8 * lda + kk], ah[1], al[1]);
+    split(a[kk + 4], ah[2], al[2]);
+    split(a[8 * lda + kk + 4], ah[3], al[3]);
+#pragma unroll
+    for (int j = 0; j < kJ; ++j)
+      mma_3xtf32(s[j], ah, al, b[8 * j * ldb + kk], b[8 * j * ldb + kk + 4]);
+  }
+}
+
+// acc[n] += X . B, X (16 x 8 kJ) in C-fragment layout (columns 2t, 2t + 1
+// of each 8-wide step j), B rows 8 j + 2t and 8 j + 2t + 1 at
+// b + (8 j + 2t) * ldb + g, over kN 8-column output tiles.  Each output
+// tile is summed over the kJ steps in a fresh fragment and then added to
+// acc in float32 on the CUDA cores: the tensor cores' accumulator drops
+// low bits of addends much smaller than it, and dK and dV each sum
+// thousands of small terms (accumulated in place, the yi-6b shape's dK
+// was 1.0e-4 of its largest magnitude away from the plain version)
+template <int kJ, int kN>
+__device__ __forceinline__ void frag_times_rows(float (&acc)[kN][4],
+                                                const float (&x)[kJ][4],
+                                                const float* b, int ldb) {
+  uint32_t ah[kJ][4], al[kJ][4];
+#pragma unroll
+  for (int j = 0; j < kJ; ++j) {
+    split(x[j][0], ah[j][0], al[j][0]);
+    split(x[j][2], ah[j][1], al[j][1]);
+    split(x[j][1], ah[j][2], al[j][2]);
+    split(x[j][3], ah[j][3], al[j][3]);
+  }
+#pragma unroll
+  for (int n = 0; n < kN; ++n) {
+    float c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < kJ; ++j) {
+      const float* br = b + 8 * j * ldb + 8 * n;
+      mma_3xtf32(c, ah[j], al[j], br[0], br[ldb]);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += c[e];
+  }
+}
+
+// kND, kNV: 8-column tiles of dK (D) and dV (Dv), 8 or 16
+template <int kND, int kNV>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, float* __restrict__ dk,
+                      float* __restrict__ dv, int H, int KV, int Sq, int Sk,
+                      int D, int Dv, float scale, int causal, int window) {
+  constexpr int kBK = 16 * kBwdWarps, kBQ = kBwdTile, kJ = kBQ / 8;
+  extern __shared__ float4 smem4[];
+  const int ldq = pitch(8 * kND), ldo = pitch(8 * kNV);
+  float* sK = reinterpret_cast<float*>(smem4);  // kBK x ldq
+  float* sV = sK + kBK * ldq;                   // kBK x ldo
+  float* sQ = sV + kBK * ldo;                   // 2 x kBQ x ldq
+  float* sO = sQ + 2 * kBQ * ldq;               // 2 x kBQ x ldo (dO)
+  float* sL = sO + 2 * kBQ * ldo;               // 2 x kBQ (LSE)
+  float* sDl = sL + 2 * kBQ;                    // 2 x kBQ (delta)
+
+  const int b = blockIdx.x / KV, kvh = blockIdx.x - b * KV;
+  const int k0 = blockIdx.y * kBK;  // the first tiles see the most queries
+  const int G = H / KV, q_off = Sk - Sq;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int dk8 = (D + 7) / 8 * 8, dv8 = (Dv + 7) / 8 * 8;
+
+  zero_pad_cols<kBwdThreads>(sK, kBK, ldq, D, 8 * kND);
+  zero_pad_cols<kBwdThreads>(sV, kBK, ldo, Dv, 8 * kNV);
+  zero_pad_cols<kBwdThreads>(sQ, 2 * kBQ, ldq, D, 8 * kND);
+  zero_pad_cols<kBwdThreads>(sO, 2 * kBQ, ldo, Dv, 8 * kNV);
+
+  const long long k_row = static_cast<long long>(KV) * D;
+  const long long v_row = static_cast<long long>(KV) * Dv;
+  const long long q_row = static_cast<long long>(H) * D;
+  const long long o_row = static_cast<long long>(H) * Dv;
+  load_kv_tile<kBK, kBwdThreads>(
+      sK, ldq, k + static_cast<long long>(b) * Sk * k_row + kvh * D, k_row,
+      k0, Sk, D);
+  load_kv_tile<kBK, kBwdThreads>(
+      sV, ldo, v + static_cast<long long>(b) * Sk * v_row + kvh * Dv, v_row,
+      k0, Sk, Dv);
+
+  // the query rows that can see a key of [k0, k_last]
+  const int k_last = min(k0 + kBK, Sk) - 1;
+  const int q_lo = causal ? max(0, k0 - q_off) : 0;
+  const int q_hi = window ? min(Sq, k_last + window - q_off) : Sq;
+  const int n_q = q_hi > q_lo ? (q_hi - q_lo + kBQ - 1) / kBQ : 0;
+  const int n_it = G * n_q;
+
+  // iteration it: query head kvh G + it / n_q, tile it % n_q, into stage st
+  auto stage = [&](int it, int st) {
+    const int h = kvh * G + it / n_q, q0 = q_lo + (it % n_q) * kBQ;
+    const long long bh = static_cast<long long>(b) * H + h;
+    load_kv_tile<kBQ, kBwdThreads>(
+        sQ + st * kBQ * ldq, ldq,
+        q + static_cast<long long>(b) * Sq * q_row + h * D, q_row, q0, Sq, D);
+    load_kv_tile<kBQ, kBwdThreads>(
+        sO + st * kBQ * ldo, ldo,
+        dout + static_cast<long long>(b) * Sq * o_row + h * Dv, o_row, q0, Sq,
+        Dv);
+    if (threadIdx.x < kBQ) {
+      const int qi = q0 + threadIdx.x;
+      sL[st * kBQ + threadIdx.x] = qi < Sq ? lse[bh * Sq + qi] : 0.f;
+      sDl[st * kBQ + threadIdx.x] = qi < Sq ? delta[bh * Sq + qi] : 0.f;
+    }
+  };
+
+  const int wk0 = k0 + 16 * warp;  // this warp's keys, rows g and g + 8
+  const int key0 = wk0 + g, key1 = key0 + 8;
+  float acc_k[kND][4], acc_v[kNV][4];
+#pragma unroll
+  for (int n = 0; n < kND; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc_k[n][c] = 0.f;
+#pragma unroll
+  for (int n = 0; n < kNV; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc_v[n][c] = 0.f;
+
+  if (n_it > 0) stage(0, 0);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+  for (int it = 0; it < n_it; ++it) {
+    if (it + 1 < n_it) stage(it + 1, (it + 1) & 1);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    __syncthreads();
+
+    const int q0 = q_lo + (it % n_q) * kBQ;
+    const int q_first = q0 + q_off;                   // in key positions
+    const int q_last = min(q0 + kBQ, Sq) - 1 + q_off;
+    const bool skip = wk0 >= Sk || (causal && wk0 > q_last) ||
+                      (window && wk0 + 15 <= q_first - window);
+    // some (key, query) pair of the warp's tile is hidden
+    const bool masked = wk0 + 15 >= Sk || q0 + kBQ > Sq ||
+                        (causal && wk0 + 15 > q_first) ||
+                        (window && wk0 <= q_last - window);
+    if (!skip) {
+      const float* tQ = sQ + (it & 1) * kBQ * ldq;
+      const float* tO = sO + (it & 1) * kBQ * ldo;
+      const float* tL = sL + (it & 1) * kBQ;
+      const float* tD = sDl + (it & 1) * kBQ;
+      // S^T = K Q^T: 16 keys x kBQ queries; P^T in place
+      float s[kJ][4];
+      rows_dot<kJ>(s, sK + (16 * warp + g) * ldq + t, ldq, tQ + g * ldq + t,
+                   ldq, dk8);
+#pragma unroll
+      for (int j = 0; j < kJ; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int col = 8 * j + 2 * t + (c & 1);
+          const int qi = q0 + col;
+          float p = exp_f32(s[j][c] * scale - tL[col]);
+          if (masked && !(qi < Sq && visible(c < 2 ? key0 : key1,
+                                             qi + q_off, Sk, causal,
+                                             window)))
+            p = 0.f;
+          s[j][c] = p;
+        }
+      // dV += P^T dO
+      frag_times_rows<kJ, kNV>(acc_v, s, tO + 2 * t * ldo + g, ldo);
+      // dP^T = V dO^T, then dS^T = P^T (dP^T - delta) scale in place of P^T
+      float dp[kJ][4];
+      rows_dot<kJ>(dp, sV + (16 * warp + g) * ldo + t, ldo, tO + g * ldo + t,
+                   ldo, dv8);
+#pragma unroll
+      for (int j = 0; j < kJ; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          s[j][c] = s[j][c] * (dp[j][c] - tD[8 * j + 2 * t + (c & 1)]) * scale;
+      // dK += dS^T Q
+      frag_times_rows<kJ, kND>(acc_k, s, tQ + 2 * t * ldq + g, ldq);
+    }
+    __syncthreads();  // the stage is free for the tile after next
+  }
+
+  const long long base = static_cast<long long>(b) * Sk * KV + kvh;
+#pragma unroll
+  for (int n = 0; n < kND; ++n) {
+    const int col = 8 * n + 2 * t;
+    if (col >= D) continue;
+    if (key0 < Sk)
+      *reinterpret_cast<float2*>(dk + (base + static_cast<long long>(key0) *
+                                                  KV) * D + col) =
+          make_float2(acc_k[n][0], acc_k[n][1]);
+    if (key1 < Sk)
+      *reinterpret_cast<float2*>(dk + (base + static_cast<long long>(key1) *
+                                                  KV) * D + col) =
+          make_float2(acc_k[n][2], acc_k[n][3]);
+  }
+#pragma unroll
+  for (int n = 0; n < kNV; ++n) {
+    const int col = 8 * n + 2 * t;
+    if (col >= Dv) continue;
+    if (key0 < Sk)
+      *reinterpret_cast<float2*>(dv + (base + static_cast<long long>(key0) *
+                                                  KV) * Dv + col) =
+          make_float2(acc_v[n][0], acc_v[n][1]);
+    if (key1 < Sk)
+      *reinterpret_cast<float2*>(dv + (base + static_cast<long long>(key1) *
+                                                  KV) * Dv + col) =
+          make_float2(acc_v[n][2], acc_v[n][3]);
+  }
+}
+
+// kND: 8-column tiles of dQ (D), 8 or 16
+template <int kND>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ dq,
+                    int H, int KV, int Sq, int Sk, int D, int Dv, float scale,
+                    int causal, int window) {
+  constexpr int kBQ = 16 * kBwdWarps, kBK = kBwdTile, kJ = kBK / 8;
+  extern __shared__ float4 smem4[];
+  const int ldq = pitch(8 * kND), ldo = pitch(Dv);
+  float* sQ = reinterpret_cast<float*>(smem4);  // kBQ x ldq
+  float* sO = sQ + kBQ * ldq;                   // kBQ x ldo (dO)
+  float* sK = sO + kBQ * ldo;                   // 2 x kBK x ldq
+  float* sV = sK + 2 * kBK * ldq;               // 2 x kBK x ldo
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh - b * H;
+  const int kvh = h / (H / KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heavy tiles first
+  const int q_off = Sk - Sq;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int dk8 = (D + 7) / 8 * 8, dv8 = (Dv + 7) / 8 * 8;
+
+  zero_pad_cols<kBwdThreads>(sQ, kBQ, ldq, D, dk8);
+  zero_pad_cols<kBwdThreads>(sO, kBQ, ldo, Dv, dv8);
+  zero_pad_cols<kBwdThreads>(sK, 2 * kBK, ldq, D, 8 * kND);
+  zero_pad_cols<kBwdThreads>(sV, 2 * kBK, ldo, Dv, dv8);
+
+  const long long k_row = static_cast<long long>(KV) * D;
+  const long long v_row = static_cast<long long>(KV) * Dv;
+  const long long q_row = static_cast<long long>(H) * D;
+  const long long o_row = static_cast<long long>(H) * Dv;
+  const float* kb = k + static_cast<long long>(b) * Sk * k_row + kvh * D;
+  const float* vb = v + static_cast<long long>(b) * Sk * v_row + kvh * Dv;
+  load_kv_tile<kBQ, kBwdThreads>(
+      sQ, ldq, q + static_cast<long long>(b) * Sq * q_row + h * D, q_row, q0,
+      Sq, D);
+  load_kv_tile<kBQ, kBwdThreads>(
+      sO, ldo, dout + static_cast<long long>(b) * Sq * o_row + h * Dv, o_row,
+      q0, Sq, Dv);
+
+  // this warp's rows, in key positions, and their LSE and delta
+  const int wr0 = q0 + 16 * warp;
+  const int w_last = min(wr0 + 15, Sq - 1) + q_off;
+  const int r0 = wr0 + g, r1 = r0 + 8;
+  const long long at = static_cast<long long>(bh) * Sq;
+  const float lse0 = r0 < Sq ? lse[at + r0] : 0.f;
+  const float lse1 = r1 < Sq ? lse[at + r1] : 0.f;
+  const float dl0 = r0 < Sq ? delta[at + r0] : 0.f;
+  const float dl1 = r1 < Sq ? delta[at + r1] : 0.f;
+
+  int k_first, k_end;
+  key_range(q0, kBQ, Sq, Sk, causal, window, kBK, &k_first, &k_end);
+  const int n_tiles = k_end > k_first ? (k_end - k_first + kBK - 1) / kBK : 0;
+
+  float acc[kND][4];
+#pragma unroll
+  for (int n = 0; n < kND; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
+
+  if (n_tiles > 0) {
+    load_kv_tile<kBK, kBwdThreads>(sK, ldq, kb, k_row, k_first, Sk, D);
+    load_kv_tile<kBK, kBwdThreads>(sV, ldo, vb, v_row, k_first, Sk, Dv);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = k_first + it * kBK;
+    if (it + 1 < n_tiles) {  // the next tile into the other stage
+      const int nx = (it + 1) & 1;
+      load_kv_tile<kBK, kBwdThreads>(sK + nx * kBK * ldq, ldq, kb, k_row,
+                                     k0 + kBK, Sk, D);
+      load_kv_tile<kBK, kBwdThreads>(sV + nx * kBK * ldo, ldo, vb, v_row,
+                                     k0 + kBK, Sk, Dv);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    __syncthreads();
+
+    const bool skip = wr0 >= Sq || (causal && k0 > w_last) ||
+                      (window && k0 + kBK - 1 <= wr0 + q_off - window);
+    const bool masked = k0 + kBK > Sk ||
+                        (causal && k0 + kBK - 1 > wr0 + q_off) ||
+                        (window && k0 <= w_last - window);
+    if (!skip) {
+      const float* tK = sK + (it & 1) * kBK * ldq;
+      const float* tV = sV + (it & 1) * kBK * ldo;
+      // S = Q K^T: 16 rows x kBK keys; P in place
+      float s[kJ][4];
+      rows_dot<kJ>(s, sQ + (16 * warp + g) * ldq + t, ldq, tK + g * ldq + t,
+                   ldq, dk8);
+#pragma unroll
+      for (int j = 0; j < kJ; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int col = k0 + 8 * j + 2 * t + (c & 1);
+          const int row = (c < 2 ? r0 : r1) + q_off;
+          float p = exp_f32(s[j][c] * scale - (c < 2 ? lse0 : lse1));
+          if (masked && !visible(col, row, Sk, causal, window)) p = 0.f;
+          s[j][c] = p;
+        }
+      // dP = dO V^T, then dS = P (dP - delta) scale in place of P
+      float dp[kJ][4];
+      rows_dot<kJ>(dp, sO + (16 * warp + g) * ldo + t, ldo, tV + g * ldo + t,
+                   ldo, dv8);
+#pragma unroll
+      for (int j = 0; j < kJ; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          s[j][c] = s[j][c] * (dp[j][c] - (c < 2 ? dl0 : dl1)) * scale;
+      // dQ += dS K
+      frag_times_rows<kJ, kND>(acc, s, tK + 2 * t * ldq + g, ldq);
+    }
+    __syncthreads();  // the stage is free for the tile after next
+  }
+
+  float* ob = dq + static_cast<long long>(b) * Sq * q_row + h * D;
+#pragma unroll
+  for (int n = 0; n < kND; ++n) {
+    const int col = 8 * n + 2 * t;
+    if (col >= D) continue;
+    if (r0 < Sq)
+      *reinterpret_cast<float2*>(ob + static_cast<long long>(r0) * q_row +
+                                 col) = make_float2(acc[n][0], acc[n][1]);
+    if (r1 < Sq)
+      *reinterpret_cast<float2*>(ob + static_cast<long long>(r1) * q_row +
+                                 col) = make_float2(acc[n][2], acc[n][3]);
+  }
+}
+
+template <int kND, int kNV>
+int launch_bwd(const float* q, const float* k, const float* v,
+               const float* dout, const float* lse, const float* delta,
+               float* dq, float* dk, float* dv, int B, int H, int KV, int Sq,
+               int Sk, int D, int Dv, float scale, int causal, int window,
+               cudaStream_t stream) {
+  constexpr int kRows = 16 * kBwdWarps, kT = kBwdTile;
+  const int ldq = pitch(8 * kND), ldo = pitch(8 * kNV), ldo_q = pitch(Dv);
+  const size_t smem_kv =
+      sizeof(float) * static_cast<size_t>((kRows + 2 * kT) * (ldq + ldo) +
+                                          4 * kT);
+  const size_t smem_q =
+      sizeof(float) * static_cast<size_t>((kRows + 2 * kT) * (ldq + ldo_q));
+  const dim3 grid_kv(B * KV, (Sk + kRows - 1) / kRows);
+  const dim3 grid_q(B * H, (Sq + kRows - 1) / kRows);
+  if (grid_kv.y > 65535 || grid_q.y > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkdv_kernel<kND, kNV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem_kv));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<kND>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem_q));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dkdv_kernel<kND, kNV><<<grid_kv, kBwdThreads, smem_kv, stream>>>(
+      q, k, v, dout, lse, delta, dk, dv, H, KV, Sq, Sk, D, Dv, scale, causal,
+      window);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dq_kernel<kND><<<grid_q, kBwdThreads, smem_q, stream>>>(
+      q, k, v, dout, lse, delta, dq, H, KV, Sq, Sk, D, Dv, scale, causal,
+      window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int flash_backward(const void* q, const void* k, const void* v,
+                   const void* dout, const void* lse, const void* delta,
+                   void* dq, void* dk, void* dv, int B, int H, int KV, int Sq,
+                   int Sk, int D, int Dv, float scale, int causal, int window,
+                   int device, void* stream) {
+  if (D < 4 || Dv < 4 || D > kMaxD || Dv > kMaxD || D % 4 || Dv % 4 ||
+      KV < 1 || H % KV)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // cp.async moves 16-byte chunks: 16-byte bases (rows are, D % 4 == 0)
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto* qf = static_cast<const float*>(q);
+  auto* kf = static_cast<const float*>(k);
+  auto* vf = static_cast<const float*>(v);
+  auto* of = static_cast<const float*>(dout);
+  auto* lf = static_cast<const float*>(lse);
+  auto* df = static_cast<const float*>(delta);
+  auto* dqf = static_cast<float*>(dq);
+  auto* dkf = static_cast<float*>(dk);
+  auto* dvf = static_cast<float*>(dv);
+#define FLASH_BWD(nd, nv)                                                    \
+  return launch_bwd<nd, nv>(qf, kf, vf, of, lf, df, dqf, dkf, dvf, B, H, KV, \
+                            Sq, Sk, D, Dv, scale, causal, window, s)
+  if (D <= 64) {
+    if (Dv <= 64) FLASH_BWD(8, 8);
+    FLASH_BWD(8, 16);
+  }
+  if (Dv <= 64) FLASH_BWD(16, 8);
+  FLASH_BWD(16, 16);
+#undef FLASH_BWD
 }
 
 }  // namespace
@@ -1030,21 +1519,38 @@ extern "C" {
 
 // strides: 12 element strides (batch, seq, head) of q, k, v, o in turn;
 // the last axis of every operand is contiguous, q / k / v start on 16
-// bytes and their strides are multiples of 16 bytes.
+// bytes and their strides are multiples of 16 bytes.  lse: null, or a
+// contiguous float32 (B, H, Sq) buffer that receives each row's
+// log-sum-exp of the scaled scores (the backward's input).
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
-                        const long long* strides, int B, int H, int KV,
-                        int Sq, int Sk, int D, int Dv, float scale,
+                        void* lse, const long long* strides, int B, int H,
+                        int KV, int Sq, int Sk, int D, int Dv, float scale,
                         int causal, int window, int device, void* stream) {
-  return flash_launch(false, q, k, v, o, strides, B, H, KV, Sq, Sk, D, Dv,
-                      scale, causal, window, device, stream);
+  return flash_launch(false, q, k, v, o, lse, strides, B, H, KV, Sq, Sk, D,
+                      Dv, scale, causal, window, device, stream);
 }
 
 int flash_attention_bf16(const void* q, const void* k, const void* v,
                          void* o, const long long* strides, int B, int H,
                          int KV, int Sq, int Sk, int D, int Dv, float scale,
                          int causal, int window, int device, void* stream) {
-  return flash_launch(true, q, k, v, o, strides, B, H, KV, Sq, Sk, D, Dv,
-                      scale, causal, window, device, stream);
+  return flash_launch(true, q, k, v, o, nullptr, strides, B, H, KV, Sq, Sk,
+                      D, Dv, scale, causal, window, device, stream);
+}
+
+// The backward of flash_attention_f32 (see flash_backward above): q
+// (B, Sq, H, D), k (B, Sk, KV, D), v (B, Sk, KV, Dv), dout (B, Sq, H, Dv)
+// and the outputs dq, dk, dv like q, k, v, all contiguous float32; lse
+// and delta contiguous float32 (B, H, Sq).  Launches two kernels.
+int flash_attention_backward_f32(const void* q, const void* k, const void* v,
+                                 const void* dout, const void* lse,
+                                 const void* delta, void* dq, void* dk,
+                                 void* dv, int B, int H, int KV, int Sq,
+                                 int Sk, int D, int Dv, float scale,
+                                 int causal, int window, int device,
+                                 void* stream) {
+  return flash_backward(q, k, v, dout, lse, delta, dq, dk, dv, B, H, KV, Sq,
+                        Sk, D, Dv, scale, causal, window, device, stream);
 }
 
 }  // extern "C"

@@ -7,6 +7,10 @@ tensors it runs :func:`ssd_plain`, the chunked form ``ssd_chunked`` of
 ``repro_torch.models.mamba2`` plus the D skip term.  Nothing on the CUDA
 path calls the plain version.  Each kernel launch adds one to
 ``LAUNCHES["ssd"]``.
+The kernel has no backward yet: a CUDA call under autograd (grad mode
+on and an input requiring a gradient) raises ``NotImplementedError``
+naming ``ROADMAP.md`` rather than return an output with no gradient
+path; the plain version differentiates on the CPU.
 
 Semantics, as the reference's ``ssd_pallas``: x (B, S, H, P), dt
 (B, S, H) after softplus and b, c (B, S, G, N), all float32 or all
@@ -80,6 +84,7 @@ def ssd(x, dt, a, b, c, d_skip=None, *, chunk: int = 64, init_state=None):
                      dev)
     if g == 0 or h % g:
         raise ValueError(f"heads {h} must be a multiple of groups {g}")
+    _build.refuse_grad("ssd", dev, x, dt, a, b, c, d_skip, init_state)
     if _build.route(dev) == "cpu":
         return ssd_plain(x, dt, a, b, c, d_skip, chunk=chunk,
                          init_state=init_state)

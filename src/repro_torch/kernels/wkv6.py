@@ -6,6 +6,10 @@ their device alone: on CUDA tensors it launches the kernels of
 runs :func:`wkv6_plain`, the chunked form ``wkv6_chunked`` of
 ``repro_torch.models.rwkv6``.  Nothing on the CUDA path calls the plain
 version.  Each call that launches adds one to ``LAUNCHES["wkv6"]``.
+The kernel has no backward yet: a CUDA call under autograd (grad mode
+on and an input requiring a gradient) raises ``NotImplementedError``
+naming ``ROADMAP.md`` rather than return an output with no gradient
+path; the plain version differentiates on the CPU.
 
 Prefill semantics, as the reference's ``wkv6_pallas``: zero initial
 state, r/k/v (B, S, H, N) float32 or bfloat16, lw (B, S, H, N) float32
@@ -96,6 +100,7 @@ def wkv6(r, k, v, lw, u, *, chunk: int = 64):
         _build.check(name, t, r.dtype, (b, s, h, n), dev)
     _build.check("lw", lw, torch.float32, (b, s, h, n), dev)
     _build.check("u", u, torch.float32, (h, n), dev)
+    _build.refuse_grad("wkv6", dev, r, k, v, lw, u)
     if _build.route(dev) == "cpu":
         return wkv6_plain(r, k, v, lw, u, chunk=chunk)
     if n not in HEAD_DIMS:

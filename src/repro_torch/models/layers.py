@@ -22,7 +22,10 @@ _SQRT2 = math.sqrt(2.0)
 
 class ParamTree(nn.Module):
     """A nested dict of tensors as a module tree: ``p["attn"]["wq"]`` is
-    ``p.attn.wq``.  Parameters take no gradient (serving only)."""
+    ``p.attn.wq``.  Parameters are registered without a gradient, as
+    serving wants them; the trainer asks for gradients with
+    ``requires_grad_(True)`` (``repro_torch.training.train_step.
+    init_train_state``)."""
 
     def __init__(self, tree: dict):
         super().__init__()

@@ -1,8 +1,9 @@
 """The LM: attention, MLA, MoE, RWKV6 and Mamba2 blocks composed per
 config (``repro.models.transformer``'s counterpart for the ``attn``,
 ``moe``, ``mla_dense``, ``mla_moe``, ``rwkv6`` and ``mamba2`` block
-kinds, zamba2's shared attention block, and qwen2-vl's M-RoPE positions
-and patch embeddings).
+kinds, zamba2's shared attention block, qwen2-vl's M-RoPE positions
+and patch embeddings, and musicgen's codebooks: (B, K, S) tokens whose K
+embedding tables are summed, K heads giving (B, K, S, V) logits).
 
 Structure: an :class:`LM` module holds the embedding, one block module
 per layer (:class:`AttnBlock`, :class:`MoEBlock`, :class:`MLADenseBlock`,
@@ -50,6 +51,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.kernels.flash_attention import flash_attention
@@ -60,16 +62,6 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv6 as r6
 from repro_torch.models.attention import decode_attention
 from repro_torch.models.config import ModelConfig
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` naming the later slice for anything
-    this port does not run yet: every block kind runs (``BLOCKS``), the
-    codebooks of musicgen-medium do not."""
-    if cfg.num_codebooks:
-        raise NotImplementedError(
-            f"{cfg.name} needs codebooks (the multi-codebook slice): not "
-            f"ported yet (ROADMAP.md queue 1 item 10)")
 
 
 def segment_plan(cfg: ModelConfig) -> list[tuple[str, int]]:
@@ -310,7 +302,6 @@ class LM(nn.Module):
                  blocks: list, lm_head: Optional[torch.Tensor] = None,
                  shared_block: Optional[AttnBlock] = None):
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
         self.embed = L.ParamTree(embed)
         self.final_norm = L.ParamTree(final_norm)
@@ -368,21 +359,21 @@ def init_layer(gen: torch.Generator, kind: str, cfg: ModelConfig, device
         return Mamba2Block({
             "ln": L.init_rmsnorm(d, dt, device),
             "mamba": m2.init_mamba2(gen, d, cfg.mamba2, dt, device)})
-    check_supported(cfg)
     raise ValueError(kind)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:
     """Random weights from ``torch.Generator(device).manual_seed(seed)``,
-    drawn on ``device`` (the reference's distributions, not its numbers)."""
-    check_supported(cfg)
+    drawn on ``device`` (the reference's distributions, not its numbers).
+    With codebooks the embedding is (K, V, D) and the head (K, D, V)."""
     dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dt = cfg.param_torch_dtype
-    embed = {"tok": L.embed_init(gen, (cfg.vocab_size, cfg.d_model), dt,
+    k = (cfg.num_codebooks,) if cfg.num_codebooks else ()
+    embed = {"tok": L.embed_init(gen, (*k, cfg.vocab_size, cfg.d_model), dt,
                                  dev)}
     head = (None if cfg.tie_embeddings else
-            L.dense_init(gen, (cfg.d_model, cfg.vocab_size), dt, dev))
+            L.dense_init(gen, (*k, cfg.d_model, cfg.vocab_size), dt, dev))
     blocks = [init_layer(gen, kind, cfg, dev) for kind in cfg.block_kinds()]
     shared = (init_layer(gen, "attn", cfg, dev) if cfg.shared_attn_every
               else None)
@@ -397,15 +388,28 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:
 def embed_inputs(params: LM, cfg: ModelConfig, tokens,
                  patch_embeds=None) -> torch.Tensor:
     """Token embeddings (B, S, D), with ``patch_embeds`` (B, P, D) in
-    front when the config has patch positions."""
-    x = params.embed["tok"][tokens.long()]
+    front when the config has patch positions; codebook tokens (B, K, S)
+    sum their K tables' embeddings, in the reference's order."""
+    tok = params.embed["tok"]
+    if cfg.num_codebooks:
+        x = tok[0][tokens[:, 0].long()]
+        for i in range(1, cfg.num_codebooks):
+            x = x + tok[i][tokens[:, i].long()]
+    else:
+        x = tok[tokens.long()]
     if cfg.num_patch_positions and patch_embeds is not None:
         x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
     return x.to(cfg.compute_torch_dtype)
 
 
 def lm_logits(params: LM, cfg: ModelConfig, x) -> torch.Tensor:
+    """Logits (B, S, V), or (B, K, S, V) with codebooks
+    (``bsd,kdv->bksv``)."""
     x = L.rmsnorm(params.final_norm, x, cfg.norm_eps)
+    if cfg.num_codebooks:
+        w = (params.embed["tok"].transpose(1, 2) if cfg.tie_embeddings
+             else params.lm_head)
+        return torch.matmul(x[:, None], w[None])
     if cfg.tie_embeddings:
         return x @ params.embed["tok"].T
     return x @ params.lm_head
@@ -439,16 +443,32 @@ def _ctx(cfg: ModelConfig, positions, b: int, s: int, device,
     return {"cfg": cfg, "cos": cos, "sin": sin}
 
 
+def _seq(block, x, ctx):
+    x, _, aux = block.seq(x, ctx, return_cache=False)
+    return x, aux
+
+
 def forward(params: LM, cfg: ModelConfig, tokens, positions=None,
-            patch_embeds=None):
-    """Teacher-forced logits.  tokens: (B, S_text); positions and patch
-    embeds as the module docstring says → (logits (B, S, V), the MoE
-    blocks' summed aux loss as a 0-d float32 tensor, 0 without MoE)."""
+            patch_embeds=None, *, remat: bool = False):
+    """Teacher-forced logits.  tokens: (B, S_text), or (B, K, S) codes;
+    positions and patch embeds as the module docstring says → (logits
+    (B, S, V) or (B, K, S, V), the MoE blocks' summed aux loss as a 0-d
+    float32 tensor, 0 without MoE).
+
+    ``remat``: each layer under ``torch.utils.checkpoint`` (non-reentrant),
+    the counterpart of the reference's ``jax.checkpoint`` per scanned
+    layer: the backward keeps each layer's input and runs its forward
+    again; zamba2's shared block, outside the reference's scan, is not
+    recomputed.  It changes no value."""
     x = embed_inputs(params, cfg, tokens, patch_embeds)
     ctx = _ctx(cfg, positions, *x.shape[:2], x.device)
     aux_total = torch.zeros((), device=x.device)
-    for _, _, block in params.scheduled():
-        x, _, aux = block.seq(x, ctx, return_cache=False)
+    for kind, _, block in params.scheduled():
+        if remat and kind == "layer" and torch.is_grad_enabled():
+            x, aux = torch.utils.checkpoint.checkpoint(
+                _seq, block, x, ctx, use_reentrant=False)
+        else:
+            x, aux = _seq(block, x, ctx)
         aux_total = aux_total + aux
     return lm_logits(params, cfg, x), aux_total
 
@@ -460,7 +480,6 @@ def cache_capacity(cfg: ModelConfig, max_len: int) -> int:
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device="cuda") -> dict:
     """Zero cache for autoregressive decoding."""
-    check_supported(cfg)
     dt = cfg.compute_torch_dtype
     zeros = lambda *shape, dtype=dt: torch.zeros(shape, dtype=dtype,
                                                  device=device)
@@ -496,9 +515,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 def prefill(params: LM, cfg: ModelConfig, tokens, positions=None,
             patch_embeds=None, max_len: Optional[int] = None):
-    """Run the full prompt (B, S_text), with its patch embeds in front,
-    and build the cache.  Returns (last-token logits (B, V), cache);
-    ``cache["pos"]`` counts patches and text."""
+    """Run the full prompt (B, S_text), or (B, K, S) codes, with its patch
+    embeds in front, and build the cache.  Returns (last-token logits
+    (B, V) or (B, K, V), cache); ``cache["pos"]`` counts patches and
+    text."""
     x = embed_inputs(params, cfg, tokens, patch_embeds)
     s = x.shape[1]
     ctx = _ctx(cfg, positions, x.shape[0], s, x.device)
@@ -512,15 +532,16 @@ def prefill(params: LM, cfg: ModelConfig, tokens, positions=None,
     out = {"pos": s, "layers": caches["layer"]}
     if cfg.shared_attn_every:
         out["shared"] = caches["shared"]
-    return logits[:, 0], out
+    return logits[..., 0, :], out
 
 
 def decode_step(params: LM, cfg: ModelConfig, token, cache: dict,
                 positions=None):
-    """token: (B,); positions (B, 1), or (3, B, 1) under M-RoPE, by
-    default ``cache["pos"]``.  Returns (logits (B, V), cache) — the cache
-    updated in place, ``pos`` advanced by one."""
-    x = embed_inputs(params, cfg, token[:, None])
+    """token: (B,), or (B, K) codes; positions (B, 1), or (3, B, 1) under
+    M-RoPE, by default ``cache["pos"]``.  Returns (logits (B, V) or
+    (B, K, V), cache) — the cache updated in place, ``pos`` advanced by
+    one."""
+    x = embed_inputs(params, cfg, token[..., None])
     pos = cache["pos"]
     ctx = _ctx(cfg, positions, x.shape[0], 1, x.device, start=pos)
     ctx["pos"] = pos
@@ -528,4 +549,4 @@ def decode_step(params: LM, cfg: ModelConfig, token, cache: dict,
         x, _ = block.decode(
             x, cache["layers" if kind == "layer" else "shared"][i], ctx)
     cache["pos"] = pos + 1
-    return lm_logits(params, cfg, x)[:, 0], cache
+    return lm_logits(params, cfg, x)[..., 0, :], cache

@@ -4,7 +4,9 @@ generation (``repro.serving.engine``'s counterpart).
 Runs eagerly on the device of the weights.  Sampling follows the
 reference key schedule — ``key, k0 = split(key)`` before the first token
 and ``key, ki = split(key)`` before each later one — with the port's
-threefry, so a categorical run draws the reference's uniforms.
+threefry, so a categorical run draws the reference's uniforms.  With
+codebooks (musicgen) a token is (B, K): greedy and sampled picks take the
+argmax or the categorical draw over the last axis of (B, K, V) logits.
 """
 from __future__ import annotations
 
@@ -50,9 +52,10 @@ def make_serve_step(cfg: ModelConfig, *, sample: str = "greedy",
 
 
 class GenerationResult(NamedTuple):
-    tokens: torch.Tensor   # (B, steps) int32
+    tokens: torch.Tensor   # (B, steps) or (B, K, steps) int32
     cache: dict
-    logits: torch.Tensor   # (B, steps, V): the logits each token came from
+    # (B, steps, V) or (B, steps, K, V): the logits each token came from
+    logits: torch.Tensor
     prefill_s: float       # prompt → first token, device synchronised
     decode_s: float        # the steps - 1 decode steps, synchronised
 

@@ -1,4 +1,4 @@
-"""Adam and AdamW on tensors, with the reference's arithmetic.
+"""SGD, Adam and AdamW on tensors, with the reference's arithmetic.
 
 Counterpart of ``repro.training.optimizer`` (functional, optax-shaped):
 
@@ -14,9 +14,10 @@ moments first, bias corrections ``1 - b**step`` with ``step`` raised as a
 float32 power, then ``-lr · m̂ / (sqrt(v̂) + eps)`` — and not
 ``torch.optim.Adam``, which rounds the same formula in another order: the
 trainer takes hundreds of updates, and each last-bit gap in an early,
-sign-like Adam step grows.  ``sgd`` waits for the LM trainer; the ZeRO
-layout of ``apply_updates`` (``update_specs``) waits for the multi-card
-slice.
+sign-like Adam step grows.  ``lr`` is a number or a callable of the
+incremented step counter (``repro_torch.training.schedule``), which
+stays on the device: no host sync reads it.  The ZeRO layout of
+``apply_updates`` (``update_specs``) waits for the multi-card slice.
 """
 from __future__ import annotations
 
@@ -34,6 +35,11 @@ class AdamState(NamedTuple):
     step: torch.Tensor   # () int32
     mu: Any
     nu: Any
+
+
+class SgdState(NamedTuple):
+    step: torch.Tensor   # () int32
+    momentum: Any        # None without momentum
 
 
 def tree_map(fn, tree, *rest):
@@ -67,19 +73,24 @@ def _zeros_fp32_like(params):
                                           device=p.device), params)
 
 
-def adam(lr: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
-         eps: float = 1e-8, weight_decay: float = 0.0) -> Optimizer:
-    """Adam / AdamW (decoupled weight decay when ``weight_decay`` > 0)
-    at a constant learning rate; the reference's schedules wait for the
-    LM trainer."""
+def _zero_step(params) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.int32,
+                       device=tree_leaves(params)[0].device)
+
+
+def adam(lr: float | Callable[[torch.Tensor], torch.Tensor] = 1e-3,
+         b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+         weight_decay: float = 0.0) -> Optimizer:
+    """Adam / AdamW (decoupled weight decay when ``weight_decay`` > 0);
+    ``lr`` a number or a callable of the step (after its increment)."""
 
     def init(params) -> AdamState:
-        dev = tree_leaves(params)[0].device
-        return AdamState(torch.zeros((), dtype=torch.int32, device=dev),
-                         _zeros_fp32_like(params), _zeros_fp32_like(params))
+        return AdamState(_zero_step(params), _zeros_fp32_like(params),
+                         _zeros_fp32_like(params))
 
     def update(grads, state: AdamState, params=None):
         step = state.step + 1
+        lr_t = lr(step) if callable(lr) else lr
         mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g.float(),
                       state.mu, grads)
         nu = tree_map(lambda v, g: b2 * v + (1 - b2) * torch.square(
@@ -90,11 +101,11 @@ def adam(lr: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
         c2 = 1 - torch.pow(b2, t)
         mu_hat = tree_map(lambda m: m / c1, mu)
         nu_hat = tree_map(lambda v: v / c2, nu)
-        updates = tree_map(lambda m, v: -lr * m / (torch.sqrt(v) + eps),
+        updates = tree_map(lambda m, v: -lr_t * m / (torch.sqrt(v) + eps),
                            mu_hat, nu_hat)
         if weight_decay and params is not None:
             updates = tree_map(
-                lambda u, p: u - lr * weight_decay * p.float(),
+                lambda u, p: u - lr_t * weight_decay * p.float(),
                 updates, params)
         return updates, AdamState(step, mu, nu)
 
@@ -103,6 +114,25 @@ def adam(lr: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
 
 def adamw(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1) -> Optimizer:
     return adam(lr, b1, b2, eps, weight_decay)
+
+
+def sgd(lr: float = 1e-2, momentum: float = 0.0) -> Optimizer:
+    """Plain SGD, or heavy-ball momentum (the reference's ``sgd``)."""
+
+    def init(params) -> SgdState:
+        return SgdState(_zero_step(params),
+                        _zeros_fp32_like(params) if momentum else None)
+
+    def update(grads, state: SgdState, params=None):
+        step = state.step + 1
+        if momentum:
+            mom = tree_map(lambda m, g: momentum * m + g.float(),
+                           state.momentum, grads)
+            return tree_map(lambda m: -lr * m, mom), SgdState(step, mom)
+        return (tree_map(lambda g: -lr * g.float(), grads),
+                SgdState(step, None))
+
+    return Optimizer(init, update)
 
 
 def apply_updates(params, updates):

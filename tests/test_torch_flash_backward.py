@@ -1,0 +1,150 @@
+"""The flash backward of the port against the JAX reference's custom VJP,
+on the CPU.
+
+``flash_attention_backward_plain`` (the plain version of the backward
+kernel) and ``torch.autograd.grad`` through ``flash_attention`` (the
+``FlashAttention`` function's CPU route) against ``jax.vjp`` of
+``repro.models.attention.flash_attention_jnp`` on the same numpy-seeded
+q, k, v and output gradient: causal, a sliding window, GQA, a
+continuation (Sq < Sk), Dk != Dv and full attention; dq, dk and dv within
+1e-5 of each reference tensor's largest magnitude.  The LSE that the
+forward hands to the backward against the reference's ``_flash_fwd_impl``
+within 1e-5.  The routes: CPU tensors never reach the kernels' library,
+and on CUDA tensors (fake ones, ``FakeTensorMode``) a gradient that no
+backward kernel takes raises before any launch: bf16 flash, f32 flash at
+D > 128, WKV6 and SSD.  The card's cases are in
+``tests/test_torch_kernels_gpu.py``.
+"""
+import jax
+import numpy as np
+import pytest
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+
+from repro.models.attention import _flash_fwd_impl, flash_attention_jnp
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ssd as sk
+from repro_torch.kernels import wkv6 as wk
+
+# (B, Sq, Sk, H, KV, D, Dv, causal, window, q_block, k_block)
+CASES = [
+    (2, 64, 64, 4, 4, 16, 16, True, 0, 16, 16),
+    (1, 48, 48, 4, 2, 16, 16, True, 12, 16, 16),
+    (2, 32, 32, 8, 2, 8, 8, True, 0, 8, 16),
+    (1, 16, 48, 4, 1, 16, 16, True, 0, 8, 16),
+    (1, 32, 32, 2, 2, 24, 8, True, 0, 16, 16),
+    (1, 32, 32, 2, 1, 8, 16, False, 0, 16, 8),
+]
+IDS = ["causal", "window", "gqa", "sq_lt_sk", "dk_ne_dv", "full"]
+
+
+def _inputs(case, seed=0):
+    b, sq, sk, h, kv, d, dv = case[:7]
+    rng = np.random.default_rng(seed)
+    mk = lambda *s: rng.standard_normal(s).astype(np.float32)
+    return mk(b, sq, h, d), mk(b, sk, kv, d), mk(b, sk, kv, dv), \
+        mk(b, sq, h, dv)
+
+
+def _reference(case, q, k, v, do):
+    causal, window, qb, kb = case[7:]
+    fn = lambda q, k, v: flash_attention_jnp(
+        q, k, v, causal=causal, window=window, q_block=qb, k_block=kb)
+    o, vjp = jax.vjp(fn, q, k, v)
+    return np.asarray(o), [np.asarray(g) for g in vjp(do)]
+
+
+def _assert_grads(got, want):
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape, name
+        err = float(np.abs(g.detach().numpy() - w).max() / np.abs(w).max())
+        assert err <= 1e-5, (name, err)
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_plain_backward_matches_reference_vjp(case):
+    q, k, v, do = _inputs(case)
+    causal, window = case[7:9]
+    _, want = _reference(case, q, k, v, do)
+    t = [torch.as_tensor(a) for a in (q, k, v, do)]
+    o, lse = fa.flash_attention_plain(*t[:3], causal=causal, window=window,
+                                      return_lse=True)
+    got = fa.flash_attention_backward_plain(*t[:3], o, lse, t[3],
+                                            causal=causal, window=window)
+    _assert_grads(got, want)
+    # blocks smaller than the sequence: the same gradients
+    small = fa.flash_attention_backward_plain(*t[:3], o, lse, t[3],
+                                              causal=causal, window=window,
+                                              q_block=8, k_block=16)
+    _assert_grads(small, want)
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_autograd_through_flash_attention_matches_reference(case):
+    q, k, v, do = _inputs(case, seed=1)
+    causal, window = case[7:9]
+    want_o, want = _reference(case, q, k, v, do)
+    leaves = [torch.as_tensor(a).requires_grad_(True) for a in (q, k, v)]
+    o = fa.flash_attention(*leaves, causal=causal, window=window)
+    assert o.grad_fn is not None
+    np.testing.assert_allclose(o.detach().numpy(), want_o, atol=1e-5,
+                               rtol=1e-5)
+    _assert_grads(torch.autograd.grad(o, leaves, torch.as_tensor(do)), want)
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_lse_matches_reference_forward(case):
+    q, k, v, _ = _inputs(case, seed=2)
+    b, sq, _, h = case[:4]
+    causal, window, qb, kb = case[7:]
+    _, jlse = _flash_fwd_impl(q, k, v, causal, window, qb, kb,
+                              q.shape[-1] ** -0.5)
+    _, lse = fa.flash_attention_plain(*(torch.as_tensor(a) for a in (q, k, v)),
+                                      causal=causal, window=window,
+                                      return_lse=True)
+    assert lse.shape == (b, h, sq) and lse.dtype == torch.float32
+    np.testing.assert_allclose(lse.numpy(),
+                               np.asarray(jlse).reshape(b, h, sq),
+                               atol=1e-5, rtol=0)
+
+
+def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
+    """On CPU tensors, forward and backward (through autograd too) run
+    the plain versions: the library is never loaded."""
+    def no_library():
+        raise AssertionError("the CUDA library was reached from the CPU")
+    monkeypatch.setattr(fa, "_lib", no_library)
+    q, k, v, do = (torch.as_tensor(a) for a in _inputs(CASES[1], seed=3))
+    before = dict(fa.LAUNCHES)
+    leaves = [t.requires_grad_(True) for t in (q, k, v)]
+    out = fa.flash_attention(*leaves, causal=True, window=12)
+    torch.autograd.grad(out, leaves, do)
+    assert fa.LAUNCHES == before
+
+
+def test_grad_without_a_backward_kernel_raises_on_cuda():
+    """Fake CUDA tensors: a gradient through bf16 flash, f32 flash at D
+    192, WKV6 or SSD raises ``NotImplementedError`` naming the roadmap
+    before any library is loaded; under ``no_grad``, or without an input
+    that requires a gradient, the guard lets the call through."""
+    with FakeTensorMode():
+        cuda = torch.device("cuda")
+        mk = lambda *s, dt=torch.float32: torch.empty(s, device=cuda,
+                                                      dtype=dt)
+        q, k, v = (mk(1, 8, 2, 64, dt=torch.bfloat16) for _ in range(3))
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            fa.flash_attention(q.requires_grad_(), k, v)
+        q, k, v = mk(1, 8, 2, 192), mk(1, 8, 2, 192), mk(1, 8, 2, 128)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            fa.flash_attention(q, k, v.requires_grad_())
+        r = mk(1, 8, 2, 64).requires_grad_()
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            wk.wkv6(r, mk(1, 8, 2, 64), mk(1, 8, 2, 64), mk(1, 8, 2, 64),
+                    mk(2, 64))
+        x = mk(1, 8, 4, 16).requires_grad_()
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            sk.ssd(x, mk(1, 8, 4), mk(4), mk(1, 8, 1, 16), mk(1, 8, 1, 16))
+        with torch.no_grad():
+            for name, t in (("wkv6", r), ("ssd", x)):
+                fa._build.refuse_grad(name, cuda, t)
+        fa._build.refuse_grad("wkv6", cuda, r.detach())

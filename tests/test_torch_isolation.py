@@ -52,7 +52,10 @@ def test_port_files_found():
                 "models/moe.py", "configs/mixtral_8x7b.py",
                 "configs/mistral_nemo_12b.py", "configs/nemotron_4_15b.py",
                 "models/mla.py", "configs/deepseek_v2_236b.py",
-                "configs/qwen2_vl_7b.py"):
+                "configs/qwen2_vl_7b.py", "configs/musicgen_medium.py",
+                "training/schedule.py", "training/train_step.py",
+                "training/optimizer.py", "data/pipeline.py",
+                "launch/train.py", "checkpoint/ckpt.py"):
         assert (PORT / rel) in FILES, rel
 
 

@@ -1,5 +1,7 @@
 """The CUDA kernels against their plain versions, on the card: the
-orchestration kernels, flash attention, WKV6 and the SSD scan; and the
+orchestration kernels, flash attention (forward, its LSE, and the
+backward kernel, alone and through autograd), WKV6 and the SSD scan,
+the refusal of a gradient by the kernels that have no backward; and the
 orchestration kernels under a 2-rank cells group against the port's
 plain route on the CPU.
 
@@ -368,6 +370,118 @@ def test_flash_kernel_dense_serving_shapes(cuda, b, s, h, kv, d, dv):
     got = fa.flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
     _assert_flash_close(got, want.cpu())
+
+
+# the flash backward kernel (float32, D and Dv up to 128): ragged S,
+# GQA, a window smaller and larger than a 64-row tile (not 1: a row that
+# sees one key has dq = dk = 0 exactly, and both sides give rounding
+# noise of ~1e-7), a continuation
+# (Sq < Sk), Dk != Dv both ways, D not a multiple of 8, full attention,
+# one query row, musicgen-medium's heads (D 64)
+BWD_CASES = [
+    (2, 100, 100, 4, 2, 64, 64, True, 0),
+    (1, 129, 129, 8, 1, 128, 128, True, 0),
+    (1, 300, 300, 4, 2, 120, 120, True, 40),
+    (2, 150, 150, 2, 2, 64, 64, True, 3),
+    (1, 37, 165, 4, 2, 64, 64, True, 0),
+    (1, 130, 130, 4, 2, 128, 64, True, 0),
+    (1, 70, 70, 2, 1, 64, 128, True, 0),
+    (1, 66, 66, 2, 2, 100, 36, True, 0),
+    (1, 96, 80, 2, 1, 32, 32, False, 0),
+    (1, 1, 257, 4, 4, 64, 64, True, 0),
+    (2, 256, 256, 24, 24, 64, 64, True, 0),
+]
+
+
+def _rel_to_max(got, want):
+    """|got - want| over want's largest magnitude."""
+    return float((got.float().cpu() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,dv,causal,window", BWD_CASES)
+def test_flash_backward_kernel_matches_plain(cuda, b, sq, sk, h, kv, d, dv,
+                                             causal, window):
+    """The forward's LSE within 1e-5 of the plain version's; dQ, dK, dV
+    of the backward kernel within 1e-4 of each plain tensor's largest
+    magnitude, from the same o, LSE and dO; one launch each."""
+    q, k, v = _flash_inputs(sq + d + 7, b, sq, sk, h, kv, d, dv,
+                            torch.float32)
+    do = torch.as_tensor(np.random.default_rng(sk).standard_normal(
+        (b, sq, h, dv)).astype(np.float32))
+    o, lse = fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                      return_lse=True)
+    before = dict(fa.LAUNCHES)
+    got_o, got_lse = fa._forward(q.to(cuda), k.to(cuda), v.to(cuda), causal,
+                                 window, d ** -0.5, with_lse=True)
+    torch.cuda.synchronize()
+    _assert_flash_close(got_o, o)
+    assert float((got_lse.cpu() - lse).abs().max()) <= 1e-5
+    want = fa.flash_attention_backward_plain(q, k, v, o, lse, do,
+                                             causal=causal, window=window)
+    got = fa.flash_attention_backward(*(t.to(cuda) for t in (q, k, v, o, lse,
+                                                             do)),
+                                      causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert fa.LAUNCHES["flash_attention_backward"] == \
+        before["flash_attention_backward"] + 1
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        assert _rel_to_max(g, w) <= 1e-4, name
+
+
+@pytest.mark.gpu
+def test_flash_autograd_launches_the_backward_kernel(cuda):
+    """``torch.autograd.grad`` through ``flash_attention`` on the card
+    runs the forward kernel with its LSE and the backward kernel, and
+    agrees with the CPU's plain route within 1e-4 of each gradient's
+    largest magnitude; repeated, it gives bit-identical gradients."""
+    q, k, v = _flash_inputs(5, 2, 200, 200, 8, 2, 64, 64, torch.float32)
+    do = torch.as_tensor(np.random.default_rng(6).standard_normal(
+        (2, 200, 8, 64)).astype(np.float32))
+
+    def grads(dev):
+        leaves = [t.to(dev).requires_grad_(True) for t in (q, k, v)]
+        out = fa.flash_attention(*leaves, causal=True, window=50)
+        return torch.autograd.grad(out, leaves, do.to(dev))
+
+    want = grads("cpu")
+    fa.reset_launch_counts()
+    got = grads(cuda)
+    again = grads(cuda)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == {"flash_attention": 2,
+                           "flash_attention_backward": 2}
+    for g, w, a in zip(got, want, again):
+        assert _rel_to_max(g, w) <= 1e-4
+        assert torch.equal(g, a)
+
+
+@pytest.mark.gpu
+def test_kernels_without_a_backward_refuse_grad(cuda):
+    """Under grad, bf16 flash, f32 flash at D 192, WKV6 and SSD raise
+    naming the roadmap; under ``no_grad`` the same calls run."""
+    q, k, v = (t.to(cuda) for t in _flash_inputs(1, 1, 64, 64, 2, 2, 64, 64,
+                                                 torch.float32))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        fa.flash_attention(q.bfloat16().requires_grad_(), k.bfloat16(),
+                           v.bfloat16())
+    qw, kw, vw = (t.to(cuda) for t in _flash_inputs(
+        2, 1, 64, 64, 2, 2, 192, 128, torch.float32))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        fa.flash_attention(qw, kw.requires_grad_(), vw)
+    r, kk, vv, lw, u = (t.to(cuda) for t in _wkv_inputs(3, 1, 32, 2, 64))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        wk.wkv6(r.requires_grad_(), kk, vv, lw, u)
+    x, dt, a, bm, cm, d = (t.to(cuda) for t in _ssd_inputs(4, 1, 32, 4, 16,
+                                                           1, 16))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        sk.ssd(x.requires_grad_(), dt, a, bm, cm, d)
+    with torch.no_grad():
+        assert wk.wkv6(r, kk, vv, lw, u)[0].shape == r.shape
+        assert sk.ssd(x, dt, a, bm, cm, d)[0].shape == x.shape
 
 
 def _wkv_inputs(seed, b, s, h, n, decay_scale=1.0):

@@ -2,8 +2,9 @@
 
 At the yi, h2o-danube, rwkv6, zamba2, mistral-nemo, nemotron,
 mixtral, deepseek-v2 (MLA + MoE with a shared expert and a first dense
-layer) and qwen2-vl (M-RoPE; its prompts with patch embeddings, which
-the tests carry across with the prompt) smoke configs, with the
+layer), qwen2-vl (M-RoPE; its prompts with patch embeddings, which
+the tests carry across with the prompt) and musicgen (four codebooks:
+(B, K, S) tokens, (B, K, V) logits) smoke configs, with the
 reference's weights carried across by
 ``convert.lm_params``: prefill and decode logits within 1e-4 of the
 reference's (the bar of ``tests/test_models_consistency.py``, which holds
@@ -12,7 +13,8 @@ cache past the window (danube, and mixtral dropless), several decode
 steps against the teacher-forced forward, greedy and categorical
 generation token for token (mixtral at its published capacity factor,
 whose prefill drops tokens), ``make_batch`` prompts, the configs, and
-the serving CLI.
+the serving CLI; and the raise sites of the multi-card slice that the
+CPU reaches.
 """
 import dataclasses
 import json
@@ -32,16 +34,19 @@ from repro_torch import convert
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.configs.shapes import make_batch
 from repro_torch.launch import serve
+from repro_torch.launch import train as train_cli
 from repro_torch.models import config as port_config
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving.engine import generate
+from repro_torch.training import optimizer as opt_lib
+from repro_torch.training.train_step import make_train_step
 
 CPU = torch.device("cpu")
 PORTED = ("yi-6b", "h2o-danube-3-4b", "rwkv6-1.6b", "zamba2-1.2b",
           "mistral-nemo-12b", "nemotron-4-15b", "mixtral-8x7b",
-          "deepseek-v2-236b", "qwen2-vl-7b")
+          "deepseek-v2-236b", "qwen2-vl-7b", "musicgen-medium")
 TOL = 1e-4
 
 
@@ -63,8 +68,9 @@ def _both(arch, seed=0):
 
 
 def _tokens(jcfg, seed, b, s):
-    """(B, S) text tokens (a config with patch positions draws S text
-    tokens after them)."""
+    """(B, S) text tokens, or (B, K, S) codes (a config with patch
+    positions draws S text tokens after them); tests slice them on the
+    last axis."""
     return jmake_batch(jcfg, jax.random.PRNGKey(seed), b,
                        s + jcfg.num_patch_positions,
                        with_labels=False)["tokens"]
@@ -87,11 +93,12 @@ def test_prefill_and_decode_logits_match(arch):
     s = 33
     toks = _tokens(jcfg, 0, 2, s)
     t = torch.as_tensor(np.array(toks))
-    jl, jcache = jtf.prefill(jparams, jcfg, toks[:, :s - 1], max_len=s + 4)
-    pl, cache = tf.prefill(params, cfg, t[:, :s - 1], max_len=s + 4)
+    jl, jcache = jtf.prefill(jparams, jcfg, toks[..., :s - 1],
+                             max_len=s + 4)
+    pl, cache = tf.prefill(params, cfg, t[..., :s - 1], max_len=s + 4)
     assert _err(jl, pl) < TOL
-    jd, _ = jtf.decode_step(jparams, jcfg, toks[:, s - 1], jcache)
-    pd, cache = tf.decode_step(params, cfg, t[:, s - 1], cache)
+    jd, _ = jtf.decode_step(jparams, jcfg, toks[..., s - 1], jcache)
+    pd, cache = tf.decode_step(params, cfg, t[..., s - 1], cache)
     assert _err(jd, pd) < TOL
     assert cache["pos"] == s
     full, aux = tf.forward(params, cfg, t)
@@ -99,7 +106,7 @@ def test_prefill_and_decode_logits_match(arch):
     assert _err(jfull, full) < TOL
     assert aux.shape == () and abs(float(aux) - float(jaux)) <= 1e-6
     assert (float(aux) > 0) == (cfg.moe is not None)
-    assert float((full[:, s - 1] - pd).abs().max()) < TOL
+    assert float((full[..., s - 1, :] - pd).abs().max()) < TOL
 
 
 @pytest.mark.parametrize("arch", ["yi-6b", "rwkv6-1.6b"])
@@ -167,18 +174,18 @@ def _ring_past_the_window(arch):
     assert _err(jfull[:, s - 1], lg) < TOL
 
 
-@pytest.mark.parametrize("arch", ["yi-6b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ["yi-6b", "rwkv6-1.6b", "musicgen-medium"])
 def test_multi_step_decode_tracks_forward(arch):
     jcfg, jparams, cfg, params = _both(arch, seed=2)
     s, n_dec = 24, 5
     toks = _tokens(jcfg, 2, 2, s)
     t = torch.as_tensor(np.array(toks))
     jfull, _ = jtf.forward(jparams, jcfg, toks, remat=False)
-    _, cache = tf.prefill(params, cfg, t[:, :s - n_dec], max_len=s + 2)
+    _, cache = tf.prefill(params, cfg, t[..., :s - n_dec], max_len=s + 2)
     for i in range(n_dec):
         pos = s - n_dec + i
-        lg, cache = tf.decode_step(params, cfg, t[:, pos], cache)
-        assert _err(jfull[:, pos], lg) < TOL, i
+        lg, cache = tf.decode_step(params, cfg, t[..., pos], cache)
+        assert _err(jfull[..., pos, :], lg) < TOL, i
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -196,7 +203,8 @@ def test_generate_matches_reference_tokens(arch, sample):
     np.testing.assert_array_equal(got.tokens.numpy(),
                                   np.asarray(want.tokens))
     assert got.tokens.dtype == torch.int32
-    assert got.logits.shape == (2, 8, cfg.vocab_size)
+    k = (cfg.num_codebooks,) if cfg.num_codebooks else ()
+    assert got.logits.shape == (2, 8, *k, cfg.vocab_size)
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -234,18 +242,20 @@ def test_configs_match_the_reference(arch):
 
 
 def test_other_archs_raise_naming_the_roadmap():
-    for arch in ARCH_IDS:
-        if arch in PORTED:
-            continue
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            get_config(arch)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            get_smoke_config(arch)
+    """Every arch is ported; what the CPU can reach of the multi-card
+    slice raises naming the roadmap: sharded gradients in the train step
+    and the train CLI's ``--mesh``."""
+    assert set(PORTED) == set(ARCH_IDS)
     with pytest.raises(KeyError):
         get_config("gpt-2")
-    codebooks = ModelConfig(name="codebook-tiny", num_codebooks=4)
-    with pytest.raises(NotImplementedError, match="multi-codebook slice"):
-        tf.init_params(codebooks, device=CPU)
+    cfg = get_smoke_config("yi-6b")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item "
+                                                  "10.5"):
+        make_train_step(cfg, opt_lib.adamw(), grad_specs={"embed": None})
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item "
+                                                  "10.5"):
+        train_cli.main(["--arch", "yi-6b", "--smoke", "--device", "cpu",
+                        "--mesh", "2,1"])
 
 
 def _port_cfg(jc):
@@ -279,6 +289,26 @@ def test_serve_cli_runs_on_the_cpu(capsys):
     report = json.loads(out[-1])
     assert report["device_name"] == "CPU" and report["gen"] == 3
     assert np.asarray(report["tokens"]).shape == (2, 3)
+
+
+def test_serve_cli_serves_codebooks_on_the_cpu(capsys):
+    """``--arch musicgen-medium``: (B, K, gen) codes through the CLI,
+    sampled, from the reference CLI's prompt (``PRNGKey(0)``: (B, K, S)
+    codes, bit-equal); greedy and sampled generation against the
+    reference's is ``test_generate_matches_reference_tokens``."""
+    serve.main(["--arch", "musicgen-medium", "--smoke", "--device", "cpu",
+                "--batch", "2", "--prompt-len", "12", "--gen", "3",
+                "--sample", "categorical"])
+    out = capsys.readouterr().out.strip().splitlines()
+    assert out[0].startswith("serving musicgen-smoke")
+    assert np.asarray(json.loads(out[-1])["tokens"]).shape == (2, 4, 3)
+    run = serve.serve("musicgen-medium", smoke=True, batch=2, prompt_len=12,
+                      gen=3, device="cpu", verbose=False)
+    prompt = jmake_batch(jget_smoke("musicgen-medium"),
+                         jax.random.PRNGKey(0), 2, 12, with_labels=False)
+    np.testing.assert_array_equal(run.prompt["tokens"].numpy(),
+                                  np.asarray(prompt["tokens"]))
+    assert run.result.tokens.shape == (2, 4, 3)
 
 
 def test_serve_matches_reference_cli_draws():
