@@ -59,7 +59,10 @@ CUDA toolkit's nvcc.  Phases, each printing one JSON line:
    bf16, h2o-danube's window and head_dim 120 in f32 and bf16,
    zamba2-1.2b's shared block, mistral-nemo-12b's H 32 / KV 8 and
    nemotron-4-15b's H 48 / KV 8 at D 128, deepseek-v2-236b's MLA prefill
-   at H = KV = 128, Dk 192, Dv 128 (the f32 kernel's D > 128 tiling) and
+   at H = KV = 128, Dk 192, Dv 128 (the f32 kernel's D > 128 tiling, and
+   in bf16 the wgmma kernel's three-panel instance; both also through
+   MLA's strided V view, ``kv[..., 128:]``, read in place and giving the
+   contiguous V's output bit for bit) and
    qwen2-vl-7b's 3,072 positions (1,024 patches and 2,048 text) at H 28 /
    KV 4; rwkv6-1.6b's WKV6, also at a ragged S and
    in bf16, against its plain version in float64, with its kernels'
@@ -76,9 +79,11 @@ CUDA toolkit's nvcc.  Phases, each printing one JSON line:
    products at the TF32 peak, with the exact recurrence's FP32 bound
    beside) and the flash and SSD kernels' tensor-core instruction counts
    from ``cuobjdump -sass`` of the built libraries (every instance must
-   hold some); then the flash backward (``BWD_SHAPES``: musicgen-medium's
-   and yi-6b's training shapes, h2o-danube's window 4,096 at D 120 and S
-   4,608, a continuation Sq < Sk, Dk != Dv): the forward kernel's LSE
+   hold some, and the three-panel bf16 instance must be there); then the
+   flash backward (``BWD_SHAPES``: musicgen-medium's and yi-6b's training
+   shapes, h2o-danube's window 4,096 at D 120 and S 4,608, a
+   continuation Sq < Sk, Dk != Dv, deepseek-v2-236b's MLA at Dk 192 / Dv
+   128, the backward's 16-row tiling): the forward kernel's LSE
    within 1e-5 of the plain version's, and the backward kernel's dq, dk,
    dv from the same o, LSE and dO each within 1e-4 of the plain tensor's
    largest magnitude, timed beside the plain backward, one SDPA forward
@@ -93,8 +98,10 @@ CUDA toolkit's nvcc.  Phases, each printing one JSON line:
    override), each at the published capacity factor 1.25 and dropless
    (deepseek's dropless run one sequence), and qwen2-vl-7b with 1,024
    patch positions before its 2,048 text tokens, and musicgen-medium (48
-   layers, 2,048 positions of 4 codebooks, (B, 4) codes a step); weights
-   from a
+   layers, 2,048 positions of 4 codebooks, (B, 4) codes a step), then in
+   bf16 (parameters and compute, the reference dry-run's overrides)
+   deepseek-v2-236b at 6 layers (its MLA prefill through the bf16
+   kernel at Dk 192, once a layer); weights from a
    ``torch.Generator`` on the card, batch 4, 32 greedy tokens — with
    launch counts read around each run (each kernel launched as often as
    the config's blocks call it in one prefill: flash once per attn, moe,
@@ -105,7 +112,8 @@ CUDA toolkit's nvcc.  Phases, each printing one JSON line:
    the serving invariant: a teacher-forced forward over prompt +
    generated tokens matches the prefill and decode logits within 1e-3
    (nemotron's and deepseek's forward one sequence at a time; the MoE
-   runs' dropless only, the reference's rule; qwen2-vl's with its own
+   runs' dropless only, the reference's rule; the bf16 runs' gap
+   recorded, not held to the f32 bar; qwen2-vl's with its own
    prefill, whose cache covers patches, text and generated tokens and
    whose decode steps get the forward's M-RoPE positions);
 9. lm_parity: the yi, h2o-danube, rwkv6, zamba2, mistral-nemo, nemotron,
@@ -114,7 +122,13 @@ CUDA toolkit's nvcc.  Phases, each printing one JSON line:
    on the card — logits
    within 1e-4, greedy tokens identical, the MoE configs' routed ids and
    keep flags of every dispatch identical (an id may differ only at a
-   near-tie of the CPU's probabilities, within 1e-5);
+   near-tie of the CPU's probabilities, within 1e-5); then in bf16 yi-6b
+   and a narrow deepseek-v2 (d_model 128, 2 heads) at the published MLA
+   head dims (Dk 192, Dv 128), dropless: forward and generation logits
+   within ``BF16_K`` (3) times the model's own bf16-vs-f32 gap (the CPU's
+   bf16 forward against its f32 forward on the same weights widened), a
+   greedy token differing only where the CPU's top two logits lie within
+   that bar;
 10. hltrain: fleet Hybrid Learning training (Algorithm 1).  (a) The
    deployment (65,536 cells, n_max 5, ``full``, shared cloud and edge,
    4 cells per edge) trained through ``rl_train --fleet`` for 4 epochs
@@ -247,10 +261,17 @@ CUDA toolkit's nvcc.  Phases, each printing one JSON line:
    ~16.6 GB ``TrainState`` checkpoint it writes read back equal, tensor
    by tensor, then deleted.  (b) yi-6b at full width and 4 of its 32
    layers on the synthetic corpus, 20 steps: the last three steps' mean
-   loss at least 10% under the first, ms a step.  (c) One and two sgd
-   steps at smoke size from one state on the CPU and the card (yi-6b,
-   h2o-danube-3-4b, musicgen-medium): loss, CE, grad norm within 1e-5
-   relative, parameters within 1e-5.  (d) An rwkv6, a zamba2 and a
+   loss at least 10% under the first, ms a step.  (c) deepseek-v2-236b
+   at full width and 2 of its 60 layers (its dense MLA layer and one MLA
+   + MoE layer, 5.36e9 parameters) with sgd (adamw's moments would not
+   fit): batch 4, 2,048 positions, 10 steps at a constant rate with
+   recomputation; flash launches exactly 4 forward (Dk 192) and 2
+   backward a step, the last three steps' mean loss under the first, ms
+   a step, peak memory, busy share of one more step.  (d) One and two sgd steps at smoke size from
+   one state on the CPU and the card (yi-6b, h2o-danube-3-4b,
+   musicgen-medium, and the narrow deepseek's dense MLA layer at Dk 192 /
+   Dv 128): loss, CE, grad norm within 1e-5 relative, parameters within
+   1e-5.  (e) An rwkv6, a zamba2 and a
    bf16 yi-6b smoke train step on the card raise
    ``NotImplementedError`` naming ``ROADMAP.md`` (no backward kernel
    for WKV6, SSD or bf16 flash yet), as they must.  Prints its seconds.
@@ -1055,6 +1076,8 @@ FLASH_SHAPES = (
     ("nemotron-4-15b", 4, 2048, 48, 8, 128, 128, 0, "float32"),
     ("deepseek-v2-236b_mla", 4, 2048, 128, 128, 192, 128, 0, "float32"),
     ("qwen2-vl-7b", 4, 3072, 28, 4, 128, 128, 0, "float32"),
+    ("deepseek-v2-236b_mla_bf16", 4, 2048, 128, 128, 192, 128, 0,
+     "bfloat16"),
 )
 # (name, B, S, H, N, dtype): rwkv6-1.6b's prefill, a ragged S, bf16
 WKV_SHAPES = (
@@ -1083,6 +1106,7 @@ BWD_SHAPES = (
     ("h2o-danube-3-4b", 2, 4608, 4608, 32, 8, 120, 120, 4096),
     ("sq_lt_sk", 4, 1024, 2048, 32, 8, 128, 128, 0),
     ("dk_ne_dv", 4, 2048, 2048, 32, 8, 128, 64, 0),
+    ("deepseek-v2-236b_mla", 4, 2048, 2048, 128, 128, 192, 128, 0),
 )
 BWD_BAR, LSE_BAR = 1e-4, 1e-5
 
@@ -1155,6 +1179,9 @@ def phase_lm_kernels(torch, dev, ptxas: dict) -> dict:
         check(bool(found), f"cuobjdump lists an instance of {inst}")
         for fn, ops in found.items():
             check(ops[key] > 0, f"{fn} runs {key} on the tensor cores")
+    if sass is not None:  # the bf16 instances at D in (128, 192]
+        check(any(k.startswith("flash_fwd_kernel_wgmma<3,") for k in sass),
+              "cuobjdump lists the three-panel (D 192) wgmma instance")
     for name, b, s, h, kv, d, dv, window, dt in FLASH_SHAPES:
         dtype = getattr(torch, dt)
         q, k, v = (torch.randn(b, s, n, w, generator=g, device=dev)
@@ -1177,6 +1204,8 @@ def phase_lm_kernels(torch, dev, ptxas: dict) -> dict:
         if dt == "bfloat16":
             check(row_err <= BF16_ROW_BAR, f"flash {name} rows within "
                   f"{BF16_ROW_BAR} of the plain rows' norm ({row_err})")
+        strided = mla_strided_v(torch, fa, q, k, v, got) if "_mla" in name \
+            else None
         # the yardstick: one SDPA call on (B, H, S, D) views, the window
         # as an explicit mask built outside the timed call
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -1229,6 +1258,7 @@ def phase_lm_kernels(torch, dev, ptxas: dict) -> dict:
             library_call_ms=library["call_ms"], library_max_abs_err=lib_err,
             library_refused=lib_refused,
             blocker_held=kern["blocker_held"] and library["blocker_held"],
+            strided_v=strided,
             shape=dict(B=b, S=s, H=h, KV=kv, D=d, Dv=dv, window=window,
                        dtype=dt, visible_pairs=pairs))
         del q, k, v, got, want, qt, kt, vt
@@ -1247,6 +1277,28 @@ def phase_lm_kernels(torch, dev, ptxas: dict) -> dict:
         torch.cuda.empty_cache()
     emit("lm_kernels", **out)
     return out
+
+
+def mla_strided_v(torch, fa, q, k, v, got) -> dict:
+    """MLA's V as ``mla_prefill`` hands it over, the strided view
+    ``kv[..., nope:]`` of the decompressed (B, S, KV, nope + Dv) latents
+    (nope = 128 at deepseek's widths): read in place (the wrapper makes no
+    copy) and the output identical to the contiguous V's, timed."""
+    b, s, kv, dv = v.shape
+    lat = torch.empty(b, s, kv, 128 + dv, dtype=v.dtype, device=v.device)
+    lat[..., 128:] = v
+    view = lat[..., 128:]
+    from repro_torch.kernels import _build
+    in_place = (not view.is_contiguous()
+                and _build.aligned(view).data_ptr() == view.data_ptr())
+    check(in_place, "the kernel reads MLA's strided V in place")
+    same = bool(torch.equal(fa.flash_attention(q, k, view, causal=True), got))
+    check(same, "MLA's strided V gives the contiguous V's output")
+    ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, view, causal=True),
+                 iters=10)["ms"]
+    return dict(in_place=in_place, identical=same, ms=ms,
+                v_offset_bytes=128 * v.element_size(),
+                v_row_stride_bytes=view.stride(2) * v.element_size())
 
 
 def flash_backward_entry(torch, dev, *, b, sq, sk, h, kv, d, dv,
@@ -1560,8 +1612,18 @@ def n_moe_blocks(cfg) -> int:
 # ring wraps.  qwen2-vl's prompt is 1,024 patch positions and 2,048 text
 # tokens; its invariant needs its own prefill (``vision_forward_check``).
 # musicgen-medium's prompt is 2,048 positions of 4 codebooks, (B, 4, S).
+# The bf16 run takes the reference dry-run's overrides (parameters and
+# compute in bf16, src/repro/launch/dryrun.py:130): deepseek-v2-236b at 6
+# of its 60 layers (its dense first layer and five MLA + MoE layers,
+# 21.2e9 parameters, 42.5 GB; the f32 runs hold 3), whose MLA prefill
+# runs the bf16 kernel at Dk 192 once a layer; its serving invariant's
+# gap is recorded, not held to the f32 bar (bf16 rounds the forward and
+# the decode steps differently, and its prefill drops tokens at capacity
+# factor 1.25).
+BF16 = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
 MIXTRAL_LAYERS, MIXTRAL_DROPLESS_CF = 8, 8.0
 DEEPSEEK_LAYERS, DEEPSEEK_DROPLESS_CF = 3, 160.0
+DEEPSEEK_BF16_LAYERS = 6
 LM_RUNS = (
     ("yi-6b", "yi-6b", {}, LM_BATCH, LM_PROMPT, LM_BATCH),
     ("rwkv6-1.6b", "rwkv6-1.6b", {}, LM_BATCH, LM_PROMPT, LM_BATCH),
@@ -1583,6 +1645,9 @@ LM_RUNS = (
      1, LM_PROMPT, 1),
     ("qwen2-vl-7b", "qwen2-vl-7b", {}, LM_BATCH, LM_PROMPT, LM_BATCH),
     ("musicgen-medium", "musicgen-medium", {}, LM_BATCH, LM_PROMPT,
+     LM_BATCH),
+    ("deepseek-v2-236b_L6_bf16", "deepseek-v2-236b",
+     dict(BF16, n_layers=DEEPSEEK_BF16_LAYERS), LM_BATCH, LM_PROMPT,
      LM_BATCH),
 )
 
@@ -1766,9 +1831,10 @@ def phase_lm_serve(torch) -> dict:
             extra = (vision_forward_check(torch, run, per)
                      if run.cfg.num_patch_positions
                      else lm_forward_check(torch, run, per))
-            check(extra["forward_max_abs_err"] <= 1e-3,
-                  f"{label}: forward matches prefill + decode logits "
-                  f"within 1e-3 ({extra['forward_max_abs_err']})")
+            if run.cfg.compute_dtype == "float32":
+                check(extra["forward_max_abs_err"] <= 1e-3,
+                      f"{label}: forward matches prefill + decode logits "
+                      f"within 1e-3 ({extra['forward_max_abs_err']})")
         n_moe = n_moe_blocks(run.cfg)
         if n_moe:
             extra["moe"] = dict(drop_counts(routes, n_moe),
@@ -1791,6 +1857,8 @@ def phase_lm_serve(torch) -> dict:
         prof = profile_lm(torch, run, rep)
         out[label] = dict(
             arch=arch, overrides=overrides, params=rep["params"],
+            weight_gb=sum(p.numel() * p.element_size()
+                          for p in run.params.parameters()) / 1e9,
             batch=batch, prompt=prompt,
             patch_positions=run.cfg.num_patch_positions, gen=LM_GEN,
             prefill_ms=rep["prefill_ms"],
@@ -1846,6 +1914,83 @@ def routes_parity(torch, cpu: list, gpu: list) -> dict:
                 smallest_kth_gap=min(kth))
 
 
+# bf16 at smoke size, CPU against the card: yi-6b, and deepseek-v2 narrow
+# (d_model 128, 2 heads) at its published head dims (Dk 192 = nope 128 +
+# rope 64, Dv 128), which reach the bf16 kernel's three-panel instance,
+# MoE dropless; each held to BF16_K times the model's own bf16-vs-f32
+# gap (the CPU's bf16 forward logits against its f32 forward on the same
+# weights widened), the rule tests/test_torch_bf16.py holds the port to
+# against the reference (K 2.5-3.5 there); greedy tokens identical but
+# at a near-tie under that bar
+NARROW_MLA = dict(q_lora_rank=48, kv_lora_rank=64, qk_nope_head_dim=128,
+                  qk_rope_head_dim=64, v_head_dim=128)
+BF16_K = 3.0
+
+
+def narrow_deepseek(**overrides):
+    """deepseek-v2's smoke config at its published MLA head dims, 2
+    heads, dropless (``tests/test_torch_bf16.py``'s narrow case)."""
+    from repro_torch.configs import get_smoke_config
+    cfg = get_smoke_config("deepseek-v2-236b")
+    return dataclasses.replace(
+        cfg, n_heads=2, n_kv_heads=2,
+        mla=dataclasses.replace(cfg.mla, **NARROW_MLA),
+        moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(cfg.moe.num_experts)),
+        **overrides)
+
+
+def bf16_parity(torch, cfg) -> dict:
+    """One model of ``cfg`` (bf16) on the CPU and on the card: the
+    teacher-forced forward's logits and a greedy generation's (prefill,
+    then decode steps; each sequence up to its first token that differs)
+    within BF16_K times the CPU's bf16-vs-f32 forward gap; where a token
+    differs, the CPU's top two logits lie closer than that bar."""
+    import copy
+    from repro_torch import random as rnd
+    from repro_torch.configs.shapes import make_batch
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving.engine import generate
+    cpu_params = tf.init_params(cfg, seed=SEED, device="cpu")
+    gpu_params = copy.deepcopy(cpu_params).to("cuda")
+    prompt = make_batch(cfg, rnd.PRNGKey(SEED, "cpu"), 2, 40,
+                        with_labels=False)
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    with torch.no_grad():
+        fc, _ = tf.forward(cpu_params, cfg, prompt["tokens"])
+        fg, _ = tf.forward(gpu_params, cfg, prompt["tokens"].cuda())
+        f32, _ = tf.forward(copy.deepcopy(cpu_params).float(), cfg32,
+                            prompt["tokens"])
+    gap = float((fc.float() - f32).abs().max())
+    bar = BF16_K * gap
+    forward_err = float((fc.float() - fg.float().cpu()).abs().max())
+    cpu = generate(cpu_params, cfg, prompt, steps=8)
+    gpu = generate(gpu_params, cfg,
+                   {k: v.to("cuda") for k, v in prompt.items()}, steps=8)
+    ct, gt = cpu.tokens, gpu.tokens.cpu()
+    cl, gl = cpu.logits.float(), gpu.logits.float().cpu()
+    errs, near = [], []
+    for i in range(ct.shape[0]):
+        differ = (ct[i] != gt[i]).nonzero()
+        n = int(differ[0]) + 1 if len(differ) else ct.shape[1]
+        errs.append(float((cl[i, :n] - gl[i, :n]).abs().max()))
+        if len(differ):
+            top = torch.topk(cl[i, n - 1], 2).values
+            near.append(float(top[0] - top[1]))
+    err = max(errs + [forward_err])
+    check(err <= bar, f"bf16 {cfg.name}: CPU and card logits within "
+          f"{BF16_K} x the bf16-vs-f32 gap {gap}: {bar} ({err})")
+    check(all(g < bar for g in near), f"bf16 {cfg.name}: greedy tokens "
+          f"differ only where the CPU's top two lie within {bar} ({near})")
+    return dict(max_abs_logit_err=err, forward_max_abs_err=forward_err,
+                generate_max_abs_err=max(errs), bf16_vs_f32_gap=gap,
+                bar=bar,
+                top2_gaps_where_tokens_differ=near,
+                max_abs_logit=float(cl.abs().max()),
+                tokens=gt[0].tolist())
+
+
 def phase_lm_parity(torch) -> None:
     import copy
     from repro_torch import random as rnd
@@ -1884,6 +2029,10 @@ def phase_lm_parity(torch) -> None:
                 routes_parity(torch, cpu_routes, gpu_routes),
                 prefill_dropped=drop_counts(
                     cpu_routes, n_moe_blocks(cfg))["prefill_dropped"])
+    out["yi-6b_bf16"] = bf16_parity(torch, get_smoke_config(
+        "yi-6b", **BF16))
+    out["deepseek-v2-236b_dk192_bf16"] = bf16_parity(
+        torch, narrow_deepseek(**BF16))
     emit("lm_parity", **out)
 
 
@@ -3359,8 +3508,19 @@ TRAIN_LM = dict(arch="musicgen-medium", steps=4, batch=4, seq=2048)
 # below the first step's
 LEARN = dict(arch="yi-6b", n_layers=4, steps=20, batch=4, seq=512, lr=1e-3)
 LEARN_TAIL, LEARN_DROP = 3, 0.10
-# (c) CPU against the card: smoke configs, sgd steps, batch, positions
-TRAIN_PARITY_ARCHS = ("yi-6b", "h2o-danube-3-4b", "musicgen-medium")
+# (c) deepseek-v2-236b at full width, 2 of its 60 layers (the dense MLA
+# layer and one MLA + MoE layer: 5,362,077,696 parameters), with sgd:
+# its f32 weights and gradients take 42.9 GB, where adamw's two moments
+# would take 85.8 GB in all, past the card; batch 4, 2,048 positions,
+# recomputation, a constant rate at the global-norm clip of 1.0; the
+# last LEARN_TAIL steps' mean loss must fall below the first step's
+TRAIN_MLA = dict(arch="deepseek-v2-236b", n_layers=2, steps=10, batch=4,
+                 seq=2048, lr=1.0)
+# (d) CPU against the card: smoke configs, sgd steps, batch, positions;
+# and deepseek-v2 narrow at its published head dims (its dense MLA layer
+# alone), whose gradients run the backward kernel at Dk 192 / Dv 128
+TRAIN_PARITY_ARCHS = ("yi-6b", "h2o-danube-3-4b", "musicgen-medium",
+                      "deepseek-v2-236b_dk192")
 TRAIN_PARITY = dict(steps=2, batch=2, seq=40, lr=0.05)
 
 
@@ -3401,13 +3561,15 @@ def checkpoint_round_trip(torch, state, path: str) -> dict:
                 compared_values=n)
 
 
-def train_profile(torch, cfg, state, batch: dict) -> dict:
+def train_profile(torch, cfg, state, batch: dict, opt=None) -> dict:
     """Device ops, busy ms and the flash kernels' ms of one more train
-    step, in the profiler."""
+    step, in the profiler (``opt``: the state's optimizer, by default
+    the CLI's adamw)."""
     from repro_torch.training.optimizer import adamw
     from repro_torch.training.schedule import cosine_with_warmup
     from repro_torch.training.train_step import make_train_step
-    opt = adamw(lr=cosine_with_warmup(3e-4, 20, 100))
+    if opt is None:
+        opt = adamw(lr=cosine_with_warmup(3e-4, 20, 100))
     step = make_train_step(cfg, opt)
     prof, _ = _device_time(torch, lambda: step(state, batch),
                            ["flash_fwd_kernel", "flash_bwd"])
@@ -3425,7 +3587,8 @@ def train_cpu_vs_card_lm(torch) -> dict:
     from repro_torch.training import train_step as ts
     out = {}
     for arch in TRAIN_PARITY_ARCHS:
-        cfg = get_smoke_config(arch)
+        cfg = (narrow_deepseek(n_layers=1) if arch.endswith("_dk192")
+               else get_smoke_config(arch))
         opt = opt_lib.sgd(TRAIN_PARITY["lr"])
         cpu = ts.init_train_state(cfg, opt, seed=SEED, device="cpu")
         gpu = ts.init_train_state(cfg, opt, params=copy.deepcopy(
@@ -3483,6 +3646,66 @@ def refused_train_steps(torch) -> dict:
               f"({raised})")
         out[label] = raised
     return out
+
+
+def train_mla(torch, lr: float = TRAIN_MLA["lr"]) -> dict:
+    """Phase 16 (c): deepseek-v2-236b at TRAIN_MLA's cut with sgd at
+    ``lr``; launches counted around the steps (zeroed just before, read
+    just after), the loss falls."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import batch_for_config
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training import train_step as ts
+    import math
+    cfg = get_config(TRAIN_MLA["arch"], n_layers=TRAIN_MLA["n_layers"])
+    check(cfg.block_kinds() == ("mla_dense", "mla_moe"), "deepseek's "
+          "first two layers are its dense MLA layer and an MLA + MoE layer")
+    opt = opt_lib.sgd(lr)
+    state = ts.init_train_state(cfg, opt, seed=SEED, device="cuda")
+    step = ts.make_train_step(cfg, opt)
+    batches = [batch_for_config(cfg, i, TRAIN_MLA["batch"],
+                                TRAIN_MLA["seq"], "cuda")
+               for i in range(TRAIN_MLA["steps"])]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_counts()
+    metrics = []
+    for i, batch in enumerate(batches):
+        if i == 1:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        state, m = step(state, batch)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t1) * 1e3 / (TRAIN_MLA["steps"] - 1)
+    launches = {k: v for k, v in all_counts().items()
+                if k in ("flash_attention", "flash_attention_backward",
+                         "wkv6", "ssd")}
+    want = flash_train_launches(cfg, TRAIN_MLA["steps"])
+    check(launches == want, f"deepseek-v2-236b (2 layers) training "
+          f"launches {launches}, expected {want}")
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    tail = sum(losses[-LEARN_TAIL:]) / LEARN_TAIL
+    check(all(math.isfinite(x) for x in losses + norms)
+          and tail < losses[0], f"deepseek-v2-236b (2 layers) loss finite "
+          f"and falling from {losses[0]} (last {LEARN_TAIL} mean {tail})")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prof = train_profile(torch, cfg, state, batches[-1], opt)
+    res = dict(
+        TRAIN_MLA, lr=lr, optimizer="sgd", params=cfg.num_params(),
+        loss=losses, grad_norm=norms, tail_mean_loss=tail, ms_per_step=ms,
+        tokens_per_s=TRAIN_MLA["batch"] * TRAIN_MLA["seq"] / ms * 1e3,
+        peak_mem_gb=peak, launches=launches, launches_per_step={
+            k: v // TRAIN_MLA["steps"] for k, v in launches.items()},
+        profile=dict(prof, busy_share=prof["device_busy_ms"] / ms))
+    print(json.dumps({"lm_train": "deepseek-v2-236b_L2", **{
+        k: res[k] for k in (
+            "ms_per_step", "peak_mem_gb", "loss", "launches_per_step")}}),
+        flush=True)
+    del state, step, batches
+    torch.cuda.empty_cache()
+    return res
 
 
 def phase_lm_train(torch) -> dict:
@@ -3576,7 +3799,9 @@ def phase_lm_train(torch) -> dict:
                            / 1e9)
     del state, step
     torch.cuda.empty_cache()
-    # (c) CPU against the card; (d) the refusals
+    # (c) deepseek-v2-236b, 2 layers, sgd
+    out["deepseek-v2-236b_L2"] = train_mla(torch)
+    # (d) CPU against the card; (e) the refusals
     out["cpu_vs_card"] = train_cpu_vs_card_lm(torch)
     out["refused"] = refused_train_steps(torch)
     out["seconds"] = time.perf_counter() - t_phase
@@ -3765,11 +3990,24 @@ def main() -> int:
         lm_kernels["musicgen-medium_backward"],
         launches=lm_train["musicgen-medium"]["launches"][
             "flash_attention_backward"])
+    # the bf16 LM path's MLA prefill and deepseek's training: the same two
+    # kernels at Dk 192, read from their own main-path runs
+    kernels["flash_attention_mla_bf16"] = dict(
+        lm_kernels["deepseek-v2-236b_mla_bf16"],
+        case="deepseek-v2-236b_mla_bf16",
+        launches=lm_serve["deepseek-v2-236b_L6_bf16"]["launches"][
+            "flash_attention"])
+    kernels["flash_attention_backward_mla"] = dict(
+        lm_kernels["deepseek-v2-236b_mla_backward"],
+        case="deepseek-v2-236b_mla",
+        launches=lm_train["deepseek-v2-236b_L2"]["launches"][
+            "flash_attention_backward"])
     summary = {"kernels": [
-        {key: k[key] for key in ("name", "route", "source", "replaces",
-                                 "launches", "max_abs_err", "ms",
-                                 "plain_ms", "bound_ms", "launch_floor_ms",
-                                 "bound_by", "library_ms") if key in k}
+        {key: k[key] for key in ("name", "case", "route", "source",
+                                 "replaces", "launches", "max_abs_err",
+                                 "ms", "plain_ms", "bound_ms",
+                                 "launch_floor_ms", "bound_by",
+                                 "library_ms") if key in k}
         for k in kernels.values()]}
     (OUT / "chip_smoke.json").write_text(json.dumps(
         dict(results, summary=summary), indent=1))

@@ -7,7 +7,11 @@ use_bin_type=True)`` of a tree whose arrays are maps ``{"__arr__": True,
 so this module encodes and decodes the subset of MessagePack that format
 uses — maps, arrays, str, bin, int, float, bool and nil — with the same
 bytes ``msgpack.packb`` writes (smallest encoding of every int, float64
-floats, str8 and bin types on).  Restored arrays are CPU tensors.
+floats, str8 and bin types on).  Restored arrays are CPU tensors.  A
+bfloat16 array is written as the reference writes one (dtype string
+``"bfloat16"``, its raw 16-bit words) and read back as a
+``torch.bfloat16`` tensor, without ``ml_dtypes``.  ``restore_like``
+re-imposes a template's structure, as the reference's does.
 
 ``save`` streams the file leaf by leaf and ``restore`` reads it through
 a memory map, so a checkpoint of several GB (an LM's training state)
@@ -31,13 +35,27 @@ _TUP = "__tuple__"
 
 
 # ------------------------------------------------------------ tree <-> raw
-def _encode(obj):
+def _host_array(obj) -> tuple[np.ndarray, str]:
+    """(a C-contiguous numpy array of ``obj``'s bytes, its dtype string).
+    A bfloat16 tensor, which numpy cannot hold, goes as its 16-bit words
+    under the name ``"bfloat16"``, as the reference writes an
+    ``ml_dtypes.bfloat16`` array."""
     if isinstance(obj, torch.Tensor):
-        obj = obj.detach().cpu().numpy()
-    if isinstance(obj, np.ndarray) or hasattr(obj, "dtype"):
-        arr = np.asarray(obj)
-        return {_ARR: True, "dtype": str(arr.dtype),
-                "shape": list(arr.shape), "data": arr.tobytes()}
+        t = obj.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.contiguous().view(torch.int16).numpy(), "bfloat16"
+        obj = t.numpy()
+    arr = np.asarray(obj)
+    if not arr.flags.c_contiguous:  # (ascontiguousarray makes 0-d 1-d)
+        arr = arr.copy()
+    return arr, str(arr.dtype)
+
+
+def _encode(obj):
+    if _is_array(obj):
+        arr, dtype = _host_array(obj)
+        return {_ARR: True, "dtype": dtype, "shape": list(arr.shape),
+                "data": arr.tobytes()}
     if isinstance(obj, dict):
         return {k: _encode(v) for k, v in obj.items()}
     if isinstance(obj, tuple):
@@ -54,6 +72,10 @@ def _decode(obj):
         return bytes(obj)
     if isinstance(obj, dict):
         if obj.get(_ARR):
+            if obj["dtype"] == "bfloat16":  # 16-bit words, no ml_dtypes
+                arr = np.frombuffer(obj["data"], dtype=np.int16)
+                return torch.from_numpy(arr.reshape(obj["shape"]).copy()
+                                        ).view(torch.bfloat16)
             arr = np.frombuffer(obj["data"], dtype=np.dtype(obj["dtype"]))
             return torch.from_numpy(arr.reshape(obj["shape"]).copy())
         if _TUP in obj:
@@ -114,13 +136,10 @@ def _pack(obj, write, encode: bool = True) -> None:
 
     def put(o):
         if encode and _is_array(o):
-            if isinstance(o, torch.Tensor):
-                o = o.detach().cpu().numpy()
-            arr = np.asarray(o)
-            if not arr.flags.c_contiguous:  # (ascontiguousarray makes 0-d 1-d)
-                arr = arr.copy()
-            put({_ARR: True, "dtype": str(arr.dtype),
-                 "shape": list(arr.shape),
+            arr, dtype = _host_array(o)
+            if dtype == "bfloat16" and arr.dtype != np.int16:
+                arr = arr.view(np.int16)  # an ml_dtypes array's words
+            put({_ARR: True, "dtype": dtype, "shape": list(arr.shape),
                  "data": memoryview(arr.reshape(-1)).cast("B")})
         elif encode and isinstance(o, tuple):
             put({_TUP: list(o)})
@@ -237,6 +256,44 @@ def restore(path: str) -> Any:
             return _decode(unpackb(b""))
         mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
     return _decode(unpackb(memoryview(mm), views=True))
+
+
+def _leaves(tree) -> list:
+    """The leaves of a tree in the reference's (JAX's) order: a dict's
+    values by sorted key, a list's, tuple's or NamedTuple's in order,
+    None holds none."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def _unflatten(template, leaves):
+    """``template``'s structure over the iterator ``leaves``."""
+    if isinstance(template, dict):
+        got = {k: _unflatten(template[k], leaves) for k in sorted(template)}
+        return {k: got[k] for k in template}
+    if isinstance(template, list):
+        return [_unflatten(v, leaves) for v in template]
+    if isinstance(template, tuple):
+        items = [_unflatten(v, leaves) for v in template]
+        return (type(template)(*items) if hasattr(template, "_fields")
+                else tuple(items))
+    return None if template is None else next(leaves)
+
+
+def restore_like(path: str, template: Any) -> Any:
+    """The tree saved at ``path`` with ``template``'s structure imposed
+    (NamedTuples included), leaf for leaf in the reference's order, as
+    ``repro.checkpoint.ckpt.restore_like``; raises if the leaf counts
+    differ."""
+    flat = _leaves(restore(path))
+    n = len(_leaves(template))
+    if len(flat) != n:
+        raise ValueError(f"checkpoint holds {len(flat)} leaves, the "
+                         f"template {n}")
+    return _unflatten(template, iter(flat))
 
 
 # ------------------------------------------------------ LM training state

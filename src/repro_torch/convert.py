@@ -60,6 +60,18 @@ def _tensors(tree, dev):
     return torch.as_tensor(np.asarray(tree), device=dev)
 
 
+def host_tensor(a, device="cpu") -> torch.Tensor:
+    """A copy of the array ``a`` as a tensor of its own dtype.  A bfloat16
+    array (``ml_dtypes.bfloat16``, which torch cannot read) crosses bit for
+    bit as its 16-bit words viewed as ``torch.bfloat16``, so nothing here
+    needs ``ml_dtypes``."""
+    arr = np.array(a)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.as_tensor(arr, device=device)
+
+
 def policy_params(params, device="cuda"):
     """A params pytree of the reference's adapters: a dqn layer list
     becomes an MLP, dicts of arrays (greedy; oracle's ``table`` and
@@ -126,7 +138,7 @@ def lm_params(params, cfg: ModelConfig, device="cuda") -> tf.LM:
     router float32 whatever the parameter dtype; with codebooks the
     (K, V, D) embedding and (K, D, V) head as they are)."""
     dev = resolve_device(device)
-    tensor = lambda a: torch.as_tensor(np.array(a), device=dev)
+    tensor = lambda a: host_tensor(a, dev)
     blocks = []
     for (kind, n), seg in zip(tf.segment_plan(cfg), params["segments"]):
         for i in range(n):

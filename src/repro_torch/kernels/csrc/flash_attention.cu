@@ -83,6 +83,13 @@
 // to bf16 first, which the bf16 bars against the plain version (3e-2 per
 // element, 1e-2 of each output row's norm) cover.  Shared memory: 32 KB
 // (Q) + 3 x (32 + 32) KB (K, V) = 224 KB at D = Dv = 128, one CTA per SM.
+// D in (128, 192] with Dv <= 128 (MLA's prefill) is the same kernel with
+// three K panels: S = Q K^T takes 12 k16 steps instead of 8, the
+// registers stay as they are (S's half is 32 floats, O 64, since Dv <=
+// 128), and the ring is cut to fit: three stages of 64 keys
+// (kWideStages, kWideKeys below).  MLA's V, the strided view kv[...,
+// nope:], is read in place by its tensor map (base 256 bytes in, rows
+// 512 bytes apart at deepseek's widths).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -95,8 +102,8 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;  // the reference's NEG_INF
-constexpr int kMaxD = 128;      // bf16's D and Dv, and every Dv
-constexpr int kMaxDF32 = 192;   // float32's D
+constexpr int kMaxD = 192;   // D of every instance, forward and backward
+constexpr int kMaxDv = 128;  // Dv of every instance
 
 struct Strides {  // element strides of the (B, S, H, D) operands
   long long q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, o_b, o_s, o_h;
@@ -418,10 +425,17 @@ flash_fwd_kernel_tf32(const float* __restrict__ q, const float* __restrict__ k,
 
 // ----------------------------------------------- bfloat16: TMA + wgmma
 constexpr int kWgRows = 128;   // query rows per CTA (two consumers x 64)
-constexpr int kWgKeys = 128;   // keys per tile
 constexpr int kPanel = 16384;  // one 64-column panel of 128 rows, bytes
 constexpr int kWgThreads = 384;  // two consumer + one producer warpgroup
-constexpr int kStages = 3;      // the K / V ring
+// the K / V ring: kStages stages of kKeys keys.  D <= 128: three stages
+// of 128 keys.  D in (128, 192] (three K panels): three stages would need
+// (3 + 3 x 5) x 16 KB = 288 KB, more than a CTA may hold; two stages of
+// 128 keys (209 KB) and three of 64 keys (169 KB) fit.  kWideStages /
+// kWideKeys name the one kept: three of 64 keys, the faster of the two
+// at deepseek's MLA prefill on an H100 (tools/flash_wide_layout.py times
+// both; PERF.md has the times).
+constexpr int kStages = 3, kKeys = 128;
+constexpr int kWideStages = 3, kWideKeys = 64;
 
 // D (64 x 64, f32) += A (64 x 16) . B (16 x 64), both bf16 in shared memory,
 // K-major; scale_d = 0 overwrites D.
@@ -594,7 +608,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&x);
 }
 
-template <int kNPK, int kNPV>  // 64-column panels of D and Dv: 1 or 2
+// kNPK, kNPV: 64-column panels of D (1-3) and Dv (1 or 2); a ring of
+// kStg stages of kBK keys (128 or 64)
+template <int kNPK, int kNPV, int kStg, int kBK>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
@@ -603,27 +619,29 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
                        __nv_bfloat16* __restrict__ o, int H, int KV, int Sq,
                        int Sk, int D, int Dv, long long o_b, long long o_s,
                        long long o_h, float scale, int causal, int window) {
+  // a K or V panel: 64 columns of kBK rows, 128 bytes a row
+  constexpr int kKVPanel = kBK * 128;
   extern __shared__ uint8_t smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
   const uint32_t sQ = (smem_addr(smem_raw) + 1023) & ~1023u;
-  const uint32_t sK = sQ + kNPK * kPanel;               // kStages tiles
-  const uint32_t sV = sK + kStages * kNPK * kPanel;     // kStages tiles
-  const uint32_t bars = sV + kStages * kNPV * kPanel;   // the mbarriers
+  const uint32_t sK = sQ + kNPK * kPanel;               // kStg tiles
+  const uint32_t sV = sK + kStg * kNPK * kKVPanel;      // kStg tiles
+  const uint32_t bars = sV + kStg * kNPV * kKVPanel;    // the mbarriers
   const uint32_t barQ = bars, fullK = bars + 8,
-                 fullV = fullK + 8 * kStages, empty = fullV + 8 * kStages;
+                 fullV = fullK + 8 * kStg, empty = fullV + 8 * kStg;
 
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh - b * H;
   const int kvh = h / (H / KV);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kWgRows;  // heavy first
   int k_first, k_end;
-  key_range(q0, kWgRows, Sq, Sk, causal, window, kWgKeys, &k_first, &k_end);
-  const int n_tiles =
-      k_end > k_first ? (k_end - k_first + kWgKeys - 1) / kWgKeys : 0;
+  key_range(q0, kWgRows, Sq, Sk, causal, window, kBK, &k_first, &k_end);
+  const int n_tiles = k_end > k_first ? (k_end - k_first + kBK - 1) / kBK
+                                      : 0;
 
   if (threadIdx.x == 0) {
     mbar_init(barQ, 1);
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < kStg; ++s) {
       mbar_init(fullK + 8 * s, 1);
       mbar_init(fullV + 8 * s, 1);
       mbar_init(empty + 8 * s, 8);  // one arrival per consumer warp
@@ -642,19 +660,19 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
       for (int p = 0; p < kNPK; ++p)
         tma_load(sQ + p * kPanel, &tq, perm_q, barQ, 64 * p, h, q0, b);
       for (int it = 0; it < n_tiles; ++it) {
-        const int s = it % kStages;
-        const int k0 = k_first + it * kWgKeys;
+        const int s = it % kStg;
+        const int k0 = k_first + it * kBK;
         // a stage's first use passes at once (parity of the phase
         // before the barrier's first)
-        mbar_wait(empty + 8 * s, ((it / kStages) & 1) ^ 1);
-        mbar_expect_tx(fullK + 8 * s, kNPK * kPanel);
+        mbar_wait(empty + 8 * s, ((it / kStg) & 1) ^ 1);
+        mbar_expect_tx(fullK + 8 * s, kNPK * kKVPanel);
         for (int p = 0; p < kNPK; ++p)
-          tma_load(sK + (s * kNPK + p) * kPanel, &tk, perm_k, fullK + 8 * s,
-                   64 * p, kvh, k0, b);
-        mbar_expect_tx(fullV + 8 * s, kNPV * kPanel);
+          tma_load(sK + (s * kNPK + p) * kKVPanel, &tk, perm_k,
+                   fullK + 8 * s, 64 * p, kvh, k0, b);
+        mbar_expect_tx(fullV + 8 * s, kNPV * kKVPanel);
         for (int p = 0; p < kNPV; ++p)
-          tma_load(sV + (s * kNPV + p) * kPanel, &tv, perm_v, fullV + 8 * s,
-                   64 * p, kvh, k0, b);
+          tma_load(sV + (s * kNPV + p) * kKVPanel, &tv, perm_v,
+                   fullV + 8 * s, 64 * p, kvh, k0, b);
       }
     }
   } else {
@@ -680,10 +698,14 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4 * kNPK; ++kk) {
-        const uint32_t off = (kk >> 2) * kPanel + (kk & 3) * 32;
+        const uint32_t col = (kk & 3) * 32;  // 16 columns, in bytes
         wgmma_ss_n64(
-            sc, desc_sw128(sQ + 64 * wg * 128 + off, 16, 1024),
-            desc_sw128(sK + s * kNPK * kPanel + half * 8192 + off, 16, 1024),
+            sc,
+            desc_sw128(sQ + (kk >> 2) * kPanel + 64 * wg * 128 + col, 16,
+                       1024),
+            desc_sw128(sK + (s * kNPK + (kk >> 2)) * kKVPanel + half * 8192 +
+                           col,
+                       16, 1024),
             kk > 0);
       }
       wgmma_commit();
@@ -695,7 +717,8 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         const uint64_t dv = desc_sw128(
-            sV + s * kNPV * kPanel + half * 8192 + kk * 2048, kPanel, 1024);
+            sV + s * kNPV * kKVPanel + half * 8192 + kk * 2048, kKVPanel,
+            1024);
         if constexpr (kNPV == 2)
           wgmma_rs_n128(acc, pa[kk], dv);
         else
@@ -774,9 +797,9 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
     // the tiles the warpgroup computes are one run [it_lo, it_hi): the
     // window hides leading tiles, the causal mask trailing ones
     auto hidden = [&](int it) {
-      const int k0 = k_first + it * kWgKeys;
+      const int k0 = k_first + it * kBK;
       return wr0 >= Sq || (causal && k0 > w_last) ||
-             (window && k0 + kWgKeys - 1 <= wr0 + q_off - window);
+             (window && k0 + kBK - 1 <= wr0 + q_off - window);
     };
     int it_lo = 0, it_hi = n_tiles;
     while (it_lo < it_hi && hidden(it_lo)) ++it_lo;
@@ -791,14 +814,14 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
     if (wg == 1) named_arrive(1);  // warpgroup 0 goes first
     mbar_wait(barQ, 0);
     for (int it = 0; it < n_tiles; ++it) {
-      const int s = it % kStages;
-      const uint32_t parity = (it / kStages) & 1;
+      const int s = it % kStg;
+      const uint32_t parity = (it / kStg) & 1;
       const bool compute = it >= it_lo && it < it_hi;
-      const int k0 = k_first + it * kWgKeys;
+      const int k0 = k_first + it * kBK;
       mbar_wait(fullK + 8 * s, parity);
       mbar_wait(fullV + 8 * s, parity);
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
+      for (int half = 0; half < kBK / 64; ++half) {
         float sc[32];
         uint32_t pa[4][4];
         named_sync(me);
@@ -872,11 +895,11 @@ EncodeTiled encoder() {
 
 // a bf16 tensor map of a (B, S, H, d) operand: axis 0 is d, axes 1-3
 // are head, row and batch sorted by stride (*perm says where each went);
-// (64, 128-row) boxes with the 128-byte swizzle; reads past d or S are
+// (64, rows) boxes with the 128-byte swizzle; reads past d or S are
 // zero-filled
 bool make_map(CUtensorMap* map, int* perm, const void* ptr, int d, int heads,
               int s, int batch, long long st_h, long long st_s,
-              long long st_b) {
+              long long st_b, int rows) {
   EncodeTiled fn = encoder();
   if (fn == nullptr) return false;
   const long long size[3] = {heads, s, batch}, stride[3] = {st_h, st_s, st_b};
@@ -894,7 +917,7 @@ bool make_map(CUtensorMap* map, int* perm, const void* ptr, int d, int heads,
     const int ax = order[i];
     dims[i + 1] = static_cast<cuuint64_t>(size[ax]);
     strides[i] = static_cast<cuuint64_t>(stride[ax]) * 2;
-    box[i + 1] = ax == 1 ? 128 : 1;
+    box[i + 1] = ax == 1 ? rows : 1;
     *perm |= (i + 1) << (2 * ax);
   }
   const cuuint32_t estr[4] = {1, 1, 1, 1};
@@ -957,19 +980,29 @@ int flash_launch_f32(const void* q, const void* k, const void* v, void* o,
                                 Dv, scale, causal, window, stream);
 }
 
-template <int kNPK, int kNPV>
-int launch_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
-                 const CUtensorMap& tv, int pq, int pk, int pv,
-                 __nv_bfloat16* out, dim3 grid, size_t smem, int H, int KV,
-                 int Sq, int Sk, int D, int Dv, const Strides& st,
-                 float scale, int causal, int window, cudaStream_t stream) {
+template <int kNPK, int kNPV, int kStg, int kBK>
+int launch_wgmma(const void* q, const void* k, const void* v,
+                 __nv_bfloat16* out, const Strides& st, int B, int H, int KV,
+                 int Sq, int Sk, int D, int Dv, float scale, int causal,
+                 int window, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  int pq, pk, pv;
+  if (!make_map(&tq, &pq, q, D, H, Sq, B, st.q_h, st.q_s, st.q_b, 128) ||
+      !make_map(&tk, &pk, k, D, KV, Sk, B, st.k_h, st.k_s, st.k_b, kBK) ||
+      !make_map(&tv, &pv, v, Dv, KV, Sk, B, st.v_h, st.v_s, st.v_b, kBK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = 1024 + static_cast<size_t>(kNPK) * kPanel +
+                      static_cast<size_t>(kStg) * (kNPK + kNPV) * kBK * 128 +
+                      8 * (1 + 3 * kStg);
+  const dim3 grid(B * H, (Sq + kWgRows - 1) / kWgRows);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel_wgmma<kNPK, kNPV>,
+      flash_fwd_kernel_wgmma<kNPK, kNPV, kStg, kBK>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_fwd_kernel_wgmma<kNPK, kNPV><<<grid, kWgThreads, smem, stream>>>(
-      tq, tk, tv, pq, pk, pv, out, H, KV, Sq, Sk, D, Dv, st.o_b, st.o_s,
-      st.o_h, scale, causal, window);
+  flash_fwd_kernel_wgmma<kNPK, kNPV, kStg, kBK>
+      <<<grid, kWgThreads, smem, stream>>>(tq, tk, tv, pq, pk, pv, out, H,
+                                           KV, Sq, Sk, D, Dv, st.o_b, st.o_s,
+                                           st.o_h, scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -985,40 +1018,29 @@ int flash_launch_bf16(const void* q, const void* k, const void* v, void* o,
     if (s % 8) return static_cast<int>(cudaErrorInvalidValue);
   if (!aligned16(q) || !aligned16(k) || !aligned16(v))
     return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap tq, tk, tv;
-  int pq, pk, pv;
-  if (!make_map(&tq, &pq, q, D, H, Sq, B, st.q_h, st.q_s, st.q_b) ||
-      !make_map(&tk, &pk, k, D, KV, Sk, B, st.k_h, st.k_s, st.k_b) ||
-      !make_map(&tv, &pv, v, Dv, KV, Sk, B, st.v_h, st.v_s, st.v_b))
-    return static_cast<int>(cudaErrorInvalidValue);
   const int npk = (D + 63) / 64, npv = (Dv + 63) / 64;
-  const size_t smem =
-      1024 + static_cast<size_t>(npk + kStages * (npk + npv)) * kPanel +
-      8 * (1 + 3 * kStages);
-  const dim3 grid(B * H, (Sq + kWgRows - 1) / kWgRows);
   auto* out = static_cast<__nv_bfloat16*>(o);
-  if (npk == 1 && npv == 1)
-    return launch_wgmma<1, 1>(tq, tk, tv, pq, pk, pv, out, grid, smem, H, KV,
-                              Sq, Sk, D, Dv, st, scale, causal, window,
-                              stream);
-  if (npk == 1)
-    return launch_wgmma<1, 2>(tq, tk, tv, pq, pk, pv, out, grid, smem, H, KV,
-                              Sq, Sk, D, Dv, st, scale, causal, window,
-                              stream);
-  if (npv == 1)
-    return launch_wgmma<2, 1>(tq, tk, tv, pq, pk, pv, out, grid, smem, H, KV,
-                              Sq, Sk, D, Dv, st, scale, causal, window,
-                              stream);
-  return launch_wgmma<2, 2>(tq, tk, tv, pq, pk, pv, out, grid, smem, H, KV,
-                            Sq, Sk, D, Dv, st, scale, causal, window, stream);
+#define FLASH_WGMMA(nk, nv, stg, bk)                                         \
+  return launch_wgmma<nk, nv, stg, bk>(q, k, v, out, st, B, H, KV, Sq, Sk,   \
+                                       D, Dv, scale, causal, window, stream)
+  if (npk == 3) {
+    if (npv == 1) FLASH_WGMMA(3, 1, kWideStages, kWideKeys);
+    FLASH_WGMMA(3, 2, kWideStages, kWideKeys);
+  }
+  if (npk == 1) {
+    if (npv == 1) FLASH_WGMMA(1, 1, kStages, kKeys);
+    FLASH_WGMMA(1, 2, kStages, kKeys);
+  }
+  if (npv == 1) FLASH_WGMMA(2, 1, kStages, kKeys);
+  FLASH_WGMMA(2, 2, kStages, kKeys);
+#undef FLASH_WGMMA
 }
 
 int flash_launch(bool bf16, const void* q, const void* k, const void* v,
                  void* o, void* lse, const long long* strides, int B, int H, int KV,
                  int Sq, int Sk, int D, int Dv, float scale, int causal,
                  int window, int device, void* stream) {
-  if (D > (bf16 ? kMaxD : kMaxDF32) || Dv > kMaxD || D % 4 || Dv % 4 ||
-      H % KV)
+  if (D > kMaxD || Dv > kMaxDv || D % 4 || Dv % 4 || H % KV)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1042,7 +1064,7 @@ int flash_launch(bool bf16, const void* q, const void* k, const void* v,
 //   ds_ij = p_ij (dp_ij - delta_i) scale,
 //   dq_i = sum_j ds_ij k_j,  dk_j = sum_i ds_ij q_i,
 // with causal ends aligned, the window, GQA (dK and dV sum over a kv
-// head's G query heads) and Dk != Dv, D and Dv up to 128.
+// head's G query heads) and Dk != Dv, D up to 192 and Dv up to 128.
 //
 // What bounds it: operations, five products a visible (query, key) pair;
 // the design does seven (S and dP in both kernels).  Every product runs
@@ -1067,10 +1089,30 @@ int flash_launch(bool bf16, const void* q, const void* k, const void* v,
 // so fragment reads are conflict-free.  Shared memory at D = Dv = 128:
 // (128 + 2 x 32) x 264 floats + the LSE / delta ring = 203,264 bytes
 // (dK, dV), (128 + 2 x 32) x 264 floats = 202,752 bytes (dQ); at D = 64
-// two CTAs share an SM.  wgmma and TMA are for a later pass.
-constexpr int kBwdWarps = 8;     // warps a CTA, 16 rows (keys or queries) each
-constexpr int kBwdTile = 32;     // rows of a streamed tile (queries or keys)
-constexpr int kBwdThreads = 32 * kBwdWarps;
+// two CTAs share an SM.  D in (128, 192] (MLA's Dk 192) takes another
+// tiling (bwd_warps / bwd_tile below).  wgmma and TMA are for a later
+// pass.
+// Warps a CTA (16 owned rows each: keys in dK / dV, queries in dQ) and
+// rows of a streamed tile (queries or keys): 8 and 32 at D <= 128.  At
+// D in (128, 192] that would need (128 + 2 x 32) x (pitch(192) +
+// pitch(128)) floats = 251,904 bytes of shared memory, more than a CTA
+// may hold, and a dK / dV warp holds 16 rows x (192 + 128) accumulators,
+// 160 floats a thread.  Two tilings fit (tools/flash_wide_layout.py
+// builds and times both; PERF.md has the times and ptxas' registers):
+//  * 8 warps and 16-row streamed tiles: 209,920 bytes (+ the LSE /
+//    delta ring); a streamed tile's working set (S, dP and their split
+//    A fragments) halves, which leaves the registers for dK and dV;
+//  * 4 warps (64 owned rows) and 32-row tiles: 167,936 bytes.
+// kBwdWideWarps / kBwdWideTile name the one kept.
+constexpr int kBwdWideWarps = 8, kBwdWideTile = 16;
+template <int kND>
+__host__ __device__ constexpr int bwd_warps() {
+  return kND > 16 ? kBwdWideWarps : 8;
+}
+template <int kND>
+__host__ __device__ constexpr int bwd_tile() {
+  return kND > 16 ? kBwdWideTile : 32;
+}
 
 // zero columns [d, width) of rows [0, rows) of a shared tile (cp.async
 // writes only the first d); kThreads threads
@@ -1141,9 +1183,9 @@ __device__ __forceinline__ void frag_times_rows(float (&acc)[kN][4],
   }
 }
 
-// kND, kNV: 8-column tiles of dK (D) and dV (Dv), 8 or 16
+// kND, kNV: 8-column tiles of dK (D: 8, 16 or 24) and dV (Dv: 8 or 16)
 template <int kND, int kNV>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(32 * bwd_warps<kND>(), 1)
 flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v,
                       const float* __restrict__ dout,
@@ -1151,7 +1193,9 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ delta, float* __restrict__ dk,
                       float* __restrict__ dv, int H, int KV, int Sq, int Sk,
                       int D, int Dv, float scale, int causal, int window) {
-  constexpr int kBK = 16 * kBwdWarps, kBQ = kBwdTile, kJ = kBQ / 8;
+  constexpr int kThreads = 32 * bwd_warps<kND>();
+  constexpr int kBK = 16 * bwd_warps<kND>(), kBQ = bwd_tile<kND>();
+  constexpr int kJ = kBQ / 8;
   extern __shared__ float4 smem4[];
   const int ldq = pitch(8 * kND), ldo = pitch(8 * kNV);
   float* sK = reinterpret_cast<float*>(smem4);  // kBK x ldq
@@ -1168,19 +1212,19 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int g = lane >> 2, t = lane & 3;
   const int dk8 = (D + 7) / 8 * 8, dv8 = (Dv + 7) / 8 * 8;
 
-  zero_pad_cols<kBwdThreads>(sK, kBK, ldq, D, 8 * kND);
-  zero_pad_cols<kBwdThreads>(sV, kBK, ldo, Dv, 8 * kNV);
-  zero_pad_cols<kBwdThreads>(sQ, 2 * kBQ, ldq, D, 8 * kND);
-  zero_pad_cols<kBwdThreads>(sO, 2 * kBQ, ldo, Dv, 8 * kNV);
+  zero_pad_cols<kThreads>(sK, kBK, ldq, D, 8 * kND);
+  zero_pad_cols<kThreads>(sV, kBK, ldo, Dv, 8 * kNV);
+  zero_pad_cols<kThreads>(sQ, 2 * kBQ, ldq, D, 8 * kND);
+  zero_pad_cols<kThreads>(sO, 2 * kBQ, ldo, Dv, 8 * kNV);
 
   const long long k_row = static_cast<long long>(KV) * D;
   const long long v_row = static_cast<long long>(KV) * Dv;
   const long long q_row = static_cast<long long>(H) * D;
   const long long o_row = static_cast<long long>(H) * Dv;
-  load_kv_tile<kBK, kBwdThreads>(
+  load_kv_tile<kBK, kThreads>(
       sK, ldq, k + static_cast<long long>(b) * Sk * k_row + kvh * D, k_row,
       k0, Sk, D);
-  load_kv_tile<kBK, kBwdThreads>(
+  load_kv_tile<kBK, kThreads>(
       sV, ldo, v + static_cast<long long>(b) * Sk * v_row + kvh * Dv, v_row,
       k0, Sk, Dv);
 
@@ -1195,10 +1239,10 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   auto stage = [&](int it, int st) {
     const int h = kvh * G + it / n_q, q0 = q_lo + (it % n_q) * kBQ;
     const long long bh = static_cast<long long>(b) * H + h;
-    load_kv_tile<kBQ, kBwdThreads>(
+    load_kv_tile<kBQ, kThreads>(
         sQ + st * kBQ * ldq, ldq,
         q + static_cast<long long>(b) * Sq * q_row + h * D, q_row, q0, Sq, D);
-    load_kv_tile<kBQ, kBwdThreads>(
+    load_kv_tile<kBQ, kThreads>(
         sO + st * kBQ * ldo, ldo,
         dout + static_cast<long long>(b) * Sq * o_row + h * Dv, o_row, q0, Sq,
         Dv);
@@ -1307,9 +1351,9 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// kND: 8-column tiles of dQ (D), 8 or 16
+// kND: 8-column tiles of dQ (D), 8, 16 or 24
 template <int kND>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(32 * bwd_warps<kND>(), 1)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v,
                     const float* __restrict__ dout,
@@ -1317,7 +1361,9 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ delta, float* __restrict__ dq,
                     int H, int KV, int Sq, int Sk, int D, int Dv, float scale,
                     int causal, int window) {
-  constexpr int kBQ = 16 * kBwdWarps, kBK = kBwdTile, kJ = kBK / 8;
+  constexpr int kThreads = 32 * bwd_warps<kND>();
+  constexpr int kBQ = 16 * bwd_warps<kND>(), kBK = bwd_tile<kND>();
+  constexpr int kJ = kBK / 8;
   extern __shared__ float4 smem4[];
   const int ldq = pitch(8 * kND), ldo = pitch(Dv);
   float* sQ = reinterpret_cast<float*>(smem4);  // kBQ x ldq
@@ -1334,10 +1380,10 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int g = lane >> 2, t = lane & 3;
   const int dk8 = (D + 7) / 8 * 8, dv8 = (Dv + 7) / 8 * 8;
 
-  zero_pad_cols<kBwdThreads>(sQ, kBQ, ldq, D, dk8);
-  zero_pad_cols<kBwdThreads>(sO, kBQ, ldo, Dv, dv8);
-  zero_pad_cols<kBwdThreads>(sK, 2 * kBK, ldq, D, 8 * kND);
-  zero_pad_cols<kBwdThreads>(sV, 2 * kBK, ldo, Dv, dv8);
+  zero_pad_cols<kThreads>(sQ, kBQ, ldq, D, dk8);
+  zero_pad_cols<kThreads>(sO, kBQ, ldo, Dv, dv8);
+  zero_pad_cols<kThreads>(sK, 2 * kBK, ldq, D, 8 * kND);
+  zero_pad_cols<kThreads>(sV, 2 * kBK, ldo, Dv, dv8);
 
   const long long k_row = static_cast<long long>(KV) * D;
   const long long v_row = static_cast<long long>(KV) * Dv;
@@ -1345,10 +1391,10 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const long long o_row = static_cast<long long>(H) * Dv;
   const float* kb = k + static_cast<long long>(b) * Sk * k_row + kvh * D;
   const float* vb = v + static_cast<long long>(b) * Sk * v_row + kvh * Dv;
-  load_kv_tile<kBQ, kBwdThreads>(
+  load_kv_tile<kBQ, kThreads>(
       sQ, ldq, q + static_cast<long long>(b) * Sq * q_row + h * D, q_row, q0,
       Sq, D);
-  load_kv_tile<kBQ, kBwdThreads>(
+  load_kv_tile<kBQ, kThreads>(
       sO, ldo, dout + static_cast<long long>(b) * Sq * o_row + h * Dv, o_row,
       q0, Sq, Dv);
 
@@ -1373,8 +1419,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
 
   if (n_tiles > 0) {
-    load_kv_tile<kBK, kBwdThreads>(sK, ldq, kb, k_row, k_first, Sk, D);
-    load_kv_tile<kBK, kBwdThreads>(sV, ldo, vb, v_row, k_first, Sk, Dv);
+    load_kv_tile<kBK, kThreads>(sK, ldq, kb, k_row, k_first, Sk, D);
+    load_kv_tile<kBK, kThreads>(sV, ldo, vb, v_row, k_first, Sk, Dv);
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 
@@ -1382,9 +1428,9 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int k0 = k_first + it * kBK;
     if (it + 1 < n_tiles) {  // the next tile into the other stage
       const int nx = (it + 1) & 1;
-      load_kv_tile<kBK, kBwdThreads>(sK + nx * kBK * ldq, ldq, kb, k_row,
+      load_kv_tile<kBK, kThreads>(sK + nx * kBK * ldq, ldq, kb, k_row,
                                      k0 + kBK, Sk, D);
-      load_kv_tile<kBK, kBwdThreads>(sV + nx * kBK * ldo, ldo, vb, v_row,
+      load_kv_tile<kBK, kThreads>(sV + nx * kBK * ldo, ldo, vb, v_row,
                                      k0 + kBK, Sk, Dv);
     }
     asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -1448,7 +1494,8 @@ int launch_bwd(const float* q, const float* k, const float* v,
                float* dq, float* dk, float* dv, int B, int H, int KV, int Sq,
                int Sk, int D, int Dv, float scale, int causal, int window,
                cudaStream_t stream) {
-  constexpr int kRows = 16 * kBwdWarps, kT = kBwdTile;
+  constexpr int kThreads = 32 * bwd_warps<kND>();
+  constexpr int kRows = 16 * bwd_warps<kND>(), kT = bwd_tile<kND>();
   const int ldq = pitch(8 * kND), ldo = pitch(8 * kNV), ldo_q = pitch(Dv);
   const size_t smem_kv =
       sizeof(float) * static_cast<size_t>((kRows + 2 * kT) * (ldq + ldo) +
@@ -1467,12 +1514,12 @@ int launch_bwd(const float* q, const float* k, const float* v,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem_q));
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dkdv_kernel<kND, kNV><<<grid_kv, kBwdThreads, smem_kv, stream>>>(
+  flash_bwd_dkdv_kernel<kND, kNV><<<grid_kv, kThreads, smem_kv, stream>>>(
       q, k, v, dout, lse, delta, dk, dv, H, KV, Sq, Sk, D, Dv, scale, causal,
       window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dq_kernel<kND><<<grid_q, kBwdThreads, smem_q, stream>>>(
+  flash_bwd_dq_kernel<kND><<<grid_q, kThreads, smem_q, stream>>>(
       q, k, v, dout, lse, delta, dq, H, KV, Sq, Sk, D, Dv, scale, causal,
       window);
   return static_cast<int>(cudaGetLastError());
@@ -1483,7 +1530,7 @@ int flash_backward(const void* q, const void* k, const void* v,
                    void* dq, void* dk, void* dv, int B, int H, int KV, int Sq,
                    int Sk, int D, int Dv, float scale, int causal, int window,
                    int device, void* stream) {
-  if (D < 4 || Dv < 4 || D > kMaxD || Dv > kMaxD || D % 4 || Dv % 4 ||
+  if (D < 4 || Dv < 4 || D > kMaxD || Dv > kMaxDv || D % 4 || Dv % 4 ||
       KV < 1 || H % KV)
     return static_cast<int>(cudaErrorInvalidValue);
   // cp.async moves 16-byte chunks: 16-byte bases (rows are, D % 4 == 0)
@@ -1507,6 +1554,10 @@ int flash_backward(const void* q, const void* k, const void* v,
   if (D <= 64) {
     if (Dv <= 64) FLASH_BWD(8, 8);
     FLASH_BWD(8, 16);
+  }
+  if (D > 128) {
+    if (Dv <= 64) FLASH_BWD(24, 8);
+    FLASH_BWD(24, 16);
   }
   if (Dv <= 64) FLASH_BWD(16, 8);
   FLASH_BWD(16, 16);

@@ -15,32 +15,34 @@ call goes through :class:`FlashAttention`, a ``torch.autograd.Function``
 whose forward also writes each row's log-sum-exp and whose backward is
 :func:`flash_attention_backward` (the kernel on CUDA,
 ``flash_attention_backward_plain`` on the CPU, the reference's custom
-VJP).  The backward kernel takes float32 with D and Dv up to 128: a
-bfloat16 call, or float32 at D > 128 (MLA's Dk 192), under grad on CUDA
-raises ``NotImplementedError`` naming ``ROADMAP.md``.  Otherwise the
-call takes the forward alone, with no LSE buffer.
+VJP).  The backward kernel takes float32 with D up to 192 (MLA's Dk
+192) and Dv up to 128: a bfloat16 call, or float32 past those, under
+grad on CUDA raises ``NotImplementedError`` naming ``ROADMAP.md``.
+Otherwise the call takes the forward alone, with no LSE buffer.
 
 Layouts: q (B, Sq, H, D), k (B, Sk, KV, D), v (B, Sk, KV, Dv), H a
 multiple of KV, all float32 or all bfloat16; the output is a new
 (B, Sq, H, Dv) tensor of q's dtype.  Operands are read through their
 strides (the last axis must be contiguous).  The forward kernel takes any
-S, and D, Dv in multiples of 4: float32 D up to 192 and Dv up to 128
-(MLA's prefill attends with Dk = 192, Dv = 128), bfloat16 both up to 128
-(bf16 at D > 128 is still to do, ROADMAP.md); causal attention needs
-Sq <= Sk (every query row then sees at least one key).
+S, and D, Dv in multiples of 4: D up to 192 and Dv up to 128 in either
+dtype (MLA's prefill attends with Dk = 192, Dv = 128, its V a strided
+view that both instances read in place); causal attention needs Sq <= Sk
+(every query row then sees at least one key).
 
 Both forward instances run on the tensor cores: float32 as 3xTF32
 ``mma.sync`` fed by ``cp.async`` (float32-level accuracy; at D > 128 with
 32-key tiles, so that its shared memory fits), bfloat16 as ``wgmma`` fed
-by TMA, with P rounded to bfloat16 before P V.  Their copies move 16-byte
-chunks, so an operand must start on 16 bytes and have strides that are
-multiples of 16 bytes; one that does not (an odd view, or bfloat16 with
+by TMA, with P rounded to bfloat16 before P V (at D > 128 with a ring
+of three 64-key stages).  Their copies move 16-byte chunks, so an
+operand must start on 16 bytes and have strides that are multiples of
+16 bytes; one that does not (an odd view, or bfloat16 with
 D or Dv not a multiple of 8) is first copied into an aligned buffer whose
 last axis is padded to a multiple of 16 bytes.  Operands from a
 contiguous float32 allocation, and bfloat16 ones with D and Dv multiples
 of 8, are never copied.  The backward kernels run every product as the
 forward's 3xTF32 ``mma.sync`` (each output tile's partial sums added in
-float32 on the CUDA cores per streamed tile) and read contiguous operands
+float32 on the CUDA cores per streamed tile; 16-row streamed tiles at
+D > 128) and read contiguous operands
 (the wrapper makes them so); delta = rowsum(dO * O) is one PyTorch
 reduction before them.
 """
@@ -55,10 +57,10 @@ from repro_torch.models.attention import (flash_attention_backward_plain,
                                           flash_attention_plain)
 
 LAUNCHES = {"flash_attention": 0, "flash_attention_backward": 0}
-# the forward kernel's largest (D, Dv) per dtype
-MAX_HEAD_DIMS = {torch.float32: (192, 128), torch.bfloat16: (128, 128)}
+# the forward kernel's largest (D, Dv), both dtypes
+MAX_HEAD_DIMS = (192, 128)
 # the backward kernel's: float32 only
-MAX_GRAD_HEAD_DIMS = (128, 128)
+MAX_GRAD_HEAD_DIMS = (192, 128)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _TAIL = [_I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P]
@@ -89,9 +91,9 @@ def _lib() -> ctypes.CDLL:
 
 def _grad_later(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"the flash backward kernel takes float32 with D and Dv up to "
-        f"{MAX_GRAD_HEAD_DIMS[0]}, got {what}: not ported yet (ROADMAP.md "
-        f"queue 1 item 10)")
+        f"the flash backward kernel takes float32 with D up to "
+        f"{MAX_GRAD_HEAD_DIMS[0]} and Dv up to {MAX_GRAD_HEAD_DIMS[1]}, "
+        f"got {what}: not ported yet (ROADMAP.md queue 1 item 10)")
 
 
 def _check_grad_kernel(q, d: int, dv: int) -> None:
@@ -142,14 +144,11 @@ def _forward(q, k, v, causal: bool, window: int, scale: float,
                                          return_lse=True)
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale), None
-    max_d, max_dv = MAX_HEAD_DIMS[q.dtype]
+    max_d, max_dv = MAX_HEAD_DIMS
     if d > max_d or dv > max_dv or d % 4 or dv % 4:
-        later = (" (bfloat16 at D > 128 is not ported yet: ROADMAP.md "
-                 "queue 1 item 10)" if q.dtype == torch.bfloat16
-                 and d > max_d else "")
-        raise ValueError(f"the {q.dtype} flash kernel takes D up to {max_d} "
-                         f"and Dv up to {max_dv}, in multiples of 4, got "
-                         f"D={d}, Dv={dv}{later}")
+        raise ValueError(f"the flash kernel takes D up to {max_d} and Dv "
+                         f"up to {max_dv}, in multiples of 4, got D={d}, "
+                         f"Dv={dv} (ROADMAP.md queue 1 item 10)")
     if (sq + 127) // 128 > 65535:
         raise ValueError(f"the flash kernel takes Sq up to {128 * 65535}, "
                          f"got {sq}")
@@ -181,8 +180,8 @@ def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = True,
                              window: int = 0, scale: float | None = None):
     """(dq, dk, dv) of :func:`flash_attention` at (q, k, v), from its
     output ``o``, its LSE (B, H, Sq) float32 and the output gradient
-    ``do``: the kernel on CUDA tensors (float32, D and Dv up to 128), the
-    reference's blockwise VJP on CPU tensors."""
+    ``do``: the kernel on CUDA tensors (float32, D up to 192, Dv up to
+    128), the reference's blockwise VJP on CPU tensors."""
     b, sq, h, d = q.shape
     _, sk, n_kv, dv = v.shape
     dev = q.device
@@ -199,13 +198,14 @@ def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = True,
     if (sq + 63) // 64 > 65535 or (sk + 63) // 64 > 65535:
         raise ValueError("the flash backward kernel takes S up to "
                          f"{64 * 65535}, got Sq={sq}, Sk={sk}")
+    lib = _lib()
     q, k, v, do, lse = (t.contiguous() for t in (q, k, v, do, lse))
     # delta = rowsum(dO * O), (B, H, Sq), the reference's order
     delta = (do * o).sum(-1).transpose(1, 2).contiguous()
     dq, dk, dv_ = (torch.empty_like(t) for t in (q, k, v))
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv_.zero_()
-    err = _lib().flash_attention_backward_f32(
+    err = lib.flash_attention_backward_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv_.data_ptr(), b, h, n_kv, sq, sk, d, dv, float(scale),

@@ -6,13 +6,14 @@ kernel) and ``torch.autograd.grad`` through ``flash_attention`` (the
 ``FlashAttention`` function's CPU route) against ``jax.vjp`` of
 ``repro.models.attention.flash_attention_jnp`` on the same numpy-seeded
 q, k, v and output gradient: causal, a sliding window, GQA, a
-continuation (Sq < Sk), Dk != Dv and full attention; dq, dk and dv within
+continuation (Sq < Sk), Dk != Dv, full attention and MLA's head dims
+(Dk 192, Dv 128, the kernel's widest tiling); dq, dk and dv within
 1e-5 of each reference tensor's largest magnitude.  The LSE that the
 forward hands to the backward against the reference's ``_flash_fwd_impl``
 within 1e-5.  The routes: CPU tensors never reach the kernels' library,
 and on CUDA tensors (fake ones, ``FakeTensorMode``) a gradient that no
 backward kernel takes raises before any launch: bf16 flash, f32 flash at
-D > 128, WKV6 and SSD.  The card's cases are in
+D > 192, WKV6 and SSD.  The card's cases are in
 ``tests/test_torch_kernels_gpu.py``.
 """
 import jax
@@ -34,8 +35,9 @@ CASES = [
     (1, 16, 48, 4, 1, 16, 16, True, 0, 8, 16),
     (1, 32, 32, 2, 2, 24, 8, True, 0, 16, 16),
     (1, 32, 32, 2, 1, 8, 16, False, 0, 16, 8),
+    (1, 48, 48, 2, 2, 192, 128, True, 0, 16, 16),
 ]
-IDS = ["causal", "window", "gqa", "sq_lt_sk", "dk_ne_dv", "full"]
+IDS = ["causal", "window", "gqa", "sq_lt_sk", "dk_ne_dv", "full", "mla"]
 
 
 def _inputs(case, seed=0):
@@ -122,11 +124,20 @@ def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
     assert fa.LAUNCHES == before
 
 
-def test_grad_without_a_backward_kernel_raises_on_cuda():
-    """Fake CUDA tensors: a gradient through bf16 flash, f32 flash at D
-    192, WKV6 or SSD raises ``NotImplementedError`` naming the roadmap
-    before any library is loaded; under ``no_grad``, or without an input
-    that requires a gradient, the guard lets the call through."""
+class _Launch(Exception):
+    """Raised by a stand-in for the kernels' library: the call got there."""
+
+
+def test_grad_without_a_backward_kernel_raises_on_cuda(monkeypatch):
+    """Fake CUDA tensors: a gradient through bf16 flash (MLA's D 192
+    too), f32 flash at D 224, WKV6 or SSD raises ``NotImplementedError``
+    naming the roadmap before any library is loaded; under ``no_grad``,
+    or without an input that requires a gradient, the guard lets the call
+    through.  f32 at MLA's D 192 / Dv 128 passes every guard: the call
+    under grad takes the forward with the LSE, and its backward reaches
+    the backward kernel's launch, past every check (the library it loads
+    there is a stand-in that raises, the forward a stand-in for its
+    kernel)."""
     with FakeTensorMode():
         cuda = torch.device("cuda")
         mk = lambda *s, dt=torch.float32: torch.empty(s, device=cuda,
@@ -134,9 +145,15 @@ def test_grad_without_a_backward_kernel_raises_on_cuda():
         q, k, v = (mk(1, 8, 2, 64, dt=torch.bfloat16) for _ in range(3))
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             fa.flash_attention(q.requires_grad_(), k, v)
-        q, k, v = mk(1, 8, 2, 192), mk(1, 8, 2, 192), mk(1, 8, 2, 128)
+        q, k = (mk(1, 8, 2, 192, dt=torch.bfloat16) for _ in range(2))
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            fa.flash_attention(q, k, mk(1, 8, 2, 128, dt=torch.bfloat16)
+                               .requires_grad_())
+        q, k, v = mk(1, 8, 2, 224), mk(1, 8, 2, 224), mk(1, 8, 2, 128)
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             fa.flash_attention(q, k, v.requires_grad_())
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            fa._check_grad_kernel(mk(1, 8, 2, 192), 192, 136)
         r = mk(1, 8, 2, 64).requires_grad_()
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             wk.wkv6(r, mk(1, 8, 2, 64), mk(1, 8, 2, 64), mk(1, 8, 2, 64),
@@ -148,3 +165,31 @@ def test_grad_without_a_backward_kernel_raises_on_cuda():
             for name, t in (("wkv6", r), ("ssd", x)):
                 fa._build.refuse_grad(name, cuda, t)
         fa._build.refuse_grad("wkv6", cuda, r.detach())
+        reached = []
+
+        def forward(q, k, v, causal, window, scale, with_lse):
+            reached.append(("forward", with_lse))
+            b, sq, h, _ = q.shape
+            return q.new_empty((b, sq, h, v.shape[-1])), q.new_empty(
+                (b, h, sq))
+
+        def launch():
+            reached.append(("backward", None))
+            raise _Launch
+
+        # FlashAttention's own forward and backward, run without the
+        # autograd engine (which needs a card)
+        ctx = type("Ctx", (), {"save_for_backward": lambda self, *t:
+                               setattr(self, "saved_tensors", t)})()
+        monkeypatch.setattr(fa, "_forward", forward)
+        monkeypatch.setattr(fa, "_lib", launch)
+        monkeypatch.setattr(fa.FlashAttention, "apply", staticmethod(
+            lambda *a: fa.FlashAttention.forward(ctx, *a)))
+        q, k = mk(1, 8, 2, 192), mk(1, 8, 2, 192)
+        v = mk(1, 8, 2, 128).requires_grad_()
+        out = fa.flash_attention(q, k, v, causal=True)
+        assert out.shape == (1, 8, 2, 128)
+        # (the engine runs a backward with grad mode off)
+        with torch.no_grad(), pytest.raises(_Launch):
+            fa.FlashAttention.backward(ctx, torch.ones_like(out))
+        assert reached == [("forward", True), ("backward", None)]

@@ -204,8 +204,8 @@ FLASH_CASES = [
     (1, 300, 300, 4, 2, 128, 128, True, 16),
     (2, 150, 150, 4, 4, 64, 64, True, 1),
 ]
-# the float32 kernel's layout for D in (128, 192] (MLA's prefill: Dk 192,
-# Dv 128): ragged S, one key past a 32-key tile (33), GQA, a continuation,
+# both kernels' layouts for D in (128, 192] (MLA's prefill: Dk 192, Dv
+# 128): ragged S, one key past a 32-key tile (33), GQA, a continuation,
 # a window smaller than a tile, D not a multiple of 8 (132), Dv < 128,
 # full attention, one query row against 4097 keys
 WIDE_FLASH_CASES = [
@@ -301,28 +301,55 @@ def test_flash_kernel_wide_head_dims(cuda, b, sq, sk, h, kv, d, dv, causal,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,dv,causal,window", WIDE_FLASH_CASES)
+def test_flash_kernel_wide_head_dims_bf16(cuda, b, sq, sk, h, kv, d, dv,
+                                          causal, window):
+    """The bf16 ``wgmma`` instance at D in (128, 192] (three K panels,
+    its cut ring) on the same cases as the float32 layout."""
+    q, k, v = _flash_inputs(sq + d + dv, b, sq, sk, h, kv, d, dv,
+                            torch.bfloat16)
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q.to(cuda), k.to(cuda), v.to(cuda),
+                             causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    assert got.shape == (b, sq, h, dv) and got.dtype == torch.bfloat16
+    _assert_flash_close(got, want)
+
+
+@pytest.mark.gpu
 def test_flash_kernel_mla_views_and_bf16_limit(cuda):
     """MLA's operands as ``mla_prefill`` hands them over: K the
     concatenation of 128 nope and 64 rope columns, V the strided view
     ``kv[..., 128:]`` of the decompressed (B, S, H, 256) latents, read in
-    place; bfloat16 at D 192 raises, naming the roadmap."""
+    place, in float32 and in bfloat16 (both instances at D 192, one
+    launch each); D 200 raises, naming the roadmap."""
     b, s, h = 2, 160, 4
     rng = np.random.default_rng(192)
     mk = lambda *sh: torch.as_tensor(
         rng.standard_normal(sh).astype(np.float32))
-    q, kv, k_pe = mk(b, s, h, 192), mk(b, s, h, 256), mk(b, s, 1, 64)
-    k = torch.cat([kv[..., :128], k_pe.expand(b, s, h, 64)], -1)
-    v = kv[..., 128:]
-    want = fa.flash_attention_plain(q, k, v, causal=True, scale=192 ** -0.5)
-    kv_c = kv.to(cuda)
-    v_c = kv_c[..., 128:]
-    assert not v_c.is_contiguous() and fa._build.aligned(v_c) is v_c
-    got = fa.flash_attention(q.to(cuda), k.to(cuda), v_c, causal=True,
-                             scale=192 ** -0.5)
-    _assert_flash_close(got, want)
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        fa.flash_attention(*(t.to(cuda, torch.bfloat16)
-                             for t in (q, k, v)), causal=True)
+    q32, kv32, k_pe32 = mk(b, s, h, 192), mk(b, s, h, 256), mk(b, s, 1, 64)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, kv, k_pe = (t.to(dtype) for t in (q32, kv32, k_pe32))
+        k = torch.cat([kv[..., :128], k_pe.expand(b, s, h, 64)], -1)
+        v = kv[..., 128:]
+        want = fa.flash_attention_plain(q, k, v, causal=True,
+                                        scale=192 ** -0.5)
+        kv_c = kv.to(cuda)
+        v_c = kv_c[..., 128:]
+        assert not v_c.is_contiguous() and fa._build.aligned(v_c) is v_c
+        before = fa.LAUNCHES["flash_attention"]
+        got = fa.flash_attention(q.to(cuda), k.to(cuda), v_c, causal=True,
+                                 scale=192 ** -0.5)
+        assert fa.LAUNCHES["flash_attention"] == before + 1
+        assert got.dtype == dtype
+        _assert_flash_close(got, want)
+    wide = mk(b, s, h, 200)
+    for dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="ROADMAP.md"):
+            fa.flash_attention(*(t.to(cuda, dtype) for t in (wide, wide)),
+                               kv32[..., 128:].to(cuda, dtype), causal=True)
 
 
 @pytest.mark.gpu
@@ -372,12 +399,15 @@ def test_flash_kernel_dense_serving_shapes(cuda, b, s, h, kv, d, dv):
     _assert_flash_close(got, want.cpu())
 
 
-# the flash backward kernel (float32, D and Dv up to 128): ragged S,
-# GQA, a window smaller and larger than a 64-row tile (not 1: a row that
-# sees one key has dq = dk = 0 exactly, and both sides give rounding
+# the flash backward kernel (float32, D up to 192, Dv up to 128): ragged
+# S, GQA, a window smaller and larger than a 64-row tile (not 1: a row
+# that sees one key has dq = dk = 0 exactly, and both sides give rounding
 # noise of ~1e-7), a continuation
 # (Sq < Sk), Dk != Dv both ways, D not a multiple of 8, full attention,
-# one query row, musicgen-medium's heads (D 64)
+# one query row, musicgen-medium's heads (D 64); then the tiling of D in
+# (128, 192] (16-row streamed tiles): MLA's Dk 192 / Dv 128 ragged and
+# with GQA, a window, a continuation, Dv <= 64, D not a multiple of 8,
+# full attention
 BWD_CASES = [
     (2, 100, 100, 4, 2, 64, 64, True, 0),
     (1, 129, 129, 8, 1, 128, 128, True, 0),
@@ -390,6 +420,12 @@ BWD_CASES = [
     (1, 96, 80, 2, 1, 32, 32, False, 0),
     (1, 1, 257, 4, 4, 64, 64, True, 0),
     (2, 256, 256, 24, 24, 64, 64, True, 0),
+    (1, 150, 150, 4, 2, 192, 128, True, 0),
+    (1, 300, 300, 2, 2, 192, 128, True, 40),
+    (1, 37, 165, 4, 2, 192, 128, True, 0),
+    (1, 100, 100, 2, 1, 160, 64, True, 0),
+    (1, 66, 66, 2, 2, 132, 100, True, 0),
+    (1, 96, 80, 2, 1, 192, 128, False, 0),
 ]
 
 
@@ -460,9 +496,37 @@ def test_flash_autograd_launches_the_backward_kernel(cuda):
 
 
 @pytest.mark.gpu
+def test_flash_autograd_at_mla_head_dims(cuda):
+    """``torch.autograd.grad`` through ``flash_attention`` at MLA's Dk 192
+    / Dv 128, V the strided view of the latents as ``mla_prefill`` hands
+    it over: one forward and one backward launch, the gradients within
+    1e-4 of the CPU's plain route."""
+    rng = np.random.default_rng(193)
+    mk = lambda *sh: torch.as_tensor(
+        rng.standard_normal(sh).astype(np.float32))
+    q, kv, do = mk(1, 130, 4, 192), mk(1, 130, 4, 256), mk(1, 130, 4, 128)
+
+    def grads(dev):
+        leaves = [t.to(dev).requires_grad_(True) for t in (q, kv)]
+        k, v = leaves[1][..., :192], leaves[1][..., 128:]
+        out = fa.flash_attention(leaves[0], k, v, causal=True)
+        return torch.autograd.grad(out, leaves, do.to(dev))
+
+    want = grads("cpu")
+    fa.reset_launch_counts()
+    got = grads(cuda)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == {"flash_attention": 1,
+                           "flash_attention_backward": 1}
+    for g, w in zip(got, want):
+        assert _rel_to_max(g, w) <= 1e-4
+
+
+@pytest.mark.gpu
 def test_kernels_without_a_backward_refuse_grad(cuda):
-    """Under grad, bf16 flash, f32 flash at D 192, WKV6 and SSD raise
-    naming the roadmap; under ``no_grad`` the same calls run."""
+    """Under grad, bf16 flash (at D 192 too), f32 flash at D 224, WKV6
+    and SSD raise naming the roadmap; under ``no_grad`` the same calls
+    run."""
     q, k, v = (t.to(cuda) for t in _flash_inputs(1, 1, 64, 64, 2, 2, 64, 64,
                                                  torch.float32))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -470,6 +534,11 @@ def test_kernels_without_a_backward_refuse_grad(cuda):
                            v.bfloat16())
     qw, kw, vw = (t.to(cuda) for t in _flash_inputs(
         2, 1, 64, 64, 2, 2, 192, 128, torch.float32))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        fa.flash_attention(qw.bfloat16(), kw.bfloat16().requires_grad_(),
+                           vw.bfloat16())
+    qw, kw, vw = (t.to(cuda) for t in _flash_inputs(
+        2, 1, 64, 64, 2, 2, 224, 128, torch.float32))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         fa.flash_attention(qw, kw.requires_grad_(), vw)
     r, kk, vv, lw, u = (t.to(cuda) for t in _wkv_inputs(3, 1, 32, 2, 64))

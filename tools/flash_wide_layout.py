@@ -1,27 +1,54 @@
 #!/usr/bin/env python3
-"""The float32 flash kernel at D in (128, 192]: its two tilings that fit.
+"""The flash kernels at D in (128, 192]: the layouts that fit, per
+kernel.
 
     python3 tools/flash_wide_layout.py
 
 Needs one Hopper card and nvcc, as ``chip_smoke.py`` does.  At D = 192
-the D <= 128 tiling (8 warps of 16 query rows, 64-key tiles) would need
-268,288 bytes of shared memory, more than a CTA may hold (232,448).  Two
-tilings fit:
+neither forward instance's D <= 128 layout fits a CTA's shared memory
+(232,448 bytes).
+
+float32 (3xTF32 ``mma.sync``): 8 warps of 16 query rows and 64-key tiles
+would need 268,288 bytes.  Two tilings fit:
 
 * ``keys32``: 8 warps (128 query rows) and 32-key tiles, 184,320 bytes;
 * ``rows64``: 4 warps (64 query rows) and 64-key tiles, 218,112 bytes.
 
-Builds ``csrc/flash_attention.cu`` once with each (the source as it
-stands and a copy with ``kWideWarps, kWideBK`` set to the other, both
-into the git-ignored ``kernels/_build/``), prints each build's
-``-Xptxas -v`` lines for the wide instance, and at each row of
-``chip_smoke.py``'s ``FLASH_SHAPES`` with D > 128 (deepseek-v2-236b's
-MLA prefill; the same inputs, from the same seed) runs both through the
-wrapper: the largest difference from the plain version (the figure
-``chip_smoke.py`` holds to atol 3e-5 / rtol 1e-4) and the device time
-per call with CUDA events (``chip_smoke.cuda_ms``) in the order A, B, B,
-A.  Prints the card's name and power limit and one JSON line per shape;
-writes ``chiprun_out/flash_wide_layout.json``.
+bfloat16 (TMA + ``wgmma``): three 64-column K panels and two V panels of
+16 KB a 128-key stage; the D <= 128 ring of three such stages would need
+(3 + 3 x 5) x 16 KB = 288 KB.  Two rings fit:
+
+* ``stages3_keys64``: three stages of 64 keys, 3 x 16 KB + 3 x 5 x 8 KB
+  + 1 KB of alignment + the mbarriers = 173,136 bytes;
+* ``stages2_keys128``: two stages of 128 keys, (3 + 2 x 5) x 16 KB + 1
+  KB + the mbarriers = 214,072 bytes.
+
+float32 backward (3xTF32 ``mma.sync``, dK / dV and dQ kernels): 8 warps
+of 16 owned rows and 32-row streamed tiles would need 251,904 bytes (and
+160 accumulator floats a dK / dV thread).  Two tilings fit:
+
+* ``tile16``: 8 warps (128 owned rows) and 16-row streamed tiles,
+  209,920 bytes (dQ; dK / dV 256 more);
+* ``warps4``: 4 warps (64 owned rows) and 32-row streamed tiles,
+  167,936 bytes (dQ; dK / dV 512 more).
+
+Builds ``csrc/flash_attention.cu`` once with each layout (the source as
+it stands and copies with the kernel's layout line set to the other, all
+into the git-ignored ``kernels/_build/``, in parallel), prints each
+build's ``-Xptxas -v`` lines for the D > 128 instances, and at each row
+of ``chip_smoke.py``'s ``FLASH_SHAPES`` with D > 128 (deepseek-v2-236b's
+MLA prefill in float32 and in bfloat16; the same inputs, from the same
+seed) runs its dtype's layouts through the wrapper: the largest
+difference from the plain version (``chip_smoke.py`` holds it to atol
+3e-5 / rtol 1e-4 in float32, 3e-2 / 3e-2 in bfloat16), the largest row
+error (bfloat16's 1e-2 row bar), and the device time per call with CUDA
+events (``chip_smoke.cuda_ms``) in the order A, B, B, A; then at each
+row of ``BWD_SHAPES`` with D > 128 (deepseek's training shape) the
+backward's layouts: dq, dk, dv's largest difference from the plain
+backward over each plain tensor's largest magnitude (``chip_smoke.py``'s
+1e-4 bar) and the time, A, B, B, A.  Prints the card's name and power
+limit and one JSON line per shape; writes
+``chiprun_out/flash_wide_layout.json``.
 """
 from __future__ import annotations
 
@@ -30,6 +57,7 @@ import json
 import re
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -37,41 +65,58 @@ sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
 import torch  # noqa: E402
 
-from chip_smoke import FLASH_SHAPES, SEED, cuda_ms  # noqa: E402
+from chip_smoke import BWD_SHAPES, FLASH_SHAPES, SEED, cuda_ms  # noqa: E402
 
-LAYOUTS = {"keys32": "constexpr int kWideWarps = 8, kWideBK = 32;",
-           "rows64": "constexpr int kWideWarps = 4, kWideBK = 64;"}
+# per kernel: {layout: the source line that selects it}, and the mangled
+# names of its D > 128 instances
+LAYOUTS = {
+    "float32": {"keys32": "constexpr int kWideWarps = 8, kWideBK = 32;",
+                "rows64": "constexpr int kWideWarps = 4, kWideBK = 64;"},
+    "bfloat16": {
+        "stages3_keys64": "constexpr int kWideStages = 3, kWideKeys = 64;",
+        "stages2_keys128": "constexpr int kWideStages = 2, kWideKeys = 128;"},
+    "backward": {
+        "tile16": "constexpr int kBwdWideWarps = 8, kBwdWideTile = 16;",
+        "warps4": "constexpr int kBwdWideWarps = 4, kBwdWideTile = 32;"},
+}
+WIDE_ENTRIES = {"float32": r"flash_fwd_kernel_tf32ILi16ELi(8ELi32|4ELi64)E",
+                "bfloat16": r"flash_fwd_kernel_wgmmaILi3E",
+                "backward": r"flash_bwd_(dkdv|dq)_kernelILi24E"}
 
 
 def build_variants() -> tuple[dict, dict]:
-    """({layout: the loaded library}, {layout: ptxas lines of the wide
-    instance})."""
+    """({(dtype, layout): the loaded library}, {(dtype, layout): ptxas
+    lines of the dtype's D > 128 instances})."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     src = (_build.CSRC / "flash_attention.cu").read_text()
-    present = [line for line in LAYOUTS.values() if line in src]
-    if len(present) != 1:
-        raise RuntimeError("the source sets neither layout: update LAYOUTS "
-                           "to the source")
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {}
+    for dt, layouts in LAYOUTS.items():
+        present = [line for line in layouts.values() if line in src]
+        if len(present) != 1:
+            raise RuntimeError(f"the source sets no {dt} layout: update "
+                               "LAYOUTS to the source")
+        for name, line in layouts.items():
+            path = _build.BUILD_DIR / f"flash_attention_{dt}_{name}.cu"
+            path.write_text(src.replace(present[0], line))
+            paths[dt, name] = path
+    with ThreadPoolExecutor(max_workers=len(paths)) as pool:
+        built = dict(zip(paths, pool.map(
+            lambda p: _build.build(p, force=True), paths.values())))
     libs, ptxas = {}, {}
-    for name, line in LAYOUTS.items():
-        path = _build.BUILD_DIR / f"flash_attention_{name}.cu"
-        path.write_text(src.replace(present[0], line))
-        lib_path, log = _build.build(path, force=True)
+    for (dt, name), (lib_path, log) in built.items():
         lib = ctypes.CDLL(str(lib_path))
         for fn, argtypes in fa._SIGNATURES.items():
             getattr(lib, fn).argtypes = argtypes
-        libs[name] = lib
+        libs[dt, name] = lib
         keep, entry = [], False
         for ln in log.splitlines():
             if "Compiling entry" in ln:
-                entry = re.search(r"flash_fwd_kernel_tf32ILi16ELi\d+ELi\d+E",
-                                  ln) is not None and not re.search(
-                                      r"ILi16ELi8ELi64E", ln)
+                entry = re.search(WIDE_ENTRIES[dt], ln) is not None
             if entry:
                 keep.append(ln.strip())
-        ptxas[name] = keep
+        ptxas[dt, name] = keep
     return libs, ptxas
 
 
@@ -86,6 +131,7 @@ def main() -> int:
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     libs, ptxas = build_variants()
+    ptxas = {f"{dt}/{name}": lines for (dt, name), lines in ptxas.items()}
     print(json.dumps({"ptxas": ptxas}), flush=True)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -99,24 +145,62 @@ def main() -> int:
         if d <= 128:
             continue
         plain = fa.flash_attention_plain(q, k, v, causal=True,
-                                         window=window)
+                                         window=window).float()
         row = dict(shape=name, card=card)
 
         def run(layout):
-            fa._lib = lambda: libs[layout]
+            fa._lib = lambda: libs[dt, layout]
             return fa.flash_attention(q, k, v, causal=True, window=window)
 
-        for layout in LAYOUTS:
-            got = run(layout)
+        a, b_ = LAYOUTS[dt]
+        for layout in (a, b_):
+            got = run(layout).float()
             torch.cuda.synchronize()
-            row[layout] = dict(err_plain=float((got - plain).abs().max()),
-                               ms=[])
-        for layout in ("keys32", "rows64", "rows64", "keys32"):
+            row[layout] = dict(
+                err_plain=float((got - plain).abs().max()),
+                row_err_plain=float(((got - plain).norm(dim=-1)
+                                     / plain.norm(dim=-1).clamp_min(1e-30))
+                                    .max()),
+                ms=[])
+            del got
+        for layout in (a, b_, b_, a):
             row[layout]["ms"].append(
                 cuda_ms(torch, lambda: run(layout), iters=10)["ms"])
         print(json.dumps(row), flush=True)
         rows.append(row)
         del q, k, v, plain
+    for name, b, sq, sk, h, kv, d, dv, window in BWD_SHAPES:
+        if d <= 128:
+            continue
+        q = torch.randn(b, sq, h, d, generator=gen, device=dev)
+        k = torch.randn(b, sk, kv, d, generator=gen, device=dev)
+        v = torch.randn(b, sk, kv, dv, generator=gen, device=dev)
+        do = torch.randn(b, sq, h, dv, generator=gen, device=dev)
+        o, lse = fa._forward(q, k, v, True, window, d ** -0.5,
+                             with_lse=True)
+        plain = fa.flash_attention_backward_plain(
+            q, k, v, o, lse, do, causal=True, window=window)
+        row = dict(shape=f"{name}_backward", card=card)
+
+        def run(layout):
+            fa._lib = lambda: libs["backward", layout]
+            return fa.flash_attention_backward(q, k, v, o, lse, do,
+                                               causal=True, window=window)
+
+        a, b_ = LAYOUTS["backward"]
+        for layout in (a, b_):
+            got = run(layout)
+            torch.cuda.synchronize()
+            row[layout] = dict(rel_to_max_err={
+                n: float((g - w).abs().max() / w.abs().max())
+                for n, g, w in zip(("dq", "dk", "dv"), got, plain)}, ms=[])
+            del got
+        for layout in (a, b_, b_, a):
+            row[layout]["ms"].append(
+                cuda_ms(torch, lambda: run(layout), iters=3)["ms"])
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        del q, k, v, do, o, lse, plain
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "flash_wide_layout.json").write_text(
