@@ -79,16 +79,19 @@ CUDA toolkit's nvcc.  Phases, each printing one JSON line:
    products at the TF32 peak, with the exact recurrence's FP32 bound
    beside) and the flash and SSD kernels' tensor-core instruction counts
    from ``cuobjdump -sass`` of the built libraries (every instance must
-   hold some, and the three-panel bf16 instance must be there); then the
-   flash backward (``BWD_SHAPES``: musicgen-medium's and yi-6b's training
-   shapes, h2o-danube's window 4,096 at D 120 and S 4,608, a
-   continuation Sq < Sk, Dk != Dv, deepseek-v2-236b's MLA at Dk 192 / Dv
-   128, the backward's 16-row tiling): the forward kernel's LSE
+   hold some, and the three-panel bf16 instance must be there; every
+   backward instance, ``flash_bwd_dkdv_kernel`` and
+   ``flash_bwd_dq_kernel``, must run TF32 ``HGMMA`` and no ``HMMA``);
+   then the flash backward (``BWD_SHAPES``: musicgen-medium's and
+   yi-6b's training shapes, h2o-danube's window 4,096 at D 120 and S
+   4,608, a continuation Sq < Sk, Dk != Dv, deepseek-v2-236b's MLA at Dk
+   192 / Dv 128, the backward's D > 128 tiling): the forward kernel's LSE
    within 1e-5 of the plain version's, and the backward kernel's dq, dk,
    dv from the same o, LSE and dO each within 1e-4 of the plain tensor's
-   largest magnitude, timed beside the plain backward, one SDPA forward
-   plus ``autograd.grad`` through it, and its bound (five products a
-   visible pair at the 3xTF32 rate, the FP32 CUDA-core bound beside);
+   largest magnitude and bit-identical over two calls, timed beside the
+   plain backward, one SDPA forward plus ``autograd.grad`` through it
+   (in the same run), and its bound (five products a visible pair at the
+   3xTF32 rate, the FP32 CUDA-core bound beside);
 8. lm_serve: ``repro_torch.launch.serve`` at full width — yi-6b,
    rwkv6-1.6b, zamba2-1.2b, mistral-nemo-12b and nemotron-4-15b at
    prompt 2048, h2o-danube-3-4b at prompt 4,608 (past its 4,096-token
@@ -257,7 +260,8 @@ CUDA toolkit's nvcc.  Phases, each printing one JSON line:
    just after, exactly 48 forward + 48 recomputed forward and 48
    backward calls (two kernels each) a step, WKV6 and SSD none; ms a
    step and positions a second from the second step on, peak memory,
-   device ops and busy share of one more step in the profiler; the
+   device ops, busy share and the flash backward kernels' share of the
+   busy time of one more step in the profiler; the
    ~16.6 GB ``TrainState`` checkpoint it writes read back equal, tensor
    by tensor, then deleted.  (b) yi-6b at full width and 4 of its 32
    layers on the synthetic corpus, 20 steps: the last three steps' mean
@@ -267,7 +271,8 @@ CUDA toolkit's nvcc.  Phases, each printing one JSON line:
    fit): batch 4, 2,048 positions, 10 steps at a constant rate with
    recomputation; flash launches exactly 4 forward (Dk 192) and 2
    backward a step, the last three steps' mean loss under the first, ms
-   a step, peak memory, busy share of one more step.  (d) One and two sgd steps at smoke size from
+   a step, peak memory, busy share and flash backward share of one more
+   step.  (d) One and two sgd steps at smoke size from
    one state on the CPU and the card (yi-6b, h2o-danube-3-4b,
    musicgen-medium, and the narrow deepseek's dense MLA layer at Dk 192 /
    Dv 128): loss, CE, grad norm within 1e-5 relative, parameters within
@@ -1129,8 +1134,9 @@ def visible_pairs_aligned(sq: int, sk: int, window: int) -> int:
 
 
 def sass_tensor_ops(lib: Path) -> dict | None:
-    """Tensor-core instructions (``HMMA...TF32``, ``HGMMA...BF16``) in
-    each flash and SSD kernel instance of the built library, from
+    """Tensor-core instructions (``HMMA...TF32``, any ``HMMA``,
+    ``HGMMA...BF16``, ``HGMMA...TF32``) in each flash (forward and
+    backward) and SSD kernel instance of the built library, from
     ``cuobjdump -sass``; None where the toolkit has no ``cuobjdump``."""
     import re
     import shutil
@@ -1144,19 +1150,26 @@ def sass_tensor_ops(lib: Path) -> dict | None:
     counts, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            # flash_fwd_kernel_tf32<8>, ssd_kernel<bf16,32,64>, ...
-            m = re.search(r"(flash_fwd_kernel_\w+?|ssd_kernel)I"
+            # flash_fwd_kernel_tf32<8>, flash_bwd_dq_kernel<2,2>,
+            # ssd_kernel<bf16,32,64>, ...
+            m = re.search(r"(flash_fwd_kernel_\w+?|flash_bwd_\w+?_kernel"
+                          r"|ssd_kernel)I"
                           r"(f|13__nv_bfloat16)?((?:Li\d+E)+)E", line)
             args = re.findall(r"Li(\d+)E", m[3]) if m else []
             if m and m[2]:
                 args.insert(0, "float" if m[2] == "f" else "bf16")
             fn = f"{m[1]}<{','.join(args)}>" if m else None
             if fn:
-                counts[fn] = {"HMMA.TF32": 0, "HGMMA.BF16": 0}
-        elif fn and re.search(r"\bHMMA\.\S*TF32", line):
-            counts[fn]["HMMA.TF32"] += 1
+                counts[fn] = {"HMMA.TF32": 0, "HMMA": 0, "HGMMA.BF16": 0,
+                              "HGMMA.TF32": 0}
+        elif fn and re.search(r"\bHMMA\b", line):
+            counts[fn]["HMMA"] += 1
+            if re.search(r"\bHMMA\.\S*TF32", line):
+                counts[fn]["HMMA.TF32"] += 1
         elif fn and re.search(r"\bHGMMA\.\S*BF16", line):
             counts[fn]["HGMMA.BF16"] += 1
+        elif fn and re.search(r"\bHGMMA\.\S*TF32", line):
+            counts[fn]["HGMMA.TF32"] += 1
     return counts
 
 
@@ -1172,6 +1185,8 @@ def phase_lm_kernels(torch, dev, ptxas: dict) -> dict:
     for found_in, inst, key in ((sass, "flash_fwd_kernel_tf32", "HMMA.TF32"),
                                 (sass, "flash_fwd_kernel_wgmma",
                                  "HGMMA.BF16"),
+                                (sass, "flash_bwd_dkdv_kernel", "HGMMA.TF32"),
+                                (sass, "flash_bwd_dq_kernel", "HGMMA.TF32"),
                                 (ssd_sass, "ssd_kernel", "HMMA.TF32")):
         if found_in is None:
             continue
@@ -1179,6 +1194,8 @@ def phase_lm_kernels(torch, dev, ptxas: dict) -> dict:
         check(bool(found), f"cuobjdump lists an instance of {inst}")
         for fn, ops in found.items():
             check(ops[key] > 0, f"{fn} runs {key} on the tensor cores")
+            if inst.startswith("flash_bwd"):  # wgmma only, no mma.sync
+                check(ops["HMMA"] == 0, f"{fn} runs no HMMA ({ops})")
     if sass is not None:  # the bf16 instances at D in (128, 192]
         check(any(k.startswith("flash_fwd_kernel_wgmma<3,") for k in sass),
               "cuobjdump lists the three-panel (D 192) wgmma instance")
@@ -1273,7 +1290,9 @@ def phase_lm_kernels(torch, dev, ptxas: dict) -> dict:
     for name, b, sq, sk, h, kv, d, dv, window in BWD_SHAPES:
         out[f"{name}_backward"] = dict(flash_backward_entry(
             torch, dev, b=b, sq=sq, sk=sk, h=h, kv=kv, d=d, dv=dv,
-            window=window), ptxas=bwd_ptxas)
+            window=window), ptxas=bwd_ptxas, sass_tensor_ops=None
+            if sass is None else {k: v for k, v in sass.items()
+                                  if k.startswith("flash_bwd")})
         torch.cuda.empty_cache()
     emit("lm_kernels", **out)
     return out
@@ -1304,8 +1323,9 @@ def mla_strided_v(torch, fa, q, k, v, got) -> dict:
 def flash_backward_entry(torch, dev, *, b, sq, sk, h, kv, d, dv,
                          window) -> dict:
     """The forward kernel's LSE and the backward kernel against their
-    plain versions on the card, from the same o, LSE and dO; timed beside
-    the plain backward and, as the library yardstick, one
+    plain versions on the card, from the same o, LSE and dO, and the
+    kernel's gradients bit-identical over two calls; timed beside the
+    plain backward and, as the library yardstick, one
     ``F.scaled_dot_product_attention`` forward plus ``autograd.grad``
     through it (a refusal is recorded in place of its time)."""
     import torch.nn.functional as F
@@ -1327,8 +1347,13 @@ def flash_backward_entry(torch, dev, *, b, sq, sk, h, kv, d, dv,
     args = (q, k, v, o, lse, do)
     kw = dict(causal=True, window=window, scale=scale)
     got = fa.flash_attention_backward(*args, **kw)
+    again = fa.flash_attention_backward(*args, **kw)
     want = fa.flash_attention_backward_plain(*args, **kw)
     torch.cuda.synchronize()
+    identical = all(bool(torch.equal(x, y)) for x, y in zip(got, again))
+    check(identical, f"flash backward at ({b}, {sq}, {sk}, {h}, {kv}, {d}, "
+          f"{dv}, {window}) bit-identical over two calls")
+    del again
     errs = {}
     for name, g_, w_ in zip(("dq", "dk", "dv"), got, want):
         errs[name] = float((g_ - w_).abs().max() / w_.abs().max())
@@ -1374,6 +1399,7 @@ def flash_backward_entry(torch, dev, *, b, sq, sk, h, kv, d, dv,
         source=SOURCES["flash_attention"],
         replaces=REPLACES["flash_attention_backward"],
         max_abs_err=max_abs, max_rel_to_max_err=errs, lse_max_abs_err=lse_err,
+        bit_identical=identical,
         ms=kern["ms"], plain_ms=plain["ms"], library_ms=library["ms"],
         library="scaled_dot_product_attention forward + autograd.grad",
         library_refused=lib_refused,
@@ -3562,9 +3588,10 @@ def checkpoint_round_trip(torch, state, path: str) -> dict:
 
 
 def train_profile(torch, cfg, state, batch: dict, opt=None) -> dict:
-    """Device ops, busy ms and the flash kernels' ms of one more train
-    step, in the profiler (``opt``: the state's optimizer, by default
-    the CLI's adamw)."""
+    """Device ops, busy ms, the flash kernels' ms and the flash backward
+    kernels' share of the busy ms of one more train step, in the
+    profiler (``opt``: the state's optimizer, by default the CLI's
+    adamw)."""
     from repro_torch.training.optimizer import adamw
     from repro_torch.training.schedule import cosine_with_warmup
     from repro_torch.training.train_step import make_train_step
@@ -3573,6 +3600,8 @@ def train_profile(torch, cfg, state, batch: dict, opt=None) -> dict:
     step = make_train_step(cfg, opt)
     prof, _ = _device_time(torch, lambda: step(state, batch),
                            ["flash_fwd_kernel", "flash_bwd"])
+    prof["flash_bwd_share"] = (prof["match_ms"]["flash_bwd"]
+                               / max(prof["device_busy_ms"], 1e-9))
     return prof
 
 

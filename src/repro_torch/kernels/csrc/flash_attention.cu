@@ -572,9 +572,13 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
                : "memory");
 }
+// spins until the phase of the given parity has completed; a barrier
+// that stays open for about ten seconds traps (the launch then fails
+// with an error) rather than holding the card
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   uint32_t done;
-  do {
+  long long start = 0;
+  for (int spin = 0;; ++spin) {
     asm volatile(
         "{\n.reg .pred p;\n"
         "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
@@ -582,7 +586,12 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "=r"(done)
         : "r"(bar), "r"(parity)
         : "memory");
-  } while (!done);
+    if (done) return;
+    if (spin == 0)
+      start = clock64();
+    else if (clock64() - start > (1ll << 34))
+      __trap();
+  }
 }
 
 // one (64 columns x 128 rows) box of a 4-d tensor map whose outer axes
@@ -1057,8 +1066,8 @@ int flash_launch(bool bf16, const void* q, const void* k, const void* v,
 // ------------------------------------------------- float32 backward
 // flash_attention_backward_f32: dQ, dK, dV of the forward above, from q,
 // k, v, dO, the forward's LSE and delta = rowsum(dO * O), recomputing P
-// per (query tile, key tile) pair as the reference's custom VJP does
-// (repro/models/attention.py _flash_vjp_bwd, jnp, not a TPU kernel):
+// per (resident block, streamed tile) pair as the reference's custom VJP
+// does (repro/models/attention.py _flash_vjp_bwd, jnp, not a TPU kernel):
 //   p = exp(s - lse), s = (q . k) scale (masked: p = 0),
 //   dv_j = sum_i p_ij do_i,  dp_ij = do_i . v_j,
 //   ds_ij = p_ij (dp_ij - delta_i) scale,
@@ -1066,462 +1075,863 @@ int flash_launch(bool bf16, const void* q, const void* k, const void* v,
 // with causal ends aligned, the window, GQA (dK and dV sum over a kv
 // head's G query heads) and Dk != Dv, D up to 192 and Dv up to 128.
 //
-// What bounds it: operations, five products a visible (query, key) pair;
-// the design does seven (S and dP in both kernels).  Every product runs
-// on the tensor cores as the forward's 3xTF32 mma.sync (float32-level
-// accuracy), with the forward's register trick: a product's C fragment
-// is the next product's A fragment once the columns of each 8-wide step
-// are relabelled (A column t = row 2t of B, t + 4 = row 2t + 1), so P and
-// dS never leave registers.  Two kernels, no atomics, so every run gives
-// the same gradients:
-//  * flash_bwd_dkdv_kernel: a CTA of 8 warps owns 128 keys of one kv
-//    head (16 a warp), holds their K and V tiles in shared memory and
-//    dK, dV in registers, and walks the query tiles of kBQ rows that can
-//    see them, for each of the G query heads of the group, through a
-//    two-stage cp.async ring of Q, dO, LSE and delta: per warp S^T = K
-//    Q^T, P^T, dV += P^T dO, dP^T = V dO^T, dS^T, dK += dS^T Q.
-//  * flash_bwd_dq_kernel: a CTA of 8 warps owns 128 query rows of one
-//    head (16 a warp), holds Q, dO and each row's LSE and delta, and
-//    walks the visible key tiles through a two-stage ring of K and V:
-//    S = Q K^T, P, dP = dO V^T, dS, dQ += dS K.
-// Tiles that a warp's rows cannot see are skipped, and only tiles that
-// cut the mask are masked.  Shared rows have a pitch of 4 mod 8 floats,
-// so fragment reads are conflict-free.  Shared memory at D = Dv = 128:
-// (128 + 2 x 32) x 264 floats + the LSE / delta ring = 203,264 bytes
-// (dK, dV), (128 + 2 x 32) x 264 floats = 202,752 bytes (dQ); at D = 64
-// two CTAs share an SM.  D in (128, 192] (MLA's Dk 192) takes another
-// tiling (bwd_warps / bwd_tile below).  wgmma and TMA are for a later
-// pass.
-// Warps a CTA (16 owned rows each: keys in dK / dV, queries in dQ) and
-// rows of a streamed tile (queries or keys): 8 and 32 at D <= 128.  At
-// D in (128, 192] that would need (128 + 2 x 32) x (pitch(192) +
-// pitch(128)) floats = 251,904 bytes of shared memory, more than a CTA
-// may hold, and a dK / dV warp holds 16 rows x (192 + 128) accumulators,
-// 160 floats a thread.  Two tilings fit (tools/flash_wide_layout.py
-// builds and times both; PERF.md has the times and ptxas' registers):
-//  * 8 warps and 16-row streamed tiles: 209,920 bytes (+ the LSE /
-//    delta ring); a streamed tile's working set (S, dP and their split
-//    A fragments) halves, which leaves the registers for dK and dV;
-//  * 4 warps (64 owned rows) and 32-row tiles: 167,936 bytes.
-// kBwdWideWarps / kBwdWideTile name the one kept.
-constexpr int kBwdWideWarps = 8, kBwdWideTile = 16;
-template <int kND>
-__host__ __device__ constexpr int bwd_warps() {
-  return kND > 16 ? kBwdWideWarps : 8;
-}
-template <int kND>
+// What bounds it: operations, five products a visible (query, key) pair,
+// each 3xTF32 at the TF32 peak; the design does seven (S and dP in both
+// kernels; fusing them into one kernel of five products is a later
+// pass).  Two kernels, no atomics, so every run gives the same
+// gradients.  Both are one body (flash_bwd_body) over a resident block
+// of 64 rows and a stream of kBs-row tiles (bwd_tile: 32 rows; 64 at D,
+// Dv <= 64; 16 in the dK / dV kernel at D > 128):
+//  * flash_bwd_dkdv_kernel: resident 64 keys of one kv head (K and V),
+//    streamed the tiles of Q and dO (with each row's LSE and delta) that
+//    can see them, for each of the group's G query heads in turn;
+//    S^T = K Q^T, dP^T = V dO^T, P^T, dS^T, then dV^T += dO^T P and
+//    dK^T += Q^T dS, one 64-row block of the head dim at a time.
+//  * flash_bwd_dq_kernel: resident 64 query rows of one head (Q and dO,
+//    their LSE and delta), streamed the visible K and V tiles; S = Q K^T,
+//    dP = dO V^T, P, dS, then dQ^T += K^T dS^T.
+// Every product runs on wgmma (m64nNk8, TF32, f32 accumulators) as three
+// products, lo.hi + hi.lo + hi.hi: float32-level accuracy, as the
+// forward's 3xTF32.  TF32 wgmma takes both operands K-major only (the
+// transpose bits are for 16-bit types), so each product is arranged that
+// way round: A (64 rows) comes from registers, B from shared memory,
+// K-major with the 128-byte swizzle.  The scores take A = the resident
+// rows and B = the streamed tile as TMA lands it.  The outputs take A =
+// the streamed tile read transposed (so they come out transposed, rows
+// of the head dim in 64-row blocks) and B = P or dS, which the consumers
+// write from their S / dP fragments as [resident row][streamed row].
+// The tensor cores read a raw float32 word as TF32 by dropping its low
+// 13 bits, from registers and from shared memory alike (a wgmma on
+// words with low bits set equals the truncated words' product, not the
+// rounded ones', on an H100: tools/tf32_wgmma_probe.py), so hi is the
+// raw word wherever it can be and lo = rna_tf32(a - trunc(a)) (raw_lo):
+//  * the resident A fragments are loaded once: hi stays in registers (32
+//    a thread per 64 columns; at D = 192 / Dv = 128 the dK / dV kernel
+//    reads the last steps' hi from shared memory, bwd_kreg) and lo is
+//    written back over the raw resident tile in fragment order, so a
+//    score step is one 16-byte load and three wgmma;
+//  * the streamed tile is B's hi as it lands; three producer warps write
+//    its lo copy, once a tile, into one lo buffer;
+//  * the outputs' A is gathered from the raw tile (hi) and raw_lo'd (lo);
+//    within each 8-row step the streamed rows are relabelled (out_base)
+//    so a warp's gathers hit 32 distinct banks;
+//  * P and dS are split in full (hi = tf32(x), lo = tf32(x - hi)).
+// A CTA is three warpgroups.  The producer's first warp starts the TMA
+// loads (the resident block once, then the streamed tiles into a ring of
+// kBwdStages stages guarded by full / empty mbarriers), its other three
+// write the lo copies (lo_full / lo_empty); setmaxnreg gives it 40
+// registers and each consumer 232.  The two consumers share the resident
+// rows and split a tile's work so that their products balance:
+// warpgroup 0 runs S, P, dS and the first bwd_split() blocks of dK^T
+// (dQ^T), warpgroup 1 dP (handed over through shared memory), dV^T and
+// the remaining blocks, each on the other's products while it works on
+// its own softmax or dS.  Each output block sums one streamed tile in a
+// fresh accumulator that is then added to the block's running sum in
+// float32 on the CUDA cores: summed in place, the tensor cores'
+// accumulator drops low bits of addends much smaller than it, and dK
+// and dV sum thousands of small terms (the yi-6b shape's dK lay 1.0e-4
+// of its largest magnitude from plain that way with mma.sync; promoted,
+// every BWD_SHAPES gradient lies within 1e-5 of it on an H100).
+// Operands are tiled in 32-column panels (128 bytes a row); the tensor
+// maps zero-fill columns past D or Dv and rows past S, so any D, Dv in
+// multiples of 4 and any S work; masked tiles give P = 0, and a resident
+// row that sees no streamed row keeps zeros.
+// Shared memory (bwd_smem: 64 resident rows, kBs streamed rows, panels of
+// D and Dv rounded up to 64 columns): the resident block, kBwdStages raw
+// tiles and one lo tile, 64 x 128-byte dS and P buffers (hi and lo; dQ
+// has no P), the handed-over dP (64 kBs floats), the resident lo words
+// past bwd_kreg():
+//   D = Dv = 128, kBs = 32:  64 + 2 x 32 + 32 + 32 + 8 KB, 206,168 bytes
+//                            (dK / dV); 189,784 (dQ);
+//   D = 192, Dv = 128: dK / dV at kBs = 16, 80 + 2 x 20 + 20 + 32 + 4 +
+//                      40 KB, 222,424 bytes (kBs = 32 would need
+//                      247,128 before the resident lo words); dQ at
+//                      kBwdWideDqTile = 32, 230,744 bytes (16 fits too,
+//                      165,080: tools/flash_wide_layout.py times both).
+// A bigger ring or a second lo buffer (to convert a tile while the one
+// before it is scored) does not fit at D = 128.  Registers (ptxas: 168 a
+// thread at launch, then 232 for the consumers, no spills): the tightest
+// consumers are those of the dK / dV kernel at D = 192 / Dv = 128, each
+// with three running blocks or two and 12 steps of hi words (bwd_kreg).
+constexpr int kBwdRows = 64;         // resident rows a CTA
+constexpr int kBwdThreads = 384;     // two consumer warpgroups, a producer
+constexpr int kBwdStages = 2;        // the streamed ring
+constexpr int kBwdWideDqTile = 32;   // the dQ kernel's kBs at D > 128
+
+// rows of a streamed tile: 32; 64 at D, Dv <= 64 (the fixed costs of a
+// tile, its hand-overs and softmax, spread over twice the products, and
+// score products of N = 64); at D in (128, 192] (kNBK = 3) 16 for dK / dV
+// and kBwdWideDqTile for dQ
+template <bool kDKDV, int kNBK, int kNBV>
 __host__ __device__ constexpr int bwd_tile() {
-  return kND > 16 ? kBwdWideTile : 32;
+  return kNBK > 2 ? (kDKDV ? 16 : kBwdWideDqTile)
+                  : (kNBK == 1 && kNBV == 1 ? 64 : 32);
 }
 
-// zero columns [d, width) of rows [0, rows) of a shared tile (cp.async
-// writes only the first d); kThreads threads
-template <int kThreads>
-__device__ __forceinline__ void zero_pad_cols(float* dst, int rows, int ld,
-                                              int d, int width) {
-  const int w = width - d;
-  if (w <= 0) return;
-  for (int idx = threadIdx.x; idx < rows * w; idx += kThreads) {
-    const int r = idx / w, c = idx - r * w;
-    dst[r * ld + d + c] = 0.f;
+// warpgroup 0's share of the dK^T (dQ^T) blocks, which balances the two
+// consumers' products (a score product over kNB blocks costs kNB output
+// blocks): dK / dV min(kNBK, kNBV), dQ one
+template <bool kDKDV, int kNBK, int kNBV>
+__host__ __device__ constexpr int bwd_split() {
+  return kDKDV ? (kNBV < kNBK ? kNBV : kNBK) : 1;
+}
+
+// the 8-column steps of a consumer's resident rows whose hi words it
+// keeps in registers (warpgroup kWG: 0 for R1's 8 kNBK steps, 1 for R2's
+// 8 kNBV): all of them, but for the dK / dV kernel at D > 128 and Dv >
+// 64, where each consumer holds three running blocks (warpgroup 0's two
+// beside 96 hi words, warpgroup 1's three beside 64) and would spill;
+// there warpgroup 0 keeps 12 steps and warpgroup 1 keeps 8, and the rest
+// are read from shared memory
+template <bool kDKDV, int kNBK, int kNBV, int kWG>
+__host__ __device__ constexpr int bwd_kreg() {
+  return kDKDV && kNBK > 2 && kNBV > 1 ? (kWG == 0 ? 12 : 8)
+                                       : 8 * (kWG == 0 ? kNBK : kNBV);
+}
+
+// dynamic shared memory of one instance: 1 KB of alignment slack, the
+// resident block, kBwdStages + 1 tiles, the dS buffers (and P's),
+// the handed-over dP, the lo tile's LSE and delta, the lo words of the
+// resident steps past bwd_kreg(), the mbarriers
+template <bool kDKDV, int kNBK, int kNBV>
+__host__ __device__ constexpr int bwd_smem() {
+  constexpr int kBs = bwd_tile<kDKDV, kNBK, kNBV>();
+  return 1024 + (kBwdRows + (kBwdStages + 1) * kBs) * 128 * 2 *
+                    (kNBK + kNBV) +
+         (kDKDV ? 4 : 2) * kBwdRows * 128 * ((kBs + 31) / 32) +
+         (kBwdRows + 2) * 4 * kBs +
+         (8 * kNBK - bwd_kreg<kDKDV, kNBK, kNBV, 0>() + 8 * kNBV -
+          bwd_kreg<kDKDV, kNBK, kNBV, 1>()) * 2048 +
+         8 * (7 + 2 * kBwdStages);
+}
+
+__device__ __forceinline__ float lds(const uint8_t* p) {
+  return *reinterpret_cast<const float*>(p);
+}
+
+// the lo half of a raw float32 word that wgmma reads as tf32 (its low 13
+// bits dropped): rna_tf32(a - trunc_tf32(a))
+__device__ __forceinline__ float raw_lo(float x) {
+  return __uint_as_float(
+      tf32(x - __uint_as_float(__float_as_uint(x) & 0xFFFFE000u)));
+}
+
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// the consumer warpgroup's own barrier (named barrier 1, 128 threads)
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+}
+
+// one (32 columns x rows) box of a float32 tensor map with axes
+// (column, head, row, batch)
+__device__ __forceinline__ void tma_load_f32(uint32_t dst,
+                                             const CUtensorMap* map,
+                                             uint32_t bar, int col, int head,
+                                             int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(head),
+      "r"(row), "r"(batch)
+      : "memory");
+}
+
+// D (64 x 16, f32) += A (64 x 8, tf32 in registers) . B (16 x 8, tf32 in
+// shared memory, K-major, 128-byte swizzle)
+__device__ __forceinline__ void wgmma_tf32_n16(float (&d)[8],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 32, f32) += A (64 x 8, tf32 in registers) . B (32 x 8, tf32 in
+// shared memory, K-major, 128-byte swizzle)
+__device__ __forceinline__ void wgmma_tf32_n32(float (&d)[16],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 64, f32) += A (64 x 8, tf32 in registers) . B (64 x 8, tf32 in
+// shared memory, K-major, 128-byte swizzle)
+__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db) {
+  if constexpr (N == 16)
+    wgmma_tf32_n16(d, a, db);
+  else if constexpr (N == 32)
+    wgmma_tf32_n32(d, a, db);
+  else
+    wgmma_tf32_n64(d, a, db);
+}
+
+// The A fragments are gathered from swizzled tiles.  For a tile whose
+// rows are 1024-byte aligned groups of eight, (row r, column c) lies at
+// the unswizzled offset with bits 4-6 XORed by r % 8, so each thread keeps
+// one base offset and every element of its fragments is that base XOR a
+// constant plus a constant.
+
+// a thread's base in the resident block for the scores: row 16 warp + g,
+// column t (chunk 0, swizzled by g)
+__device__ __forceinline__ uint32_t score_base(int warp, int g, int t) {
+  return (16 * warp + g) * 128 + t * 4 + (g << 4);
+}
+
+// a thread's base in a kBs-row streamed tile for the outputs, read
+// transposed: head-dim column 16 warp + g, streamed row 2 t.  The
+// outputs reduce over the streamed rows with each 8-row step's rows
+// relabelled, k = t for row 2 t and k = t + 4 for row 2 t + 1 (the P / dS
+// buffers store them in that order): a warp's gathers then hit 32
+// distinct banks
+template <int kBs>
+__device__ __forceinline__ uint32_t out_base(int warp, int g, int t) {
+  return (warp >> 1) * kBs * 128 + t * 256 + (g & 3) * 4 +
+         (((4 * (warp & 1) + (g >> 2)) ^ (2 * t)) << 4);
+}
+
+// A thread's resident A fragments, loaded once: rows r, r + 8 and
+// columns c, c + 4 of step kk at base ^ (2 (kk % 4) + {0, 1}) x 16, +
+// 1024 for r + 8, in the panel kk / 4.  hi is the raw word (the tensor
+// cores drop its low 13 bits): the first kKr steps' are kept in
+// registers, the rest stay in the raw panels.  lo = raw_lo(a), in
+// fragment order (one 16-byte word a thread and step): the first kKr
+// steps' written back over their raw panels once every thread of the
+// warpgroup has read its words (bar: the warpgroup's named barrier),
+// the rest's at lo2.
+template <int kK, int kKr>
+__device__ __forceinline__ void load_resident(uint8_t* res, float4* lo2,
+                                              uint32_t base, int tid,
+                                              int bar,
+                                              uint32_t (&hi)[kKr][4]) {
+  float x[kK][4];
+#pragma unroll
+  for (int kk = 0; kk < kK; ++kk) {
+    const uint8_t* p = res + (kk >> 2) * kBwdRows * 128;
+    const uint32_t x0 = base ^ ((2 * (kk & 3)) << 4);
+    const uint32_t x1 = base ^ ((2 * (kk & 3) + 1) << 4);
+    x[kk][0] = lds(p + x0);
+    x[kk][1] = lds(p + x0 + 1024);
+    x[kk][2] = lds(p + x1);
+    x[kk][3] = lds(p + x1 + 1024);
+    if (kk < kKr) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) hi[kk < kKr ? kk : 0][j] =
+          __float_as_uint(x[kk][j]);
+    } else {
+      lo2[(kk - kKr) * 128 + tid] =
+          make_float4(raw_lo(x[kk][0]), raw_lo(x[kk][1]), raw_lo(x[kk][2]),
+                      raw_lo(x[kk][3]));
+    }
+  }
+  asm volatile("bar.sync %0, 128;\n" ::"r"(bar) : "memory");
+  float4* lo = reinterpret_cast<float4*>(res) + tid;
+#pragma unroll
+  for (int kk = 0; kk < kKr; ++kk)
+    lo[kk * 128] = make_float4(raw_lo(x[kk][0]), raw_lo(x[kk][1]),
+                               raw_lo(x[kk][2]), raw_lo(x[kk][3]));
+  asm volatile("bar.sync %0, 128;\n" ::"r"(bar) : "memory");
+}
+
+// s (64 resident rows x kBs streamed rows) = R . T^T over kK 8-column
+// steps: R's fragments (load_resident: hi in registers for the first kKr
+// steps, then gathered from the raw panels at res; lo at lo[128 kk], then
+// lo2[128 (kk - kKr)]), T's raw and lo panels at t_hi, t_lo (B);
+// 3xTF32.  Each step is committed and the one before it waited for.
+// Returns with the last step in flight.
+template <int kBs, int kK, int kKr>
+__device__ __forceinline__ void score_product(
+    float (&s)[kBs / 2], const uint32_t (&hi)[kKr][4], const float4* lo,
+    const uint8_t* res, const float4* lo2, uint32_t base, uint32_t t_hi,
+    uint32_t t_lo) {
+#pragma unroll
+  for (int kk = 0; kk < kK; ++kk) {
+    uint32_t ah[4];
+    float4 l;
+    if (kk < kKr) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) ah[j] = hi[kk < kKr ? kk : 0][j];
+      l = lo[kk * 128];
+    } else {
+      const uint8_t* p = res + (kk >> 2) * kBwdRows * 128;
+      const uint32_t x0 = base ^ ((2 * (kk & 3)) << 4);
+      const uint32_t x1 = base ^ ((2 * (kk & 3) + 1) << 4);
+      ah[0] = __float_as_uint(lds(p + x0));
+      ah[1] = __float_as_uint(lds(p + x0 + 1024));
+      ah[2] = __float_as_uint(lds(p + x1));
+      ah[3] = __float_as_uint(lds(p + x1 + 1024));
+      l = lo2[(kk - kKr) * 128];
+    }
+    const uint32_t al[4] = {__float_as_uint(l.x), __float_as_uint(l.y),
+                            __float_as_uint(l.z), __float_as_uint(l.w)};
+    const uint32_t off = (kk >> 2) * kBs * 128 + (kk & 3) * 32;
+    const uint64_t bh = desc_sw128(t_hi + off, 16, 1024);
+    const uint64_t bl = desc_sw128(t_lo + off, 16, 1024);
+    wgmma_fence();
+    wgmma_tf32<kBs>(s, al, bh);
+    wgmma_tf32<kBs>(s, ah, bl);
+    wgmma_tf32<kBs>(s, ah, bh);
+    wgmma_commit();
+    wgmma_wait<1>();
   }
 }
 
-// s[j] = A rows (16, from a shared tile at `a`, row g at a + g * lda + t)
-// . B rows (8 j + g, at b + g * ldb + t), over d8 columns in 8-wide steps,
-// 3xTF32
-template <int kJ>
-__device__ __forceinline__ void rows_dot(float (&s)[kJ][4], const float* a,
-                                         int lda, const float* b, int ldb,
-                                         int d8) {
+// acc[mb] (64-row block kMB0 + mb of the head dim x 64 resident rows) +=
+// T^T B over the tile's kBs streamed rows.  T^T is gathered from the raw
+// tile at `tile` (A: head-dim columns d, d + 8 and streamed rows j, j + 1
+// of step kk at base ^ {0, 32, 16, 48} + 1024 kk + {0, 128}; hi the raw
+// word, lo = raw_lo); B is the P or dS buffer (hi at b_hi, lo at b_lo,
+// [resident row][streamed row], 32-column panels).  Each block sums in a
+// fresh accumulator that is added to acc in float32.
+template <int kBs, int kNB, int kMB0>
+__device__ __forceinline__ void out_product(float (&acc)[kNB][32],
+                                            const uint8_t* tile,
+                                            uint32_t base, uint32_t b_hi,
+                                            uint32_t b_lo) {
 #pragma unroll
-  for (int j = 0; j < kJ; ++j)
+  for (int mb = 0; mb < kNB; ++mb) {
+    float c[32];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
-  for (int kk = 0; kk < d8; kk += 8) {
-    uint32_t ah[4], al[4];
-    split(a[kk], ah[0], al[0]);
-    split(a[8 * lda + kk], ah[1], al[1]);
-    split(a[kk + 4], ah[2], al[2]);
-    split(a[8 * lda + kk + 4], ah[3], al[3]);
+    for (int i = 0; i < 32; ++i) c[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < kJ; ++j)
-      mma_3xtf32(s[j], ah, al, b[8 * j * ldb + kk], b[8 * j * ldb + kk + 4]);
+    for (int kk = 0; kk < kBs / 8; ++kk) {
+      const uint8_t* p = tile + 2 * (kMB0 + mb) * kBs * 128 + kk * 1024;
+      const float x[4] = {lds(p + base), lds(p + (base ^ 32)),
+                          lds(p + (base ^ 16) + 128),
+                          lds(p + (base ^ 48) + 128)};
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        ah[j] = __float_as_uint(x[j]);  // read as tf32: its top 19 bits
+        al[j] = __float_as_uint(raw_lo(x[j]));
+      }
+      const uint32_t boff = (kk >> 2) * kBwdRows * 128 + (kk & 3) * 32;
+      const uint64_t bh = desc_sw128(b_hi + boff, 16, 1024);
+      const uint64_t bl = desc_sw128(b_lo + boff, 16, 1024);
+      wgmma_fence();
+      wgmma_tf32<64>(c, al, bh);
+      wgmma_tf32<64>(c, ah, bl);
+      wgmma_tf32<64>(c, ah, bh);
+      wgmma_commit();
+      wgmma_wait<1>();
+    }
+    wgmma_wait<0>();
+    fence_regs(c);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[mb][i] += c[i];
   }
 }
 
-// acc[n] += X . B, X (16 x 8 kJ) in C-fragment layout (columns 2t, 2t + 1
-// of each 8-wide step j), B rows 8 j + 2t and 8 j + 2t + 1 at
-// b + (8 j + 2t) * ldb + g, over kN 8-column output tiles.  Each output
-// tile is summed over the kJ steps in a fresh fragment and then added to
-// acc in float32 on the CUDA cores: the tensor cores' accumulator drops
-// low bits of addends much smaller than it, and dK and dV each sum
-// thousands of small terms (accumulated in place, the yi-6b shape's dK
-// was 1.0e-4 of its largest magnitude away from the plain version)
-template <int kJ, int kN>
-__device__ __forceinline__ void frag_times_rows(float (&acc)[kN][4],
-                                                const float (&x)[kJ][4],
-                                                const float* b, int ldb) {
-  uint32_t ah[kJ][4], al[kJ][4];
-#pragma unroll
-  for (int j = 0; j < kJ; ++j) {
-    split(x[j][0], ah[j][0], al[j][0]);
-    split(x[j][2], ah[j][1], al[j][1]);
-    split(x[j][1], ah[j][2], al[j][2]);
-    split(x[j][3], ah[j][3], al[j][3]);
+// kDKDV: the dK / dV kernel (resident K, V; streamed Q, dO), else the dQ
+// kernel (resident Q, dO; streamed K, V).  kNBK, kNBV: 64-column blocks
+// of D (1-3) and Dv (1 or 2).  tr1 / tr2: the resident operands' tensor
+// maps (64-row boxes), ts1 / ts2 the streamed ones' (kBs-row boxes); the
+// first of each pair has D columns, the second Dv.
+//
+// Two consumer warpgroups share the resident rows and split the work of
+// a tile: warpgroup 0 computes S, P and dS and the first bwd_split()
+// blocks of dK^T (dQ^T); warpgroup 1 computes dP (handed over through
+// shared memory), dV^T and the remaining blocks.  The hand-overs are
+// mbarriers, one phase a tile: dp_ready (1 -> 0), p_ready (0 -> 1) and
+// p_free (1 -> 0, dK / dV only), ds_ready (0 -> 1).  Each waits on the
+// other's previous phase before it arrives again (warpgroup 0 arrives on
+// p_ready and ds_ready only after it has waited on dp_ready, and on
+// p_ready only after it has waited on the previous p_free; warpgroup 1
+// arrives on dp_ready only after it has waited on ds_ready, and on p_free
+// only after it has waited on p_ready), so no barrier runs a phase ahead
+// of its waiter.  The same chain frees the dP and dS buffers; P's is
+// free again once p_free says dV has read it.
+template <bool kDKDV, int kNBK, int kNBV>
+__device__ __forceinline__ void flash_bwd_body(
+    const CUtensorMap* tr1, const CUtensorMap* tr2, const CUtensorMap* ts1,
+    const CUtensorMap* ts2, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ out1,
+    float* __restrict__ out2, int H, int KV, int Sq, int Sk, int D, int Dv,
+    float scale, int causal, int window) {
+  constexpr int kBs = bwd_tile<kDKDV, kNBK, kNBV>();
+  constexpr int kNP1 = 2 * kNBK, kNP = 2 * (kNBK + kNBV);  // 32-col panels
+  constexpr int kResBytes = kBwdRows * 128 * kNP;
+  constexpr int kTileBytes = kBs * 128 * kNP;
+  // one P / dS buffer: 64 rows of kBs columns in 32-column panels
+  constexpr int kBuf = kBwdRows * 128 * ((kBs + 31) / 32);
+  constexpr int kNS = kBs / 2;          // a thread's S / dP fragment
+  constexpr int kN0 = bwd_split<kDKDV, kNBK, kNBV>();  // warpgroup 0's
+  constexpr int kN1 = kNBK - kN0;  // out1 blocks of warpgroup 1
+  extern __shared__ uint8_t smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
+  uint8_t* res = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  uint8_t* stg = res + kResBytes;              // kBwdStages raw tiles
+  uint8_t* lo = stg + kBwdStages * kTileBytes;  // the lo copy of one
+  uint8_t* buf = lo + kTileBytes;  // dS hi, dS lo (, P hi, P lo)
+  float* xbuf = reinterpret_cast<float*>(buf + (kDKDV ? 4 : 2) * kBuf);
+  float* stat = xbuf + kBwdRows * kBs;  // the lo tile's LSE, delta
+  // the lo words of the resident steps past bwd_kreg: warpgroup 0's, then
+  // warpgroup 1's
+  constexpr int kKr0 = bwd_kreg<kDKDV, kNBK, kNBV, 0>();
+  constexpr int kKr1 = bwd_kreg<kDKDV, kNBK, kNBV, 1>();
+  float4* lo2 = reinterpret_cast<float4*>(stat + 2 * kBs);
+  float4* lo2b = lo2 + (8 * kNBK - kKr0) * 128;
+  const uint32_t bar_res = smem_addr(lo2b + (8 * kNBV - kKr1) * 128);
+  const uint32_t full = bar_res + 8, empty = full + 8 * kBwdStages;
+  const uint32_t lo_full = empty + 8 * kBwdStages, lo_empty = lo_full + 8;
+  const uint32_t dp_ready = lo_empty + 8, p_ready = dp_ready + 8,
+                 ds_ready = p_ready + 8, p_free = ds_ready + 8;
+
+  const int G = H / KV, q_off = Sk - Sq;
+  int b, rh, r0, s_lo, n_s, n_it;  // batch, resident head and first row,
+                                   // first streamed row, tiles
+  if constexpr (kDKDV) {
+    b = blockIdx.x / KV;
+    rh = blockIdx.x - b * KV;
+    r0 = blockIdx.y * kBwdRows;  // the first key blocks see the most rows
+    // the query rows that can see a key of [r0, k_last]
+    const int k_last = min(r0 + kBwdRows, Sk) - 1;
+    s_lo = causal ? max(0, r0 - q_off) : 0;
+    const int q_hi = window ? min(Sq, k_last + window - q_off) : Sq;
+    n_s = q_hi > s_lo ? (q_hi - s_lo + kBs - 1) / kBs : 0;
+    n_it = G * n_s;  // iteration it: query head rh G + it / n_s
+  } else {
+    b = blockIdx.x / H;
+    rh = blockIdx.x - b * H;
+    r0 = (gridDim.y - 1 - blockIdx.y) * kBwdRows;  // heavy tiles first
+    int k_end;
+    key_range(r0, kBwdRows, Sq, Sk, causal, window, kBs, &s_lo, &k_end);
+    n_s = n_it = k_end > s_lo ? (k_end - s_lo + kBs - 1) / kBs : 0;
   }
+  const auto s_head = [&](int it) {
+    return kDKDV ? rh * G + it / n_s : rh / G;
+  };
+  const auto s_row = [&](int it) {
+    return s_lo + (kDKDV ? it % n_s : it) * kBs;
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_res, 1);
+    for (int s = 0; s < kBwdStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);  // one arrival per consumer warp
+    }
+    mbar_init(lo_full, 3);   // one per lo-writing producer warp
+    mbar_init(lo_empty, 8);  // one per consumer warp
+    mbar_init(dp_ready, 4);  // one per warp of the arriving warpgroup
+    mbar_init(p_ready, 4);
+    mbar_init(ds_ready, 4);
+    mbar_init(p_free, 4);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // warp-uniform, as setmaxnreg's warpgroups need
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 2) {
+    // ------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (warp == 8) {
+      if (lane == 0) {
+        mbar_expect_tx(bar_res, kResBytes);
+        for (int p = 0; p < kNP; ++p)
+          tma_load_f32(smem_addr(res + p * kBwdRows * 128),
+                       p < kNP1 ? tr1 : tr2, bar_res,
+                       32 * (p < kNP1 ? p : p - kNP1), rh, r0, b);
+        for (int it = 0; it < n_it; ++it) {
+          const int s = it % kBwdStages;
+          // a stage's first use passes at once (parity of the phase
+          // before the barrier's first)
+          mbar_wait(empty + 8 * s, ((it / kBwdStages) & 1) ^ 1);
+          mbar_expect_tx(full + 8 * s, kTileBytes);
+          const uint8_t* tile = stg + s * kTileBytes;
+          for (int p = 0; p < kNP; ++p)
+            tma_load_f32(smem_addr(tile + p * kBs * 128),
+                         p < kNP1 ? ts1 : ts2, full + 8 * s,
+                         32 * (p < kNP1 ? p : p - kNP1), s_head(it),
+                         s_row(it), b);
+        }
+      }
+    } else {
+      // the lo copy of each landed tile (and, for dK / dV, its rows' LSE
+      // and delta), once the previous one's scores are done with it
+      const int ct = threadIdx.x - 288;
+      float4* dst = reinterpret_cast<float4*>(lo);
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % kBwdStages;
+        mbar_wait(lo_empty, (it & 1) ^ 1);
+        mbar_wait(full + 8 * s, (it / kBwdStages) & 1);
+        const float4* src =
+            reinterpret_cast<const float4*>(stg + s * kTileBytes);
+        for (int i = ct; i < kTileBytes / 16; i += 96) {
+          const float4 x = src[i];
+          dst[i] = make_float4(raw_lo(x.x), raw_lo(x.y), raw_lo(x.z),
+                               raw_lo(x.w));
+        }
+        if (kDKDV && ct < kBs) {
+          const int q = s_row(it) + ct;
+          const long long at = static_cast<long long>(b * H + s_head(it)) * Sq;
+          stat[ct] = q < Sq ? lse[at + q] : 0.f;
+          stat[kBs + ct] = q < Sq ? delta[at + q] : 0.f;
+        }
+        fence_async_smem();  // visible to the consumers' wgmma
+        __syncwarp();
+        if (lane == 0) mbar_arrive(lo_full);
+      }
+    }
+    return;
+  }
+
+  // -------------------------------------------------------- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int cw = warp & 3, g = lane >> 2, t = lane & 3;
+  const uint32_t sbase = score_base(cw, g, t);
+  const uint32_t obase = out_base<kBs>(cw, g, t);
+  const uint32_t b_ds = smem_addr(buf), b_p = b_ds + 2 * kBuf;
+  // this thread's dP fragment in xbuf: written by warpgroup 1, read by
+  // the thread of warpgroup 0 with the same warp and lane
+  float4* xf = reinterpret_cast<float4*>(xbuf + (cw * 32 + lane) * kNS);
+  const int rows = kDKDV ? Sk : Sq, heads = kDKDV ? KV : H;
+  // acc[i]: head-dim column 64 mb + 16 cw + g (+ 8 where i & 2) of
+  // resident row r0 + 8 (i / 4) + 2 t + (i & 1)
+  const auto store = [&](float* out, int width, int mb, const float(&a)[32]) {
 #pragma unroll
-  for (int n = 0; n < kN; ++n) {
-    float c[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int i = 0; i < 32; ++i) {
+      const int d = 64 * mb + 16 * cw + g + (i & 2) * 4;
+      const int r = r0 + 8 * (i >> 2) + 2 * t + (i & 1);
+      if (d < width && r < rows)
+        out[((static_cast<long long>(b) * rows + r) * heads + rh) * width +
+            d] = a[i];
+    }
+  };
+  mbar_wait(bar_res, 0);
+
+  if (wg == 0) {
+    // ------------------------------- warpgroup 0: S, P, dS; kN0 blocks
+    uint32_t rhi[kKr0][4];  // R1's fragments
+    load_resident<8 * kNBK, kKr0>(res, lo2, sbase, threadIdx.x, 1, rhi);
+    const float4* rlo = reinterpret_cast<const float4*>(res) + threadIdx.x;
+    float acc[kN0][32];
 #pragma unroll
-    for (int j = 0; j < kJ; ++j) {
-      const float* br = b + 8 * j * ldb + 8 * n;
-      mma_3xtf32(c, ah[j], al[j], br[0], br[ldb]);
+    for (int m = 0; m < kN0; ++m)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[m][i] = 0.f;
+    // dQ: the LSE and delta of this thread's resident rows (16 cw + g,
+    // + 8)
+    float rl[2] = {0.f, 0.f}, rd[2] = {0.f, 0.f};
+    if constexpr (!kDKDV) {
+      const long long at = static_cast<long long>(b * H + rh) * Sq;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int q = r0 + 16 * cw + g + 8 * e;
+        if (q < Sq) {
+          rl[e] = lse[at + q];
+          rd[e] = delta[at + q];
+        }
+      }
+    }
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % kBwdStages;
+      const int s0 = s_row(it);
+      const uint8_t* tile = stg + s * kTileBytes;
+      mbar_wait(full + 8 * s, (it / kBwdStages) & 1);
+      mbar_wait(lo_full, it & 1);
+
+      // S = R1 T1^T over D
+      float sc[kNS];
+#pragma unroll
+      for (int i = 0; i < kNS; ++i) sc[i] = 0.f;
+      score_product<kBs, 8 * kNBK, kKr0>(sc, rhi, rlo, res,
+                                         lo2 + threadIdx.x, sbase,
+                                         smem_addr(tile), smem_addr(lo));
+      wgmma_wait<0>();
+      fence_regs(sc);
+      // dK / dV: the LSE and delta of this thread's streamed rows (8 j +
+      // 2 t, + 1), read before the lo buffer is handed back
+      float cl[kBs / 4], cd[kBs / 4];
+      if constexpr (kDKDV) {
+#pragma unroll
+        for (int e = 0; e < kBs / 4; ++e) {
+          const int c = 8 * (e >> 1) + 2 * t + (e & 1);
+          cl[e] = stat[c];
+          cd[e] = stat[kBs + c];
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(lo_empty);
+
+      // P; fragment i is resident row 16 cw + g (+ 8 where i & 2),
+      // streamed row 8 (i / 4) + 2 t + (i & 1)
+      const bool masked =
+          kDKDV ? (r0 + kBwdRows > Sk || s0 + kBs > Sq ||
+                   (causal && r0 + kBwdRows - 1 > s0 + q_off) ||
+                   (window && r0 <= s0 + kBs - 1 + q_off - window))
+                : (s0 + kBs > Sk || (causal && s0 + kBs - 1 > r0 + q_off) ||
+                   (window &&
+                    s0 <= min(r0 + kBwdRows, Sq) - 1 + q_off - window));
+#pragma unroll
+      for (int i = 0; i < kNS; ++i) {
+        const int rr = 16 * cw + g + (i & 2) * 4;
+        const int cc = 8 * (i >> 2) + 2 * t + (i & 1);
+        const float l = kDKDV ? cl[2 * (i >> 2) + (i & 1)] : rl[(i >> 1) & 1];
+        const int key = kDKDV ? r0 + rr : s0 + cc;
+        const int q = kDKDV ? s0 + cc : r0 + rr;
+        const float p = exp_f32(sc[i] * scale - l);
+        sc[i] = masked && !(q < Sq && visible(key, q + q_off, Sk, causal,
+                                              window))
+                    ? 0.f
+                    : p;
+      }
+      // the B buffers are [resident row][streamed row, relabelled as in
+      // out_base], hi and lo: fragment i (streamed row 8 j + 2 t + (i &
+      // 1), j = i / 4) at k position 8 j + t + 4 (i & 1) of resident row
+      // 16 cw + g (+ 8), so at score_base ^ (2 (j % 4) + (i & 1)) x 16 (+
+      // 1024) in the panel j / 4
+      const auto put = [&](uint8_t* dst, const float(&x)[kNS]) {
+#pragma unroll
+        for (int i = 0; i < kNS; ++i) {
+          const uint32_t off =
+              (sbase ^ ((2 * ((i >> 2) & 3) + (i & 1)) << 4)) + (i & 2) * 512 +
+              (i >> 4) * kBwdRows * 128;
+          uint32_t h, l;
+          split(x[i], h, l);
+          *reinterpret_cast<uint32_t*>(dst + off) = h;
+          *reinterpret_cast<uint32_t*>(dst + kBuf + off) = l;
+        }
+      };
+      if constexpr (kDKDV) {
+        if (it > 0) mbar_wait(p_free, (it - 1) & 1);  // dV read the last
+        put(buf + 2 * kBuf, sc);
+        fence_async_smem();
+      }
+      mbar_wait(dp_ready, it & 1);
+      if constexpr (kDKDV) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(p_ready);
+      }
+      // dS = P (dP - delta) scale
+      float ds[kNS];
+#pragma unroll
+      for (int i = 0; i < kNS; i += 4) {
+        const float4 x = xf[i / 4];
+        ds[i] = x.x;
+        ds[i + 1] = x.y;
+        ds[i + 2] = x.z;
+        ds[i + 3] = x.w;
+      }
+#pragma unroll
+      for (int i = 0; i < kNS; ++i) {
+        const float dl = kDKDV ? cd[2 * (i >> 2) + (i & 1)] : rd[(i >> 1) & 1];
+        ds[i] = sc[i] * (ds[i] - dl) * scale;
+      }
+      put(buf, ds);
+      fence_async_smem();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(ds_ready);
+      consumer_sync();  // every warp's dS before this warpgroup's wgmma
+
+      // dK^T += Q^T dS (dQ^T += K^T dS^T), blocks 0 .. kN0 - 1
+      out_product<kBs, kN0, 0>(acc, tile, obase, b_ds, b_ds + kBuf);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * s);
     }
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] += c[e];
+    for (int m = 0; m < kN0; ++m) store(out1, D, m, acc[m]);
+  } else {
+    // ---------------- warpgroup 1: dP; dV^T and blocks kN0 .. kNBK - 1
+    uint32_t rhi[kKr1][4];  // R2's fragments
+    uint8_t* res2 = res + kNP1 * kBwdRows * 128;
+    load_resident<8 * kNBV, kKr1>(res2, lo2b, sbase, threadIdx.x - 128, 2,
+                                  rhi);
+    const float4* rlo = reinterpret_cast<const float4*>(res2) +
+                        (threadIdx.x - 128);
+    float acc1[kN1 > 0 ? kN1 : 1][32], acc2[kDKDV ? kNBV : 1][32];
+#pragma unroll
+    for (int m = 0; m < (kN1 > 0 ? kN1 : 1); ++m)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc1[m][i] = 0.f;
+#pragma unroll
+    for (int m = 0; m < (kDKDV ? kNBV : 1); ++m)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc2[m][i] = 0.f;
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % kBwdStages;
+      const uint8_t* tile = stg + s * kTileBytes;
+      mbar_wait(full + 8 * s, (it / kBwdStages) & 1);
+      mbar_wait(lo_full, it & 1);
+
+      // dP = R2 T2^T over Dv, handed to warpgroup 0 (which has read the
+      // previous tile's: ds_ready was waited on)
+      float dp[kNS];
+#pragma unroll
+      for (int i = 0; i < kNS; ++i) dp[i] = 0.f;
+      score_product<kBs, 8 * kNBV, kKr1>(
+          dp, rhi, rlo, res2, lo2b + (threadIdx.x - 128), sbase,
+          smem_addr(tile + kNP1 * kBs * 128),
+          smem_addr(lo + kNP1 * kBs * 128));
+      wgmma_wait<0>();
+      fence_regs(dp);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(lo_empty);
+#pragma unroll
+      for (int i = 0; i < kNS; i += 4)
+        xf[i / 4] = make_float4(dp[i], dp[i + 1], dp[i + 2], dp[i + 3]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(dp_ready);
+
+      if constexpr (kDKDV) {  // dV^T += dO^T P
+        mbar_wait(p_ready, it & 1);
+        out_product<kBs, kNBV, 0>(acc2, tile + kNP1 * kBs * 128, obase, b_p,
+                                  b_p + kBuf);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(p_free);
+      }
+      mbar_wait(ds_ready, it & 1);
+      if constexpr (kN1 > 0)  // dK^T (dQ^T), blocks kN0 .. kNBK - 1
+        out_product<kBs, (kN1 > 0 ? kN1 : 1), kN0>(acc1, tile, obase, b_ds,
+                                                   b_ds + kBuf);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * s);
+    }
+    if constexpr (kN1 > 0) {
+#pragma unroll
+      for (int m = 0; m < kN1; ++m) store(out1, D, kN0 + m, acc1[m]);
+    }
+    if constexpr (kDKDV) {
+#pragma unroll
+      for (int m = 0; m < kNBV; ++m) store(out2, Dv, m, acc2[m]);
+    }
   }
 }
 
-// kND, kNV: 8-column tiles of dK (D: 8, 16 or 24) and dV (Dv: 8 or 16)
-template <int kND, int kNV>
-__global__ void __launch_bounds__(32 * bwd_warps<kND>(), 1)
-flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v,
-                      const float* __restrict__ dout,
+template <int kNBK, int kNBV>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tdo,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta, float* __restrict__ dk,
                       float* __restrict__ dv, int H, int KV, int Sq, int Sk,
                       int D, int Dv, float scale, int causal, int window) {
-  constexpr int kThreads = 32 * bwd_warps<kND>();
-  constexpr int kBK = 16 * bwd_warps<kND>(), kBQ = bwd_tile<kND>();
-  constexpr int kJ = kBQ / 8;
-  extern __shared__ float4 smem4[];
-  const int ldq = pitch(8 * kND), ldo = pitch(8 * kNV);
-  float* sK = reinterpret_cast<float*>(smem4);  // kBK x ldq
-  float* sV = sK + kBK * ldq;                   // kBK x ldo
-  float* sQ = sV + kBK * ldo;                   // 2 x kBQ x ldq
-  float* sO = sQ + 2 * kBQ * ldq;               // 2 x kBQ x ldo (dO)
-  float* sL = sO + 2 * kBQ * ldo;               // 2 x kBQ (LSE)
-  float* sDl = sL + 2 * kBQ;                    // 2 x kBQ (delta)
-
-  const int b = blockIdx.x / KV, kvh = blockIdx.x - b * KV;
-  const int k0 = blockIdx.y * kBK;  // the first tiles see the most queries
-  const int G = H / KV, q_off = Sk - Sq;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int dk8 = (D + 7) / 8 * 8, dv8 = (Dv + 7) / 8 * 8;
-
-  zero_pad_cols<kThreads>(sK, kBK, ldq, D, 8 * kND);
-  zero_pad_cols<kThreads>(sV, kBK, ldo, Dv, 8 * kNV);
-  zero_pad_cols<kThreads>(sQ, 2 * kBQ, ldq, D, 8 * kND);
-  zero_pad_cols<kThreads>(sO, 2 * kBQ, ldo, Dv, 8 * kNV);
-
-  const long long k_row = static_cast<long long>(KV) * D;
-  const long long v_row = static_cast<long long>(KV) * Dv;
-  const long long q_row = static_cast<long long>(H) * D;
-  const long long o_row = static_cast<long long>(H) * Dv;
-  load_kv_tile<kBK, kThreads>(
-      sK, ldq, k + static_cast<long long>(b) * Sk * k_row + kvh * D, k_row,
-      k0, Sk, D);
-  load_kv_tile<kBK, kThreads>(
-      sV, ldo, v + static_cast<long long>(b) * Sk * v_row + kvh * Dv, v_row,
-      k0, Sk, Dv);
-
-  // the query rows that can see a key of [k0, k_last]
-  const int k_last = min(k0 + kBK, Sk) - 1;
-  const int q_lo = causal ? max(0, k0 - q_off) : 0;
-  const int q_hi = window ? min(Sq, k_last + window - q_off) : Sq;
-  const int n_q = q_hi > q_lo ? (q_hi - q_lo + kBQ - 1) / kBQ : 0;
-  const int n_it = G * n_q;
-
-  // iteration it: query head kvh G + it / n_q, tile it % n_q, into stage st
-  auto stage = [&](int it, int st) {
-    const int h = kvh * G + it / n_q, q0 = q_lo + (it % n_q) * kBQ;
-    const long long bh = static_cast<long long>(b) * H + h;
-    load_kv_tile<kBQ, kThreads>(
-        sQ + st * kBQ * ldq, ldq,
-        q + static_cast<long long>(b) * Sq * q_row + h * D, q_row, q0, Sq, D);
-    load_kv_tile<kBQ, kThreads>(
-        sO + st * kBQ * ldo, ldo,
-        dout + static_cast<long long>(b) * Sq * o_row + h * Dv, o_row, q0, Sq,
-        Dv);
-    if (threadIdx.x < kBQ) {
-      const int qi = q0 + threadIdx.x;
-      sL[st * kBQ + threadIdx.x] = qi < Sq ? lse[bh * Sq + qi] : 0.f;
-      sDl[st * kBQ + threadIdx.x] = qi < Sq ? delta[bh * Sq + qi] : 0.f;
-    }
-  };
-
-  const int wk0 = k0 + 16 * warp;  // this warp's keys, rows g and g + 8
-  const int key0 = wk0 + g, key1 = key0 + 8;
-  float acc_k[kND][4], acc_v[kNV][4];
-#pragma unroll
-  for (int n = 0; n < kND; ++n)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc_k[n][c] = 0.f;
-#pragma unroll
-  for (int n = 0; n < kNV; ++n)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc_v[n][c] = 0.f;
-
-  if (n_it > 0) stage(0, 0);
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-
-  for (int it = 0; it < n_it; ++it) {
-    if (it + 1 < n_it) stage(it + 1, (it + 1) & 1);
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-    __syncthreads();
-
-    const int q0 = q_lo + (it % n_q) * kBQ;
-    const int q_first = q0 + q_off;                   // in key positions
-    const int q_last = min(q0 + kBQ, Sq) - 1 + q_off;
-    const bool skip = wk0 >= Sk || (causal && wk0 > q_last) ||
-                      (window && wk0 + 15 <= q_first - window);
-    // some (key, query) pair of the warp's tile is hidden
-    const bool masked = wk0 + 15 >= Sk || q0 + kBQ > Sq ||
-                        (causal && wk0 + 15 > q_first) ||
-                        (window && wk0 <= q_last - window);
-    if (!skip) {
-      const float* tQ = sQ + (it & 1) * kBQ * ldq;
-      const float* tO = sO + (it & 1) * kBQ * ldo;
-      const float* tL = sL + (it & 1) * kBQ;
-      const float* tD = sDl + (it & 1) * kBQ;
-      // S^T = K Q^T: 16 keys x kBQ queries; P^T in place
-      float s[kJ][4];
-      rows_dot<kJ>(s, sK + (16 * warp + g) * ldq + t, ldq, tQ + g * ldq + t,
-                   ldq, dk8);
-#pragma unroll
-      for (int j = 0; j < kJ; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int col = 8 * j + 2 * t + (c & 1);
-          const int qi = q0 + col;
-          float p = exp_f32(s[j][c] * scale - tL[col]);
-          if (masked && !(qi < Sq && visible(c < 2 ? key0 : key1,
-                                             qi + q_off, Sk, causal,
-                                             window)))
-            p = 0.f;
-          s[j][c] = p;
-        }
-      // dV += P^T dO
-      frag_times_rows<kJ, kNV>(acc_v, s, tO + 2 * t * ldo + g, ldo);
-      // dP^T = V dO^T, then dS^T = P^T (dP^T - delta) scale in place of P^T
-      float dp[kJ][4];
-      rows_dot<kJ>(dp, sV + (16 * warp + g) * ldo + t, ldo, tO + g * ldo + t,
-                   ldo, dv8);
-#pragma unroll
-      for (int j = 0; j < kJ; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          s[j][c] = s[j][c] * (dp[j][c] - tD[8 * j + 2 * t + (c & 1)]) * scale;
-      // dK += dS^T Q
-      frag_times_rows<kJ, kND>(acc_k, s, tQ + 2 * t * ldq + g, ldq);
-    }
-    __syncthreads();  // the stage is free for the tile after next
-  }
-
-  const long long base = static_cast<long long>(b) * Sk * KV + kvh;
-#pragma unroll
-  for (int n = 0; n < kND; ++n) {
-    const int col = 8 * n + 2 * t;
-    if (col >= D) continue;
-    if (key0 < Sk)
-      *reinterpret_cast<float2*>(dk + (base + static_cast<long long>(key0) *
-                                                  KV) * D + col) =
-          make_float2(acc_k[n][0], acc_k[n][1]);
-    if (key1 < Sk)
-      *reinterpret_cast<float2*>(dk + (base + static_cast<long long>(key1) *
-                                                  KV) * D + col) =
-          make_float2(acc_k[n][2], acc_k[n][3]);
-  }
-#pragma unroll
-  for (int n = 0; n < kNV; ++n) {
-    const int col = 8 * n + 2 * t;
-    if (col >= Dv) continue;
-    if (key0 < Sk)
-      *reinterpret_cast<float2*>(dv + (base + static_cast<long long>(key0) *
-                                                  KV) * Dv + col) =
-          make_float2(acc_v[n][0], acc_v[n][1]);
-    if (key1 < Sk)
-      *reinterpret_cast<float2*>(dv + (base + static_cast<long long>(key1) *
-                                                  KV) * Dv + col) =
-          make_float2(acc_v[n][2], acc_v[n][3]);
-  }
+  flash_bwd_body<true, kNBK, kNBV>(&tk, &tv, &tq, &tdo, lse, delta, dk, dv,
+                                   H, KV, Sq, Sk, D, Dv, scale, causal,
+                                   window);
 }
 
-// kND: 8-column tiles of dQ (D), 8, 16 or 24
-template <int kND>
-__global__ void __launch_bounds__(32 * bwd_warps<kND>(), 1)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v,
-                    const float* __restrict__ dout,
+template <int kNBK, int kNBV>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tdo,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, float* __restrict__ dq,
                     int H, int KV, int Sq, int Sk, int D, int Dv, float scale,
                     int causal, int window) {
-  constexpr int kThreads = 32 * bwd_warps<kND>();
-  constexpr int kBQ = 16 * bwd_warps<kND>(), kBK = bwd_tile<kND>();
-  constexpr int kJ = kBK / 8;
-  extern __shared__ float4 smem4[];
-  const int ldq = pitch(8 * kND), ldo = pitch(Dv);
-  float* sQ = reinterpret_cast<float*>(smem4);  // kBQ x ldq
-  float* sO = sQ + kBQ * ldq;                   // kBQ x ldo (dO)
-  float* sK = sO + kBQ * ldo;                   // 2 x kBK x ldq
-  float* sV = sK + 2 * kBK * ldq;               // 2 x kBK x ldo
-
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh - b * H;
-  const int kvh = h / (H / KV);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heavy tiles first
-  const int q_off = Sk - Sq;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int dk8 = (D + 7) / 8 * 8, dv8 = (Dv + 7) / 8 * 8;
-
-  zero_pad_cols<kThreads>(sQ, kBQ, ldq, D, dk8);
-  zero_pad_cols<kThreads>(sO, kBQ, ldo, Dv, dv8);
-  zero_pad_cols<kThreads>(sK, 2 * kBK, ldq, D, 8 * kND);
-  zero_pad_cols<kThreads>(sV, 2 * kBK, ldo, Dv, dv8);
-
-  const long long k_row = static_cast<long long>(KV) * D;
-  const long long v_row = static_cast<long long>(KV) * Dv;
-  const long long q_row = static_cast<long long>(H) * D;
-  const long long o_row = static_cast<long long>(H) * Dv;
-  const float* kb = k + static_cast<long long>(b) * Sk * k_row + kvh * D;
-  const float* vb = v + static_cast<long long>(b) * Sk * v_row + kvh * Dv;
-  load_kv_tile<kBQ, kThreads>(
-      sQ, ldq, q + static_cast<long long>(b) * Sq * q_row + h * D, q_row, q0,
-      Sq, D);
-  load_kv_tile<kBQ, kThreads>(
-      sO, ldo, dout + static_cast<long long>(b) * Sq * o_row + h * Dv, o_row,
-      q0, Sq, Dv);
-
-  // this warp's rows, in key positions, and their LSE and delta
-  const int wr0 = q0 + 16 * warp;
-  const int w_last = min(wr0 + 15, Sq - 1) + q_off;
-  const int r0 = wr0 + g, r1 = r0 + 8;
-  const long long at = static_cast<long long>(bh) * Sq;
-  const float lse0 = r0 < Sq ? lse[at + r0] : 0.f;
-  const float lse1 = r1 < Sq ? lse[at + r1] : 0.f;
-  const float dl0 = r0 < Sq ? delta[at + r0] : 0.f;
-  const float dl1 = r1 < Sq ? delta[at + r1] : 0.f;
-
-  int k_first, k_end;
-  key_range(q0, kBQ, Sq, Sk, causal, window, kBK, &k_first, &k_end);
-  const int n_tiles = k_end > k_first ? (k_end - k_first + kBK - 1) / kBK : 0;
-
-  float acc[kND][4];
-#pragma unroll
-  for (int n = 0; n < kND; ++n)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
-
-  if (n_tiles > 0) {
-    load_kv_tile<kBK, kThreads>(sK, ldq, kb, k_row, k_first, Sk, D);
-    load_kv_tile<kBK, kThreads>(sV, ldo, vb, v_row, k_first, Sk, Dv);
-  }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = k_first + it * kBK;
-    if (it + 1 < n_tiles) {  // the next tile into the other stage
-      const int nx = (it + 1) & 1;
-      load_kv_tile<kBK, kThreads>(sK + nx * kBK * ldq, ldq, kb, k_row,
-                                     k0 + kBK, Sk, D);
-      load_kv_tile<kBK, kThreads>(sV + nx * kBK * ldo, ldo, vb, v_row,
-                                     k0 + kBK, Sk, Dv);
-    }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-    __syncthreads();
-
-    const bool skip = wr0 >= Sq || (causal && k0 > w_last) ||
-                      (window && k0 + kBK - 1 <= wr0 + q_off - window);
-    const bool masked = k0 + kBK > Sk ||
-                        (causal && k0 + kBK - 1 > wr0 + q_off) ||
-                        (window && k0 <= w_last - window);
-    if (!skip) {
-      const float* tK = sK + (it & 1) * kBK * ldq;
-      const float* tV = sV + (it & 1) * kBK * ldo;
-      // S = Q K^T: 16 rows x kBK keys; P in place
-      float s[kJ][4];
-      rows_dot<kJ>(s, sQ + (16 * warp + g) * ldq + t, ldq, tK + g * ldq + t,
-                   ldq, dk8);
-#pragma unroll
-      for (int j = 0; j < kJ; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int col = k0 + 8 * j + 2 * t + (c & 1);
-          const int row = (c < 2 ? r0 : r1) + q_off;
-          float p = exp_f32(s[j][c] * scale - (c < 2 ? lse0 : lse1));
-          if (masked && !visible(col, row, Sk, causal, window)) p = 0.f;
-          s[j][c] = p;
-        }
-      // dP = dO V^T, then dS = P (dP - delta) scale in place of P
-      float dp[kJ][4];
-      rows_dot<kJ>(dp, sO + (16 * warp + g) * ldo + t, ldo, tV + g * ldo + t,
-                   ldo, dv8);
-#pragma unroll
-      for (int j = 0; j < kJ; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          s[j][c] = s[j][c] * (dp[j][c] - (c < 2 ? dl0 : dl1)) * scale;
-      // dQ += dS K
-      frag_times_rows<kJ, kND>(acc, s, tK + 2 * t * ldq + g, ldq);
-    }
-    __syncthreads();  // the stage is free for the tile after next
-  }
-
-  float* ob = dq + static_cast<long long>(b) * Sq * q_row + h * D;
-#pragma unroll
-  for (int n = 0; n < kND; ++n) {
-    const int col = 8 * n + 2 * t;
-    if (col >= D) continue;
-    if (r0 < Sq)
-      *reinterpret_cast<float2*>(ob + static_cast<long long>(r0) * q_row +
-                                 col) = make_float2(acc[n][0], acc[n][1]);
-    if (r1 < Sq)
-      *reinterpret_cast<float2*>(ob + static_cast<long long>(r1) * q_row +
-                                 col) = make_float2(acc[n][2], acc[n][3]);
-  }
+  flash_bwd_body<false, kNBK, kNBV>(&tq, &tdo, &tk, &tv, lse, delta, dq,
+                                    nullptr, H, KV, Sq, Sk, D, Dv, scale,
+                                    causal, window);
 }
 
-template <int kND, int kNV>
-int launch_bwd(const float* q, const float* k, const float* v,
-               const float* dout, const float* lse, const float* delta,
-               float* dq, float* dk, float* dv, int B, int H, int KV, int Sq,
-               int Sk, int D, int Dv, float scale, int causal, int window,
-               cudaStream_t stream) {
-  constexpr int kThreads = 32 * bwd_warps<kND>();
-  constexpr int kRows = 16 * bwd_warps<kND>(), kT = bwd_tile<kND>();
-  const int ldq = pitch(8 * kND), ldo = pitch(8 * kNV), ldo_q = pitch(Dv);
-  const size_t smem_kv =
-      sizeof(float) * static_cast<size_t>((kRows + 2 * kT) * (ldq + ldo) +
-                                          4 * kT);
-  const size_t smem_q =
-      sizeof(float) * static_cast<size_t>((kRows + 2 * kT) * (ldq + ldo_q));
-  const dim3 grid_kv(B * KV, (Sk + kRows - 1) / kRows);
-  const dim3 grid_q(B * H, (Sq + kRows - 1) / kRows);
+// a float32 tensor map of a contiguous (batch, s, heads, d) operand:
+// (32, rows) boxes (128 bytes a row) with the 128-byte swizzle; reads
+// past d or s are zero-filled
+bool make_map_f32(CUtensorMap* map, const void* ptr, int d, int heads,
+                  int s, int batch, int rows) {
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t row = 4ull * d;
+  const cuuint64_t strides[3] = {row, row * heads, row * heads * s};
+  const cuuint32_t box[4] = {32, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(ptr),
+            dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int kNBK, int kNBV>
+int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
+               const float* lse, const float* delta, float* dq, float* dk,
+               float* dv, int B, int H, int KV, int Sq, int Sk, int D, int Dv,
+               float scale, int causal, int window, cudaStream_t stream) {
+  constexpr int kBsKV = bwd_tile<true, kNBK, kNBV>();
+  constexpr int kBsQ = bwd_tile<false, kNBK, kNBV>();
+  CUtensorMap k64, v64, q_s, do_s, q64, do64, k_s, v_s;
+  if (!make_map_f32(&k64, k, D, KV, Sk, B, kBwdRows) ||
+      !make_map_f32(&v64, v, Dv, KV, Sk, B, kBwdRows) ||
+      !make_map_f32(&q_s, q, D, H, Sq, B, kBsKV) ||
+      !make_map_f32(&do_s, dout, Dv, H, Sq, B, kBsKV) ||
+      !make_map_f32(&q64, q, D, H, Sq, B, kBwdRows) ||
+      !make_map_f32(&do64, dout, Dv, H, Sq, B, kBwdRows) ||
+      !make_map_f32(&k_s, k, D, KV, Sk, B, kBsQ) ||
+      !make_map_f32(&v_s, v, Dv, KV, Sk, B, kBsQ))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int smem_kv = bwd_smem<true, kNBK, kNBV>();
+  constexpr int smem_q = bwd_smem<false, kNBK, kNBV>();
+  const dim3 grid_kv(B * KV, (Sk + kBwdRows - 1) / kBwdRows);
+  const dim3 grid_q(B * H, (Sq + kBwdRows - 1) / kBwdRows);
   if (grid_kv.y > 65535 || grid_q.y > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkdv_kernel<kND, kNV>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem_kv));
+      flash_bwd_dkdv_kernel<kNBK, kNBV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<kND>,
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<kNBK, kNBV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem_q));
+                             smem_q);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dkdv_kernel<kND, kNV><<<grid_kv, kThreads, smem_kv, stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, H, KV, Sq, Sk, D, Dv, scale, causal,
-      window);
+  flash_bwd_dkdv_kernel<kNBK, kNBV><<<grid_kv, kBwdThreads, smem_kv, stream>>>(
+      k64, v64, q_s, do_s, lse, delta, dk, dv, H, KV, Sq, Sk, D, Dv, scale,
+      causal, window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dq_kernel<kND><<<grid_q, kThreads, smem_q, stream>>>(
-      q, k, v, dout, lse, delta, dq, H, KV, Sq, Sk, D, Dv, scale, causal,
-      window);
+  flash_bwd_dq_kernel<kNBK, kNBV><<<grid_q, kBwdThreads, smem_q, stream>>>(
+      q64, do64, k_s, v_s, lse, delta, dq, H, KV, Sq, Sk, D, Dv, scale,
+      causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1533,34 +1943,31 @@ int flash_backward(const void* q, const void* k, const void* v,
   if (D < 4 || Dv < 4 || D > kMaxD || Dv > kMaxDv || D % 4 || Dv % 4 ||
       KV < 1 || H % KV)
     return static_cast<int>(cudaErrorInvalidValue);
-  // cp.async moves 16-byte chunks: 16-byte bases (rows are, D % 4 == 0)
+  // TMA: 16-byte bases (rows are 16-byte multiples, D % 4 == 0)
   if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   auto s = static_cast<cudaStream_t>(stream);
-  auto* qf = static_cast<const float*>(q);
-  auto* kf = static_cast<const float*>(k);
-  auto* vf = static_cast<const float*>(v);
-  auto* of = static_cast<const float*>(dout);
   auto* lf = static_cast<const float*>(lse);
   auto* df = static_cast<const float*>(delta);
   auto* dqf = static_cast<float*>(dq);
   auto* dkf = static_cast<float*>(dk);
   auto* dvf = static_cast<float*>(dv);
-#define FLASH_BWD(nd, nv)                                                    \
-  return launch_bwd<nd, nv>(qf, kf, vf, of, lf, df, dqf, dkf, dvf, B, H, KV, \
+  const int nbk = (D + 63) / 64, nbv = (Dv + 63) / 64;
+#define FLASH_BWD(nk, nv)                                                    \
+  return launch_bwd<nk, nv>(q, k, v, dout, lf, df, dqf, dkf, dvf, B, H, KV, \
                             Sq, Sk, D, Dv, scale, causal, window, s)
-  if (D <= 64) {
-    if (Dv <= 64) FLASH_BWD(8, 8);
-    FLASH_BWD(8, 16);
+  if (nbk == 1) {
+    if (nbv == 1) FLASH_BWD(1, 1);
+    FLASH_BWD(1, 2);
   }
-  if (D > 128) {
-    if (Dv <= 64) FLASH_BWD(24, 8);
-    FLASH_BWD(24, 16);
+  if (nbk == 3) {
+    if (nbv == 1) FLASH_BWD(3, 1);
+    FLASH_BWD(3, 2);
   }
-  if (Dv <= 64) FLASH_BWD(16, 8);
-  FLASH_BWD(16, 16);
+  if (nbv == 1) FLASH_BWD(2, 1);
+  FLASH_BWD(2, 2);
 #undef FLASH_BWD
 }
 

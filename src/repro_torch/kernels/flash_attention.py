@@ -39,12 +39,15 @@ operand must start on 16 bytes and have strides that are multiples of
 D or Dv not a multiple of 8) is first copied into an aligned buffer whose
 last axis is padded to a multiple of 16 bytes.  Operands from a
 contiguous float32 allocation, and bfloat16 ones with D and Dv multiples
-of 8, are never copied.  The backward kernels run every product as the
-forward's 3xTF32 ``mma.sync`` (each output tile's partial sums added in
-float32 on the CUDA cores per streamed tile; 16-row streamed tiles at
-D > 128) and read contiguous operands
-(the wrapper makes them so); delta = rowsum(dO * O) is one PyTorch
-reduction before them.
+of 8, are never copied.  The backward kernels (dK / dV, then dQ, each
+over a resident block of 64 rows) run every product on TF32 ``wgmma`` as
+three products (3xTF32, float32-level accuracy), their tiles streamed
+by TMA into an mbarrier ring; each streamed tile's share of dK, dV or dQ
+sums in a fresh accumulator that is added in float32 (streamed tiles of
+32 rows; 16 in the dK / dV kernel at D > 128).  They read contiguous
+operands (the wrapper makes them so) through tensor maps, use no
+atomics (two calls give bit-identical gradients), and delta =
+rowsum(dO * O) is one PyTorch reduction before them.
 """
 from __future__ import annotations
 

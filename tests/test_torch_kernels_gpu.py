@@ -405,9 +405,14 @@ def test_flash_kernel_dense_serving_shapes(cuda, b, s, h, kv, d, dv):
 # noise of ~1e-7), a continuation
 # (Sq < Sk), Dk != Dv both ways, D not a multiple of 8, full attention,
 # one query row, musicgen-medium's heads (D 64); then the tiling of D in
-# (128, 192] (16-row streamed tiles): MLA's Dk 192 / Dv 128 ragged and
-# with GQA, a window, a continuation, Dv <= 64, D not a multiple of 8,
-# full attention
+# (128, 192] (16-row streamed tiles in the dK / dV kernel): MLA's Dk 192
+# / Dv 128 ragged and with GQA, a window, a continuation, Dv <= 64, D not
+# a multiple of 8, full attention; then the edges of the kernels' tiles
+# (64 resident rows; streamed tiles of 32 rows, 16 in the dK / dV kernel
+# at D > 128): S one past and one short of a streamed tile and of a
+# 64-row block, a continuation at both, a small window at 128 - 1, D 192
+# with Dv <= 64 and a window, GQA 4 at D 192, full attention at 64 + 1
+# with D and Dv not multiples of 8
 BWD_CASES = [
     (2, 100, 100, 4, 2, 64, 64, True, 0),
     (1, 129, 129, 8, 1, 128, 128, True, 0),
@@ -426,6 +431,14 @@ BWD_CASES = [
     (1, 100, 100, 2, 1, 160, 64, True, 0),
     (1, 66, 66, 2, 2, 132, 100, True, 0),
     (1, 96, 80, 2, 1, 192, 128, False, 0),
+    (1, 33, 33, 2, 1, 64, 64, True, 0),
+    (1, 31, 95, 4, 2, 128, 128, True, 0),
+    (1, 63, 65, 2, 2, 128, 128, True, 0),
+    (1, 127, 127, 4, 2, 128, 64, True, 7),
+    (1, 200, 200, 2, 1, 192, 64, True, 50),
+    (1, 96, 96, 8, 2, 192, 128, True, 0),
+    (1, 17, 47, 4, 2, 192, 128, True, 0),
+    (1, 65, 65, 2, 2, 100, 36, False, 0),
 ]
 
 
@@ -441,7 +454,8 @@ def test_flash_backward_kernel_matches_plain(cuda, b, sq, sk, h, kv, d, dv,
                                              causal, window):
     """The forward's LSE within 1e-5 of the plain version's; dQ, dK, dV
     of the backward kernel within 1e-4 of each plain tensor's largest
-    magnitude, from the same o, LSE and dO; one launch each."""
+    magnitude, from the same o, LSE and dO; one launch each; a second
+    backward call gives bit-identical gradients."""
     q, k, v = _flash_inputs(sq + d + 7, b, sq, sk, h, kv, d, dv,
                             torch.float32)
     do = torch.as_tensor(np.random.default_rng(sk).standard_normal(
@@ -466,6 +480,29 @@ def test_flash_backward_kernel_matches_plain(cuda, b, sq, sk, h, kv, d, dv,
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.shape == w.shape and g.dtype == torch.float32
         assert _rel_to_max(g, w) <= 1e-4, name
+    again = fa.flash_attention_backward(
+        *(t.to(cuda) for t in (q, k, v, o, lse, do)), causal=causal,
+        window=window)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,dv", [(64, 64), (128, 128), (192, 128)])
+def test_flash_backward_kernel_repeats_bit_identical(cuda, d, dv):
+    """Five backward calls on the same inputs give bit-identical dq, dk
+    and dv (no atomics: dK and dV sum a kv head's query heads in one CTA,
+    in a fixed order), at each tiling of the head dims, with GQA and a
+    window."""
+    q, k, v = (t.to(cuda) for t in _flash_inputs(d + dv, 2, 300, 300, 8, 2,
+                                                 d, dv, torch.float32))
+    do = torch.as_tensor(np.random.default_rng(d).standard_normal(
+        (2, 300, 8, dv)).astype(np.float32)).to(cuda)
+    o, lse = fa._forward(q, k, v, True, 100, d ** -0.5, with_lse=True)
+    outs = [fa.flash_attention_backward(q, k, v, o, lse, do, causal=True,
+                                        window=100) for _ in range(5)]
+    torch.cuda.synchronize()
+    for other in outs[1:]:
+        assert all(torch.equal(x, y) for x, y in zip(outs[0], other))
 
 
 @pytest.mark.gpu

@@ -23,14 +23,16 @@ bfloat16 (TMA + ``wgmma``): three 64-column K panels and two V panels of
 * ``stages2_keys128``: two stages of 128 keys, (3 + 2 x 5) x 16 KB + 1
   KB + the mbarriers = 214,072 bytes.
 
-float32 backward (3xTF32 ``mma.sync``, dK / dV and dQ kernels): 8 warps
-of 16 owned rows and 32-row streamed tiles would need 251,904 bytes (and
-160 accumulator floats a dK / dV thread).  Two tilings fit:
+float32 backward (TMA + 3xTF32 ``wgmma``, dK / dV and dQ kernels over 64
+resident rows): the dK / dV kernel's D <= 128 tiling, 32-row streamed
+tiles, would need 247,128 bytes at D = 192 / Dv = 128, so it streams
+16-row tiles (222,424 bytes) there.  The dQ kernel (no P buffer) fits
+either, and ``kBwdWideDqTile`` picks it:
 
-* ``tile16``: 8 warps (128 owned rows) and 16-row streamed tiles,
-  209,920 bytes (dQ; dK / dV 256 more);
-* ``warps4``: 4 warps (64 owned rows) and 32-row streamed tiles,
-  167,936 bytes (dQ; dK / dV 512 more).
+* ``dq32``: 32-row streamed tiles, 230,744 bytes (score products of
+  N = 32);
+* ``dq16``: 16-row streamed tiles, 165,080 bytes (score products of
+  N = 16).
 
 Builds ``csrc/flash_attention.cu`` once with each layout (the source as
 it stands and copies with the kernel's layout line set to the other, all
@@ -76,12 +78,12 @@ LAYOUTS = {
         "stages3_keys64": "constexpr int kWideStages = 3, kWideKeys = 64;",
         "stages2_keys128": "constexpr int kWideStages = 2, kWideKeys = 128;"},
     "backward": {
-        "tile16": "constexpr int kBwdWideWarps = 8, kBwdWideTile = 16;",
-        "warps4": "constexpr int kBwdWideWarps = 4, kBwdWideTile = 32;"},
+        "dq32": "constexpr int kBwdWideDqTile = 32;",
+        "dq16": "constexpr int kBwdWideDqTile = 16;"},
 }
 WIDE_ENTRIES = {"float32": r"flash_fwd_kernel_tf32ILi16ELi(8ELi32|4ELi64)E",
                 "bfloat16": r"flash_fwd_kernel_wgmmaILi3E",
-                "backward": r"flash_bwd_(dkdv|dq)_kernelILi24E"}
+                "backward": r"flash_bwd_(dkdv|dq)_kernelILi3E"}
 
 
 def build_variants() -> tuple[dict, dict]:
