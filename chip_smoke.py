@@ -91,7 +91,22 @@ CUDA toolkit's nvcc.  Phases, each printing one JSON line:
    largest magnitude and bit-identical over two calls, timed beside the
    plain backward, one SDPA forward plus ``autograd.grad`` through it
    (in the same run), and its bound (five products a visible pair at the
-   3xTF32 rate, the FP32 CUDA-core bound beside);
+   3xTF32 rate, the FP32 CUDA-core bound beside); then the WKV6 and SSD
+   backward kernels (``WKV_BWD_SHAPES``: rwkv6-1.6b's training shape, B
+   4, S 2048, H 32, N 64, and a ragged S 2000 with a final-state
+   gradient; ``SSD_BWD_SHAPES``: zamba2-1.2b's, B 4, S 2048, H 64, P 64,
+   G 1, N 64, a ragged S 2000 with a final-state gradient, and G 2 with
+   an initial state and a final-state gradient), WKV6's from the forward
+   kernel's chunk states: every gradient within 1e-4 of the float64
+   plain backward's largest magnitude on the card (the float32 plain
+   version's own distance beside), bit-identical over two calls, timed
+   beside the float32 plain backward, with their bound (bytes at 3.35
+   TB/s or 12 N^2 / 12 P N FP32 operations a step at 67 TFLOP/s,
+   whichever is larger), each backward kernel's device ms of one call
+   in the profiler (None where the trace's sum lies more than
+   ``SPLIT_TOL`` from the CUDA-event time), and the ptxas registers and
+   spills of every
+   ``wkv6_bwd_*`` and ``ssd_bwd_*`` kernel;
 8. lm_serve: ``repro_torch.launch.serve`` at full width — yi-6b,
    rwkv6-1.6b, zamba2-1.2b, mistral-nemo-12b and nemotron-4-15b at
    prompt 2048, h2o-danube-3-4b at prompt 4,608 (past its 4,096-token
@@ -260,8 +275,8 @@ CUDA toolkit's nvcc.  Phases, each printing one JSON line:
    just after, exactly 48 forward + 48 recomputed forward and 48
    backward calls (two kernels each) a step, WKV6 and SSD none; ms a
    step and positions a second from the second step on, peak memory,
-   device ops, busy share and the flash backward kernels' share of the
-   busy time of one more step in the profiler; the
+   device ops, busy share and each LM kernel's (forward and backward)
+   share of the busy time of one more step in the profiler; the
    ~16.6 GB ``TrainState`` checkpoint it writes read back equal, tensor
    by tensor, then deleted.  (b) yi-6b at full width and 4 of its 32
    layers on the synthetic corpus, 20 steps: the last three steps' mean
@@ -275,11 +290,22 @@ CUDA toolkit's nvcc.  Phases, each printing one JSON line:
    step.  (d) One and two sgd steps at smoke size from
    one state on the CPU and the card (yi-6b, h2o-danube-3-4b,
    musicgen-medium, and the narrow deepseek's dense MLA layer at Dk 192 /
-   Dv 128): loss, CE, grad norm within 1e-5 relative, parameters within
-   1e-5.  (e) An rwkv6, a zamba2 and a
-   bf16 yi-6b smoke train step on the card raise
-   ``NotImplementedError`` naming ``ROADMAP.md`` (no backward kernel
-   for WKV6, SSD or bf16 flash yet), as they must.  Prints its seconds.
+   Dv 128, rwkv6-1.6b and zamba2-1.2b through the WKV6 and SSD backward
+   kernels): loss, CE, grad norm within 1e-5 relative, parameters within
+   1e-5.  (e) bf16 rwkv6, zamba2 and yi-6b smoke train steps on the
+   card raise ``NotImplementedError`` naming ``ROADMAP.md`` (no bf16
+   backward kernel for WKV6, SSD or flash yet), as they must.  (f)
+   rwkv6-1.6b (24 layers) and (g) zamba2-1.2b (38 Mamba2 layers, the
+   shared block six times) whole at full width through
+   ``repro_torch.launch.train.train``, as (a): batch 4, 2,048
+   positions, 4 steps of adamw with recomputation; launches counted
+   around the run and exact (rwkv6: WKV6 48 forward and recomputed
+   forward and 24 backward a step; zamba2: SSD 76 and 38, flash 6
+   forward, the shared block not being recomputed, and 6 backward);
+   loss and grad norm finite, grad norm > 0, every parameter moved; ms
+   a step, positions a second, peak memory, busy share and each LM
+   kernel's share of one more step in the profiler.  Prints its
+   seconds.
 
 Any failed check raises, so the exit code is non-zero.  Ends with the
 ``nvidia-smi`` line, the kernels' JSON summary and, last,
@@ -321,11 +347,19 @@ REPLACES = {"queue_admit": "src/repro/kernels/orchestration.py:114",
             # no TPU kernel: the reference's custom VJP in jnp
             "flash_attention_backward": "src/repro/models/attention.py:147",
             "wkv6": "src/repro/kernels/wkv6.py:83",
-            "ssd": "src/repro/kernels/ssd.py:66"}
+            "ssd": "src/repro/kernels/ssd.py:66",
+            # no TPU kernel: JAX autodiff of the reference's chunked forms
+            "wkv6_backward": "src/repro/models/rwkv6.py:54",
+            "ssd_backward": "src/repro/models/mamba2.py:67"}
 SOURCES = {"flash_attention":
            "src/repro_torch/kernels/csrc/flash_attention.cu",
            "wkv6": "src/repro_torch/kernels/csrc/wkv6.cu",
            "ssd": "src/repro_torch/kernels/csrc/ssd.cu"}
+# the LM kernels' launch counters
+LM_KERNELS = ("flash_attention", "flash_attention_backward", "wkv6",
+              "wkv6_backward", "ssd", "ssd_backward")
+# what a fleet or single-cell run launches of them
+NO_LM_LAUNCHES = {k: 0 for k in LM_KERNELS}
 # each LM kernel's name in the profiler's device events
 DEVICE_NAMES = {"flash_attention": "flash_fwd_kernel",
                 "wkv6": "wkv6_kernel", "ssd": "ssd_kernel"}
@@ -335,6 +369,9 @@ PEAK_FP32, PEAK_TF32, PEAK_BF16 = 67e12, 495e12, 989e12
 # traces of one call taken before the profiler's loss of every device
 # record fails the run
 PROFILE_ATTEMPTS = 3
+# how far a per-kernel split's sum may lie from the same call's
+# CUDA-event time, as a share of that time, before it is dropped
+SPLIT_TOL = 0.25
 # the LM serving runs: batch, prompt, greedy tokens
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
 
@@ -947,8 +984,7 @@ def phase_round_replay(torch) -> dict:
                   f"{name} round {r['round']}: ART {r['mean_art_ms']} at "
                   f"least the oracle's {r['opt_art_ms']} - 1e-2")
         want = {"group_occupancy": per_round * REPLAY_ROUNDS,
-                "queue_admit": 0, "flash_attention": 0, "flash_attention_backward": 0,
-                "wkv6": 0, "ssd": 0}
+                "queue_admit": 0, **NO_LM_LAUNCHES}
         check(launches == want, f"{name}: launches {launches}, want {want}")
         coupled[name] = dict(_replay_summary(rep), launches=launches,
                              rounds=[dict(round=r["round"],
@@ -1097,6 +1133,26 @@ SSD_SHAPES = (
     ("groups_2", 4, 2048, 64, 64, 2, 64),
 )
 SSD_CHUNK = 256  # the config's chunk, which the plain version uses
+# the WKV6 and SSD backward kernels (float32): (name, B, S, H, N, final
+# state's gradient) at rwkv6-1.6b's training shape (no state gradient, as
+# in training) and a ragged S with one; (name, B, S, H, P, G, N, initial
+# state, final state's gradient) at zamba2-1.2b's training shape, a
+# ragged S with a final state's gradient, and G = 2 with both; each
+# gradient within BWD_BAR of the float64 plain tensor's largest magnitude
+WKV_BWD_SHAPES = (
+    ("rwkv6-1.6b", 4, 2048, 32, 64, False),
+    ("wkv6_ragged_S2000_dstate", 4, 2000, 32, 64, True),
+)
+SSD_BWD_SHAPES = (
+    ("zamba2-1.2b", 4, 2048, 64, 64, 1, 64, False, False),
+    ("ragged_S2000_dstate", 4, 2000, 64, 64, 1, 64, False, True),
+    ("groups_2_init_dstate", 4, 2048, 64, 64, 2, 64, True, True),
+)
+# the backward kernels by name in the profiler, each one's device ms of a
+# call (plus the wrappers' sums of partials, elsewhere in the trace)
+WKV6_BWD_KERNELS = ("wkv6_bwd_local", "wkv6_bwd_scan", "wkv6_bwd_chunk")
+SSD_BWD_KERNELS = ("ssd_bwd_local", "ssd_bwd_scan", "ssd_bwd_chunk",
+                   "ssd_bwd_dt")
 # bf16 flash: largest |kernel row - plain row| / |plain row| over the
 # (query, head) rows, beside the element-wise 3e-2 / 3e-2
 BF16_ROW_BAR = 1e-2
@@ -1286,6 +1342,17 @@ def phase_lm_kernels(torch, dev, ptxas: dict) -> dict:
     for name, b, s, h, p, g, n in SSD_SHAPES:
         out[name] = dict(ssd_entry(torch, dev, g_=g, b=b, s=s, h=h, p=p,
                                    n=n), sass_tensor_ops=ssd_sass)
+    for name, b, s, h, n, dstate in WKV_BWD_SHAPES:
+        out[f"{name}_backward"] = dict(wkv6_backward_entry(
+            torch, dev, b=b, s=s, h=h, n=n, dstate=dstate), ptxas={
+                k: v for k, v in ptxas.items() if "wkv6_bwd" in k})
+        torch.cuda.empty_cache()
+    for name, b, s, h, p, g, n, init, dstate in SSD_BWD_SHAPES:
+        out[f"{name}_backward"] = dict(ssd_backward_entry(
+            torch, dev, g_=g, b=b, s=s, h=h, p=p, n=n, init=init,
+            dstate=dstate), ptxas={k: v for k, v in ptxas.items()
+                                   if "ssd_bwd" in k})
+        torch.cuda.empty_cache()
     bwd_ptxas = {k: v for k, v in ptxas.items() if "flash_bwd" in k}
     for name, b, sq, sk, h, kv, d, dv, window in BWD_SHAPES:
         out[f"{name}_backward"] = dict(flash_backward_entry(
@@ -1454,7 +1521,7 @@ def wkv6_entry(torch, dev, *, b, s, h, n, dt) -> dict:
     size = r.element_size()
     x = b * s * h * n  # elements of one (B, S, H, N) operand
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    steps = wk.chunk_len(b * h, s, n_sms)
+    steps = wk._build.chunk_len(b * h, s, n_sms)
     chunks = -(-s // steps)
     # the design's bytes: k, v, lw read by both chunk passes, r read and o
     # written by the second; the chunk states written by the first pass,
@@ -1548,6 +1615,164 @@ def ssd_entry(torch, dev, *, g_, b, s, h, p, n) -> dict:
         blocker_held=kern["blocker_held"],
         shape=dict(B=b, S=s, H=h, P=p, G=g_, N=n, dtype="float32",
                    plain_chunk=SSD_CHUNK))
+
+
+def backward_errors(torch, what: str, names, got, want, want_f32) -> dict:
+    """Each kernel gradient's largest distance to the float64 plain one
+    over the plain tensor's largest magnitude (checked against BWD_BAR),
+    with the float32 plain version's own distance beside it."""
+    rel = lambda x, y: float((x.double() - y).abs().max()
+                             / y.abs().max().clamp_min(1e-300))
+    errs, f32_errs = {}, {}
+    for name, g_, w_, p_ in zip(names, got, want, want_f32):
+        if w_ is None:
+            continue
+        check(bool(torch.isfinite(g_).all()), f"{what} {name} finite")
+        errs[name], f32_errs[name] = rel(g_, w_), rel(p_, w_)
+        check(errs[name] <= BWD_BAR, f"{what} {name} within {BWD_BAR} of "
+              f"the float64 plain tensor's largest magnitude "
+              f"({errs[name]})")
+    return dict(max_rel_to_max_err=errs, f32_plain_rel_to_max_err=f32_errs,
+                max_abs_err=max(float((g_.double() - w_).abs().max())
+                                for g_, w_ in zip(got, want)
+                                if w_ is not None))
+
+
+def wkv6_backward_entry(torch, dev, *, b, s, h, n, dstate) -> dict:
+    """The WKV6 backward kernels against the plain backward (autograd
+    through the plain version, recomputed) in float64 on the card, from
+    the forward kernel's chunk states; bit-identical over two calls; timed
+    beside the float32 plain backward."""
+    from repro_torch.kernels import wkv6 as wk
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rn = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
+    r, k, v, do = (rn(b, s, h, n) for _ in range(4))
+    lw = -torch.exp(rn(b, s, h, n))
+    u = 0.5 * rn(h, n)
+    ds = rn(b, h, n, n) if dstate else None
+    steps = wk._build.steps_for(r)
+    _, _, chunk_state = wk._launch(r, k, v, lw, u, steps)
+    args = (r, k, v, lw, u, chunk_state, do, ds)
+    got = wk.wkv6_backward(*args)
+    again = wk.wkv6_backward(*args)
+    torch.cuda.synchronize()
+    identical = all(bool(torch.equal(x, y)) for x, y in zip(got, again))
+    check(identical, f"wkv6 backward (S {s}) bit-identical over two calls")
+    del again
+    plain = lambda *t: wk.wkv6_backward_plain(*t[:5], *t[6:])
+    want = plain(*(None if t is None else t.double() for t in args))
+    want_f32 = plain(*args)
+    errs = backward_errors(torch, f"wkv6 backward (S {s})",
+                           ("dr", "dk", "dv", "dlw", "du"), got, want,
+                           want_f32)
+    del got, want, want_f32
+    kern = cuda_ms(torch, lambda: wk.wkv6_backward(*args), iters=10)
+    plain_t = cuda_ms(torch, lambda: plain(*args), iters=2, warmup=1)
+    by_kernel = kernel_split(torch, lambda: wk.wkv6_backward(*args),
+                             WKV6_BWD_KERNELS, kern["ms"])
+    x = b * s * h * n  # elements of one (B, S, H, N) tensor
+    # r, k, v, lw, do read and dr, dk, dv, dlw written; u, the chunk
+    # states and the final state's gradient read, du written
+    n_bytes = 4 * (9 * x + 2 * h * n + chunk_state.numel()
+                   + (b * h * n * n if dstate else 0))
+    # per (batch, head, step): the S and dS recurrences (3 N^2 each: an
+    # outer product, a scale, an add) and the three matrix-vector
+    # products dr' = S do, dk' = dS v, dv' = dS^T k (2 N^2 each)
+    flops = 12 * b * s * h * n * n
+    return dict(
+        name="wkv6_backward", route="cuda", source=SOURCES["wkv6"],
+        replaces=REPLACES["wkv6_backward"], **errs, bit_identical=identical,
+        ms=kern["ms"], plain_ms=plain_t["ms"], library_ms=None,
+        **roofline(n_bytes, flops, PEAK_FP32),
+        by_kernel_ms=by_kernel,
+        steps_per_cta=steps, ctas_per_pass=b * h * -(-s // steps),
+        call_ms=kern["call_ms"], plain_call_ms=plain_t["call_ms"],
+        blocker_held=kern["blocker_held"],
+        shape=dict(B=b, S=s, H=h, N=n, dtype="float32", dstate=dstate))
+
+
+def ssd_backward_entry(torch, dev, *, g_, b, s, h, p, n, init,
+                       dstate) -> dict:
+    """The SSD backward kernels against the plain backward (autograd
+    through ``ssd_plain``, recomputed) in float64 on the card;
+    bit-identical over two calls; timed beside the float32 plain
+    backward."""
+    from repro_torch.kernels import ssd as sk
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rn = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
+    x, bm, cm, dy = rn(b, s, h, p), rn(b, s, g_, n), rn(b, s, g_, n), \
+        rn(b, s, h, p)
+    dt = torch.nn.functional.softplus(rn(b, s, h))
+    a = -torch.exp(rn(h))
+    d = torch.linspace(0.5, 1.5, h, device=dev)
+    st0 = rn(b, h, p, n) if init else None
+    ds = rn(b, h, p, n) if dstate else None
+    args = (x, dt, a, bm, cm, d, st0, dy, ds)
+    got = sk.ssd_backward(*args)
+    again = sk.ssd_backward(*args)
+    torch.cuda.synchronize()
+    identical = all(bool(torch.equal(x_, y_)) for x_, y_ in zip(got, again)
+                    if x_ is not None)
+    check(identical, f"ssd backward (S {s}, G {g_}) bit-identical over two "
+          f"calls")
+    del again
+    plain = lambda *t: sk.ssd_backward_plain(*t, chunk=SSD_CHUNK)
+    want = plain(*(None if t is None else t.double() for t in args))
+    want_f32 = plain(*args)
+    errs = backward_errors(torch, f"ssd backward (S {s}, G {g_})",
+                           ("dx", "ddt", "da", "db", "dc", "dd", "dinit"),
+                           got, want, want_f32)
+    del got, want, want_f32
+    kern = cuda_ms(torch, lambda: sk.ssd_backward(*args), iters=10)
+    plain_t = cuda_ms(torch, lambda: plain(*args), iters=2, warmup=1)
+    by_kernel = kernel_split(torch, lambda: sk.ssd_backward(*args),
+                             SSD_BWD_KERNELS, kern["ms"])
+    steps = sk._build.steps_for(x)
+    # x, dy read and dx written (B, S, H, P); dt read and its gradient
+    # written; B, C read and their gradients written; a, d and their
+    # gradients; the initial state and the final state's gradient read,
+    # dinit written
+    n_bytes = 4 * (3 * b * s * h * p + 2 * b * s * h + 4 * b * s * g_ * n
+                   + 4 * h + b * h * p * n * ((2 if init else 0)
+                                              + (1 if dstate else 0)))
+    # per (batch, step, head): the S and dS recurrences (3 P N each) and
+    # the three matrix-vector products S^T dy, dS^T x, dS B (2 P N each)
+    flops = 12 * b * s * h * p * n
+    return dict(
+        name="ssd_backward", route="cuda", source=SOURCES["ssd"],
+        replaces=REPLACES["ssd_backward"], **errs, bit_identical=identical,
+        ms=kern["ms"], plain_ms=plain_t["ms"], library_ms=None,
+        **roofline(n_bytes, flops, PEAK_FP32),
+        by_kernel_ms=by_kernel,
+        steps_per_cta=steps, ctas_per_role=b * h * -(-s // steps),
+        call_ms=kern["call_ms"], plain_call_ms=plain_t["call_ms"],
+        blocker_held=kern["blocker_held"],
+        shape=dict(B=b, S=s, H=h, P=p, G=g_, N=n, dtype="float32",
+                   init_state=init, dstate=dstate, plain_chunk=SSD_CHUNK))
+
+
+def kernel_split(torch, fn, names, ms: float) -> dict:
+    """Each named kernel's device ms in one call of ``fn``, from the
+    profiler.  A trace can keep some kernels' records and lose others',
+    or read far less than the call's CUDA-event time ``ms``; a trace that
+    lost any named kernel, or whose named kernels' sum lies more than
+    ``SPLIT_TOL`` of ``ms`` from it, is taken again, up to
+    ``PROFILE_ATTEMPTS`` times (each counted in
+    ``results["profiler_lost_traces"]``, the sums that disagreed in
+    ``results["profiler_split_off"]``), and after that each kernel's
+    time is None: the split informs, it checks nothing."""
+    for _ in range(PROFILE_ATTEMPTS):
+        prof, _ = _device_time(torch, fn, names)
+        split = prof["match_ms"]
+        if all(split[n] > 0 for n in names):
+            total = sum(split.values())
+            if abs(total - ms) <= SPLIT_TOL * ms:
+                return split
+            results.setdefault("profiler_split_off", []).append(
+                dict(kernels=list(names), sum_ms=total, ms=ms))
+        results["profiler_lost_traces"] = results.get(
+            "profiler_lost_traces", 0) + 1
+    return dict.fromkeys(names)
 
 
 def _device_time(torch, fn, matches=(), before=None) -> tuple[dict, object]:
@@ -2276,8 +2501,7 @@ def phase_hltrain(torch) -> dict:
     want = train_launches(hp, n_stages, TRAIN_EPOCHS)
     check(curriculum_counts == {"queue_admit": 0,
                                 "group_occupancy": want["group_occupancy"],
-                                "flash_attention": 0, "flash_attention_backward": 0,
-                "wkv6": 0, "ssd": 0},
+                                **NO_LM_LAUNCHES},
           f"launches around run_curriculum {curriculum_counts}, want "
           f"group_occupancy {want['group_occupancy']} and nothing else")
     # the two evaluations: one quiet round each, 3 sums a decision step
@@ -2426,8 +2650,7 @@ def phase_economy(torch) -> dict:
     n_ticks = rep["n_ticks"]
     check(launches == {"queue_admit": n_ticks,
                        "group_occupancy": 3 * n_ticks,
-                       "flash_attention": 0, "flash_attention_backward": 0,
-                "wkv6": 0, "ssd": 0},
+                       **NO_LM_LAUNCHES},
           f"spot run: queue_admit once and group_occupancy 3 times a tick "
           f"({launches} in {n_ticks} ticks)")
     eco = rep["economy"]
@@ -2680,8 +2903,7 @@ def phase_telemetry(torch) -> dict:
     n_ticks = rep["n_ticks"]
     check(launches == {"queue_admit": n_ticks,
                        "group_occupancy": 3 * n_ticks,
-                       "flash_attention": 0, "flash_attention_backward": 0,
-                "wkv6": 0, "ssd": 0},
+                       **NO_LM_LAUNCHES},
           f"telemetry run: queue_admit once and group_occupancy 3 times a "
           f"tick ({launches} in {n_ticks} ticks)")
     for k, v in off["records"].items():
@@ -3546,17 +3768,31 @@ TRAIN_MLA = dict(arch="deepseek-v2-236b", n_layers=2, steps=10, batch=4,
 # and deepseek-v2 narrow at its published head dims (its dense MLA layer
 # alone), whose gradients run the backward kernel at Dk 192 / Dv 128
 TRAIN_PARITY_ARCHS = ("yi-6b", "h2o-danube-3-4b", "musicgen-medium",
-                      "deepseek-v2-236b_dk192")
+                      "deepseek-v2-236b_dk192", "rwkv6-1.6b", "zamba2-1.2b")
 TRAIN_PARITY = dict(steps=2, batch=2, seq=40, lr=0.05)
+# (f), (g): rwkv6-1.6b (24 layers) and zamba2-1.2b (38 Mamba2 layers and
+# the shared block six times) whole through the CLI's path, as (a): the
+# WKV6 and SSD backward kernels on the main path
+TRAIN_WHOLE = (dict(arch="rwkv6-1.6b", steps=4, batch=4, seq=2048),
+               dict(arch="zamba2-1.2b", steps=4, batch=4, seq=2048))
+# each LM kernel's name in the profiler's device events, backward ones too
+TRAIN_MATCHES = ("flash_fwd_kernel", "flash_bwd", "wkv6_kernel", "wkv6_bwd",
+                 "ssd_kernel", "ssd_bwd")
 
 
-def flash_train_launches(cfg, steps: int) -> dict:
-    """Flash launches of ``steps`` train steps with recomputation: each
-    attention layer's forward twice (the step's and the backward's
-    recomputation) and its backward once (two kernels a call)."""
-    n = expected_launches(cfg)["flash_attention"]
-    return {"flash_attention": 2 * n * steps,
-            "flash_attention_backward": n * steps, "wkv6": 0, "ssd": 0}
+def lm_train_launches(cfg, steps: int) -> dict:
+    """LM kernel launches of ``steps`` train steps with per-layer
+    recomputation: each layer's forward kernel twice (the step's and the
+    backward's recomputation) and its backward kernel once (one count a
+    call, whatever kernels it runs); zamba2's shared block, which is not
+    recomputed, its flash forward once."""
+    from repro_torch.models import transformer as tf
+    n = expected_launches(cfg)
+    shared = tf.n_shared_applications(cfg)
+    return {"flash_attention": (2 * n["flash_attention"] - shared) * steps,
+            "flash_attention_backward": n["flash_attention"] * steps,
+            "wkv6": 2 * n["wkv6"] * steps, "wkv6_backward": n["wkv6"] * steps,
+            "ssd": 2 * n["ssd"] * steps, "ssd_backward": n["ssd"] * steps}
 
 
 def checkpoint_round_trip(torch, state, path: str) -> dict:
@@ -3588,10 +3824,9 @@ def checkpoint_round_trip(torch, state, path: str) -> dict:
 
 
 def train_profile(torch, cfg, state, batch: dict, opt=None) -> dict:
-    """Device ops, busy ms, the flash kernels' ms and the flash backward
-    kernels' share of the busy ms of one more train step, in the
-    profiler (``opt``: the state's optimizer, by default the CLI's
-    adamw)."""
+    """Device ops, busy ms, the LM kernels' ms (``TRAIN_MATCHES``) and each
+    one's share of the busy ms of one more train step, in the profiler
+    (``opt``: the state's optimizer, by default the CLI's adamw)."""
     from repro_torch.training.optimizer import adamw
     from repro_torch.training.schedule import cosine_with_warmup
     from repro_torch.training.train_step import make_train_step
@@ -3599,9 +3834,11 @@ def train_profile(torch, cfg, state, batch: dict, opt=None) -> dict:
         opt = adamw(lr=cosine_with_warmup(3e-4, 20, 100))
     step = make_train_step(cfg, opt)
     prof, _ = _device_time(torch, lambda: step(state, batch),
-                           ["flash_fwd_kernel", "flash_bwd"])
-    prof["flash_bwd_share"] = (prof["match_ms"]["flash_bwd"]
-                               / max(prof["device_busy_ms"], 1e-9))
+                           TRAIN_MATCHES)
+    busy = max(prof["device_busy_ms"], 1e-9)
+    prof["share_of_busy"] = {m: ms / busy
+                             for m, ms in prof["match_ms"].items()}
+    prof["flash_bwd_share"] = prof["share_of_busy"]["flash_bwd"]
     return prof
 
 
@@ -3648,20 +3885,19 @@ def train_cpu_vs_card_lm(torch) -> dict:
 
 def refused_train_steps(torch) -> dict:
     """A train step that would need a backward kernel the port does not
-    have yet raises on the card, naming the roadmap: rwkv6 (WKV6),
-    zamba2 (SSD) and a bf16 config (flash)."""
+    have yet raises on the card, naming the roadmap: bf16 rwkv6 (WKV6),
+    zamba2 (SSD, flash) and yi-6b (flash) smoke configs."""
     import dataclasses as dc
     from repro_torch.configs import get_smoke_config
     from repro_torch.data.pipeline import batch_for_config
     from repro_torch.training import optimizer as opt_lib
     from repro_torch.training import train_step as ts
+    bf16 = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
     out = {}
-    for label, arch, over in (("rwkv6", "rwkv6-1.6b", {}),
-                              ("zamba2", "zamba2-1.2b", {}),
-                              ("yi_bf16", "yi-6b", dict(
-                                  param_dtype="bfloat16",
-                                  compute_dtype="bfloat16"))):
-        cfg = dc.replace(get_smoke_config(arch), **over)
+    for label, arch in (("rwkv6_bf16", "rwkv6-1.6b"),
+                        ("zamba2_bf16", "zamba2-1.2b"),
+                        ("yi_bf16", "yi-6b")):
+        cfg = dc.replace(get_smoke_config(arch), **bf16)
         opt = opt_lib.sgd(0.1)
         state = ts.init_train_state(cfg, opt, seed=SEED, device="cuda")
         batch = batch_for_config(cfg, 0, 2, 40, "cuda")
@@ -3675,6 +3911,61 @@ def refused_train_steps(torch) -> dict:
               f"({raised})")
         out[label] = raised
     return out
+
+
+def train_whole(torch, train_cli, arch: str, steps: int, batch: int,
+                seq: int, ckpt: str | None = None) -> dict:
+    """Phase 16 (a), (f), (g): ``arch`` whole through the CLI's path
+    (``train``, adamw, recomputation); launches counted around the run
+    (zeroed just before it, read just after) and exact; loss and grad
+    norm finite, grad norm > 0, every parameter moved; the checkpoint it
+    writes to ``ckpt``, if any, read back equal; ms a step, positions a
+    second, peak memory, and one more step in the profiler."""
+    from repro_torch.data.pipeline import batch_for_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.training import train_step as ts
+    import math
+    reset_all_counts()
+    t0 = time.perf_counter()
+    run = train_cli.train(arch, steps=steps, batch=batch, seq=seq,
+                          ckpt=ckpt, device="cuda")
+    wall_s = time.perf_counter() - t0
+    launches = {k: v for k, v in all_counts().items() if k in LM_KERNELS}
+    cfg, rep = run.cfg, run.report
+    want = lm_train_launches(cfg, steps)
+    check(launches == want, f"{arch} training launches {launches}, "
+          f"expected {want}")
+    check(all(math.isfinite(x) for x in rep["loss"] + rep["grad_norm"])
+          and min(rep["grad_norm"]) > 0,
+          f"{arch} loss and grad norm finite, grad norm > 0")
+    fresh = ts.param_tree(tf.init_params(cfg, seed=0, device="cuda"))
+    moved = {n: not torch.equal(p, fresh[n])
+             for n, p in ts.param_tree(run.state.params).items()}
+    del fresh
+    check(all(moved.values()), f"every {arch} parameter moved "
+          f"({[n for n, m in moved.items() if not m][:5]})")
+    ck = (None if ckpt is None
+          else checkpoint_round_trip(torch, run.state, ckpt))
+    prof = train_profile(torch, cfg, run.state, batch_for_config(
+        cfg, steps, batch, seq, "cuda"))
+    res = dict(
+        {k: rep[k] for k in ("params", "n_layers", "steps", "batch", "seq",
+                             "loss", "grad_norm", "first_step_ms",
+                             "ms_per_step", "tokens_per_s", "peak_mem_gb")},
+        block_kinds=sorted(set(cfg.block_kinds())),
+        shared_applications=tf.n_shared_applications(cfg),
+        launches=launches, launches_per_step={
+            k: v // steps for k, v in launches.items()},
+        wall_s=wall_s, checkpoint=ck,
+        profile=dict(prof, busy_share=prof["device_busy_ms"]
+                     / rep["ms_per_step"]))
+    print(json.dumps({"lm_train": arch, **{
+        k: res[k] for k in ("ms_per_step", "tokens_per_s", "peak_mem_gb",
+                            "loss", "launches_per_step")},
+        "share_of_busy": prof["share_of_busy"]}), flush=True)
+    del run
+    torch.cuda.empty_cache()
+    return res
 
 
 def train_mla(torch, lr: float = TRAIN_MLA["lr"]) -> dict:
@@ -3707,10 +3998,8 @@ def train_mla(torch, lr: float = TRAIN_MLA["lr"]) -> dict:
         metrics.append(m)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t1) * 1e3 / (TRAIN_MLA["steps"] - 1)
-    launches = {k: v for k, v in all_counts().items()
-                if k in ("flash_attention", "flash_attention_backward",
-                         "wkv6", "ssd")}
-    want = flash_train_launches(cfg, TRAIN_MLA["steps"])
+    launches = {k: v for k, v in all_counts().items() if k in LM_KERNELS}
+    want = lm_train_launches(cfg, TRAIN_MLA["steps"])
     check(launches == want, f"deepseek-v2-236b (2 layers) training "
           f"launches {launches}, expected {want}")
     losses = [float(m["loss"]) for m in metrics]
@@ -3741,63 +4030,22 @@ def phase_lm_train(torch) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import batch_for_config
     from repro_torch.launch import train as train_cli
-    from repro_torch.models import transformer as tf
     from repro_torch.training import optimizer as opt_lib
     from repro_torch.training import schedule as sched
     from repro_torch.training import train_step as ts
-    import math
     import shutil
     t_phase = time.perf_counter()
     out = {}
-    # (a) musicgen-medium whole through the CLI's path; launches counted
-    # around the run (zeroed just before it, read just after)
+    # (a) musicgen-medium whole through the CLI's path, its checkpoint
+    # read back
     ckpt_dir = OUT / "lm_train_ckpt"
     ckpt_dir.mkdir(exist_ok=True)
-    path = str(ckpt_dir / "musicgen_medium.state.msgpack")
     try:
-        reset_all_counts()
-        t0 = time.perf_counter()
-        run = train_cli.train(TRAIN_LM["arch"], steps=TRAIN_LM["steps"],
-                              batch=TRAIN_LM["batch"], seq=TRAIN_LM["seq"],
-                              ckpt=path, device="cuda")
-        wall_s = time.perf_counter() - t0
-        launches = {k: v for k, v in all_counts().items()
-                    if k in ("flash_attention", "flash_attention_backward",
-                             "wkv6", "ssd")}
-        cfg, rep = run.cfg, run.report
-        want = flash_train_launches(cfg, TRAIN_LM["steps"])
-        check(launches == want, f"musicgen-medium training launches "
-              f"{launches}, expected {want}")
-        check(all(math.isfinite(x) for x in rep["loss"] + rep["grad_norm"])
-              and min(rep["grad_norm"]) > 0,
-              "musicgen-medium loss and grad norm finite, grad norm > 0")
-        fresh = ts.param_tree(tf.init_params(cfg, seed=0, device="cuda"))
-        moved = {n: not torch.equal(p, fresh[n])
-                 for n, p in ts.param_tree(run.state.params).items()}
-        del fresh
-        check(all(moved.values()), "every musicgen-medium parameter moved "
-              f"({[n for n, m in moved.items() if not m][:5]})")
-        ck = checkpoint_round_trip(torch, run.state, path)
-        prof = train_profile(torch, cfg, run.state, batch_for_config(
-            cfg, TRAIN_LM["steps"], TRAIN_LM["batch"], TRAIN_LM["seq"],
-            "cuda"))
+        out["musicgen-medium"] = train_whole(
+            torch, train_cli, **TRAIN_LM,
+            ckpt=str(ckpt_dir / "musicgen_medium.state.msgpack"))
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
-    out["musicgen-medium"] = dict(
-        {k: rep[k] for k in ("params", "n_layers", "steps", "batch", "seq",
-                             "loss", "grad_norm", "first_step_ms",
-                             "ms_per_step", "tokens_per_s", "peak_mem_gb")},
-        launches=launches, launches_per_step={
-            k: v // TRAIN_LM["steps"] for k, v in launches.items()},
-        wall_s=wall_s, checkpoint=ck,
-        profile=dict(prof, busy_share=prof["device_busy_ms"]
-                     / rep["ms_per_step"]))
-    print(json.dumps({"lm_train": "musicgen-medium", **{
-        k: out["musicgen-medium"][k] for k in (
-            "ms_per_step", "tokens_per_s", "peak_mem_gb", "loss",
-            "launches_per_step")}}), flush=True)
-    del run
-    torch.cuda.empty_cache()
     # (b) yi-6b at full width, 4 layers: the loss falls
     cfg = get_config(LEARN["arch"], n_layers=LEARN["n_layers"])
     opt = opt_lib.adamw(sched.cosine_with_warmup(LEARN["lr"], 2,
@@ -3833,6 +4081,9 @@ def phase_lm_train(torch) -> dict:
     # (d) CPU against the card; (e) the refusals
     out["cpu_vs_card"] = train_cpu_vs_card_lm(torch)
     out["refused"] = refused_train_steps(torch)
+    # (f), (g) rwkv6-1.6b and zamba2-1.2b whole
+    for run_kw in TRAIN_WHOLE:
+        out[run_kw["arch"]] = train_whole(torch, train_cli, **run_kw)
     out["seconds"] = time.perf_counter() - t_phase
     emit("lm_train", **out)
     return out
@@ -3924,8 +4175,7 @@ def phase_analysis(torch) -> dict:
         n_ticks = rep["n_ticks"]
         check(launches == {"queue_admit": n_ticks,
                            "group_occupancy": 3 * n_ticks,
-                           "flash_attention": 0, "flash_attention_backward": 0,
-                "wkv6": 0, "ssd": 0},
+                           **NO_LM_LAUNCHES},
               f"{name}: the sync-free ticks launch queue_admit once and "
               f"group_occupancy 3 times a tick ({launches} in {n_ticks})")
         for k, v in free["records"].items():
@@ -4015,6 +4265,12 @@ def main() -> int:
     kernels["ssd"] = dict(
         lm_kernels["zamba2-1.2b"],
         launches=lm_serve["zamba2-1.2b"]["launches"]["ssd"])
+    kernels["wkv6_backward"] = dict(
+        lm_kernels["rwkv6-1.6b_backward"],
+        launches=lm_train["rwkv6-1.6b"]["launches"]["wkv6_backward"])
+    kernels["ssd_backward"] = dict(
+        lm_kernels["zamba2-1.2b_backward"],
+        launches=lm_train["zamba2-1.2b"]["launches"]["ssd_backward"])
     kernels["flash_attention_backward"] = dict(
         lm_kernels["musicgen-medium_backward"],
         launches=lm_train["musicgen-medium"]["launches"][

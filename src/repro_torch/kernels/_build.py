@@ -11,7 +11,8 @@ compiled once.  A missing ``nvcc`` raises.  The
 wrappers' shared checks (``check``, ``route``, ``refuse_grad``,
 ``raise_on``) live here
 too, with the 16-byte alignment helpers of the kernels that copy with
-``cp.async`` or TMA (``row_strides``, ``aligned``).
+``cp.async`` or TMA (``row_strides``, ``aligned``) and the chunk length
+of the chunked scans (``chunk_len``).
 """
 from __future__ import annotations
 
@@ -117,16 +118,43 @@ def route(device: torch.device) -> str:
 
 
 def refuse_grad(name: str, device: torch.device, *tensors) -> None:
-    """Raise ``NotImplementedError`` naming ``ROADMAP.md`` when a call on
-    CUDA tensors would need a gradient that ``name`` has no backward
-    kernel for (grad mode on and an input requiring one): the kernel's
-    output would carry no gradient path.  CPU tensors pass, since their
-    plain versions differentiate."""
+    """Raise ``NotImplementedError`` naming ``ROADMAP.md`` when a bfloat16
+    call of ``name`` on CUDA tensors would need a gradient (grad mode on
+    and an input requiring one): there is no bf16 backward kernel yet, and
+    the kernel's output would carry no gradient path.  The wrappers call
+    it for bf16 only (their float32 calls differentiate through their
+    backward kernels); CPU tensors pass, since their plain versions
+    differentiate."""
     if (device.type == "cuda" and torch.is_grad_enabled()
             and any(t is not None and t.requires_grad for t in tensors)):
         raise NotImplementedError(
-            f"{name} has no backward kernel yet, so it cannot run under "
-            f"autograd on the card (ROADMAP.md queue 1 item 10)")
+            f"{name} has no bfloat16 backward kernel yet, so it cannot run "
+            f"in bfloat16 under autograd on the card (ROADMAP.md queue 1 "
+            f"item 10.4c)")
+
+
+# steps per CTA of the chunked scans (WKV6's forward and backward, SSD's
+# backward), halved (down to MIN_STEPS) while the grid would give fewer
+# than CTAS_PER_SM CTAs per SM (chosen by timing the WKV6 forward,
+# tools/wkv6_chunks.py; tools/bwd_chunks.py times both backwards by chunk
+# length)
+STEPS_PER_CTA, MIN_STEPS, CTAS_PER_SM = 256, 16, 4
+
+
+def chunk_len(bh: int, s: int, n_sms: int) -> int:
+    """Steps per CTA of a chunked scan over ``bh`` (batch, head) pairs of
+    ``s`` steps on a card of ``n_sms`` SMs."""
+    steps = STEPS_PER_CTA
+    while steps > MIN_STEPS and bh * -(-s // steps) < CTAS_PER_SM * n_sms:
+        steps //= 2
+    return steps
+
+
+def steps_for(t: torch.Tensor) -> int:
+    """:func:`chunk_len` for a (B, S, H, ...) operand on its card."""
+    b, s, h = t.shape[:3]
+    return chunk_len(b * h, s, torch.cuda.get_device_properties(
+        t.device).multi_processor_count)
 
 
 def raise_on(err: int, name: str) -> None:

@@ -640,6 +640,410 @@ int ssd_launch(const void* x, const void* dt, const void* a, const void* b,
                              S, H, G, P, N, s);
 }
 
+
+// ------------------------------------------------------------- backward
+// No TPU kernel: the reference differentiates ssd_chunked (plus the D
+// skip term) with JAX autodiff.  Per (batch, head), with the (P, N) state
+//     S_t = e_t S_{t-1} + dt_t x_t B_t^T,  e_t = exp(a dt_t),
+//     y_t = S_t C_t + d x_t                (y reads S_t: inclusive),
+// dS_t = dL/dS_t and the final state's gradient dS_T (zero when none is
+// given):
+//     dS_t  = e_{t+1} dS_{t+1} + dy_t C_t^T
+//     dC_t  = S_t^T dy_t,  dB_t = dt_t dS_t^T x_t,
+//     dx_t  = dt_t dS_t B_t + d dy_t,  dd = sum dy . x,
+//     dinit = e_0 dS_0,
+//     g_t   = C_t . dC_t - B_t . dB_t,
+//     D_m   = <S_e, dS_e> + sum_{m <= t <= e} g_t,
+//     ddt_m = a D_m + x_m^T dS_m B_m,  da = sum_m dt_m D_m,
+// where D_m = e_m <dS_m, S_{m-1}> is the gradient of the decay's exponent
+// and (S_e, dS_e) are the state at any later step e and the gradient it
+// gets from the steps after e: here the last step of m's chunk, so no sum
+// runs past one chunk.  dB and dC sum over the heads of a group, and da,
+// dd over batch and steps: the kernels write per-head gradients and
+// per-CTA partials, and the wrapper sums them in a fixed order (no
+// atomics: two calls give the same bits).
+//
+// What bounds it: the function reads x, dt, B, C and dy and writes dx,
+// dt's, B's and C's gradients (0.12 ms of bytes at zamba2-1.2b's training
+// shape), against 12 P N flops per (batch, step, head) of the exact
+// recurrences on the CUDA cores: the S and dS recurrences and the
+// products S^T dy, dS^T x and dS B (0.38 ms at the FP32 peak).  So
+// operations bound it; the walks along S add the wait of each step on
+// the one before.
+//
+// Design: state passing over chunks of L steps (the wrapper's, as WKV6's),
+// the chunk states recomputed rather than kept from the forward (whose
+// tensor-core chunks of 64 would have to write them: 134 MB a layer at
+// zamba2-1.2b's shape).  D threads a CTA (D = 32, 64 or 128 covering P and
+// N, padded with zeros that stay zero), each with a row or a column of S
+// or dS in registers, so every sum of a step is the thread's own:
+//   1. ssd_bwd_local: two CTAs a chunk, thread n on column n: the chunk's
+//      state from a zero state, and its gradient at its start from a zero
+//      gradient at its end, sum_t E_t dy_t C_t^T (E_t the product of e over
+//      the chunk's steps up to t), with the chunk's decay product;
+//   2. ssd_bwd_scan: one thread an element: carries the state forward
+//      across chunks from the initial state (S_in_c) and the gradient
+//      backward from dS_T (dS_out_c), each over its local values, and
+//      writes dinit;
+//   3. ssd_bwd_chunk: three CTAs a chunk.  Columns of S: a forward walk
+//      from S_in_c emits dC per head and ends with <S_e, dS_out_c>.
+//      Columns of dS: a reverse walk from dS_out_c emits dS^T x per head.
+//      Rows of dS: a reverse walk emits dx;
+//   4. ssd_bwd_dt: one warp a chunk walks it backward over the per-head
+//      dC and dS^T x: the dots C . dC, B . dS^T x and dy . x, D, ddt, dB =
+//      dt dS^T x in place, and the CTA's partials of da and dd.
+// Steps arrive kBwdStage at a time in shared memory with e = exp(a dt);
+// padded steps are never walked, and e underflows to 0, which is exact.
+
+constexpr int kBwdStage = 8;
+constexpr int kBwdScanThreads = 256;
+
+template <int D>
+struct BwdStage {
+  float x[kBwdStage][D], g[kBwdStage][D], b[kBwdStage][D], c[kBwdStage][D];
+  float dt[kBwdStage], e[kBwdStage];
+};
+
+struct BwdArgs {
+  const float *x, *dt, *b, *c, *dy;
+  Strides st;
+  float a;  // this head's
+  int S, H, P, N, b_idx, h, g;
+};
+
+// steps [t0, t0 + nt) into `st`, zero past P, N and nt; waits for the stage
+// before to be consumed
+template <int D>
+__device__ __forceinline__ void bwd_load(BwdStage<D>& st, const BwdArgs& q,
+                                         int t0, int nt) {
+  __syncthreads();
+  const int tid = threadIdx.x;
+  for (int e = tid; e < kBwdStage * D; e += D) {
+    const int tt = e / D, j = e - tt * D;
+    const long long t = t0 + tt;
+    const bool step = tt < nt;
+    const bool in_p = step && j < q.P, in_n = step && j < q.N;
+    st.x[tt][j] = in_p ? q.x[q.b_idx * q.st.x_b + t * q.st.x_s +
+                             q.h * q.st.x_h + j] : 0.f;
+    st.g[tt][j] = in_p ? q.dy[((q.b_idx * static_cast<long long>(q.S) + t) *
+                               q.H + q.h) * q.P + j] : 0.f;
+    st.b[tt][j] = in_n ? q.b[q.b_idx * q.st.b_b + t * q.st.b_s +
+                             q.g * q.st.b_g + j] : 0.f;
+    st.c[tt][j] = in_n ? q.c[q.b_idx * q.st.c_b + t * q.st.c_s +
+                             q.g * q.st.c_g + j] : 0.f;
+  }
+  if (tid < kBwdStage) {
+    const float dt = tid < nt ? q.dt[q.b_idx * q.st.dt_b +
+                                     (t0 + tid) * q.st.dt_s +
+                                     q.h * q.st.dt_h] : 0.f;
+    st.dt[tid] = dt;
+    st.e[tid] = expf(q.a * dt);
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ BwdArgs bwd_args(
+    const float* x, const float* dt, const float* a, const float* b,
+    const float* c, const float* dy, const Strides& st, int S, int H, int G,
+    int P, int N, int bh) {
+  const int bi = bh / H, h = bh - bi * H;
+  return BwdArgs{x, dt, b, c, dy, st, a[h], S, H, P, N, bi, h, h / (H / G)};
+}
+
+// Pass 1, two CTAs a chunk: the chunk's state from zero (first half of the
+// grid) and its gradient at its start from a zero end gradient, with its
+// decay product (second half).
+template <int D>
+__global__ void __launch_bounds__(D)
+ssd_bwd_local(const float* __restrict__ x, const float* __restrict__ dt,
+              const float* __restrict__ a, const float* __restrict__ bm,
+              const float* __restrict__ cm, const float* __restrict__ dy,
+              Strides strides, float* __restrict__ s_chunks,
+              float* __restrict__ ds_chunks, float* __restrict__ decay,
+              int S, int H, int G, int P, int N, int L, int n_chunks) {
+  __shared__ BwdStage<D> st;
+  const int n_ctas = gridDim.x / 2;
+  const bool grad = static_cast<int>(blockIdx.x) >= n_ctas;
+  const int bhc = blockIdx.x - (grad ? n_ctas : 0);
+  const int bh = bhc / n_chunks, ch = bhc - bh * n_chunks;
+  const BwdArgs q = bwd_args(x, dt, a, bm, cm, dy, strides, S, H, G, P, N,
+                             bh);
+  const int n = threadIdx.x;
+  const int c0 = ch * L, c1 = min(S, c0 + L);
+  float s[D];
+#pragma unroll
+  for (int p = 0; p < D; ++p) s[p] = 0.f;
+  float run = 1.f;  // the product of e up to this step
+  for (int t0 = c0; t0 < c1; t0 += kBwdStage) {
+    const int nt = min(kBwdStage, c1 - t0);
+    bwd_load<D>(st, q, t0, nt);
+    for (int tt = 0; tt < nt; ++tt) {
+      if (!grad) {
+        const float bn = st.dt[tt] * st.b[tt][n], et = st.e[tt];
+#pragma unroll
+        for (int p = 0; p < D; ++p)
+          s[p] = fmaf(et, s[p], st.x[tt][p] * bn);
+      } else {
+        run *= st.e[tt];
+        const float cn = run * st.c[tt][n];
+#pragma unroll
+        for (int p = 0; p < D; ++p) s[p] = fmaf(cn, st.g[tt][p], s[p]);
+      }
+    }
+  }
+  float* out = (grad ? ds_chunks : s_chunks) +
+               static_cast<long long>(bhc) * P * N + n;
+  if (n < N) {
+#pragma unroll
+    for (int p = 0; p < D; ++p)
+      if (p < P) out[p * N] = s[p];
+  }
+  if (grad && n == 0) decay[bhc] = run;
+}
+
+// Pass 2, one thread an element of (B, H, P, N): S_in_c forward from the
+// initial state (null: zero), dS_out_c backward from dS_T (null: zero),
+// each written over the chunk's local value; dinit (may be null) last.
+__global__ void __launch_bounds__(kBwdScanThreads)
+ssd_bwd_scan(float* __restrict__ s_chunks, float* __restrict__ ds_chunks,
+             const float* __restrict__ decay, const float* __restrict__ init,
+             const float* __restrict__ dstate, float* __restrict__ dinit,
+             int BH, int PN, int n_chunks) {
+  const long long idx = static_cast<long long>(blockIdx.x) *
+                            kBwdScanThreads + threadIdx.x;
+  if (idx >= static_cast<long long>(BH) * PN) return;
+  const int bh = static_cast<int>(idx / PN);
+  const int e = static_cast<int>(idx - static_cast<long long>(bh) * PN);
+  const long long off = static_cast<long long>(bh) * n_chunks * PN + e;
+  const float* dec = decay + static_cast<long long>(bh) * n_chunks;
+  float carry = init ? init[idx] : 0.f;
+  for (int c = 0; c < n_chunks; ++c) {
+    const float loc = s_chunks[off + static_cast<long long>(c) * PN];
+    s_chunks[off + static_cast<long long>(c) * PN] = carry;
+    carry = fmaf(dec[c], carry, loc);
+  }
+  carry = dstate ? dstate[idx] : 0.f;
+  for (int c = n_chunks - 1; c >= 0; --c) {
+    const float loc = ds_chunks[off + static_cast<long long>(c) * PN];
+    ds_chunks[off + static_cast<long long>(c) * PN] = carry;
+    carry = fmaf(dec[c], carry, loc);
+  }
+  if (dinit) dinit[idx] = carry;
+}
+
+// Pass 3, three CTAs a chunk: columns of S (dC per head, <S_e, dS_out_c>),
+// columns of dS (dS^T x per head), rows of dS (dx).
+template <int D>
+__global__ void __launch_bounds__(D)
+ssd_bwd_chunk(const float* __restrict__ x, const float* __restrict__ dt,
+              const float* __restrict__ a, const float* __restrict__ bm,
+              const float* __restrict__ cm, const float* __restrict__ dy,
+              const float* __restrict__ d_skip, Strides strides,
+              const float* __restrict__ s_chunks,
+              const float* __restrict__ ds_chunks, float* __restrict__ dx,
+              float* __restrict__ dc_head, float* __restrict__ dsx_head,
+              float* __restrict__ sds, int S, int H, int G, int P, int N,
+              int L, int n_chunks) {
+  __shared__ BwdStage<D> st;
+  __shared__ float red[D / 32];
+  const int n_ctas = gridDim.x / 3;
+  const int role = blockIdx.x / n_ctas;
+  const int bhc = blockIdx.x - role * n_ctas;
+  const int bh = bhc / n_chunks, ch = bhc - bh * n_chunks;
+  const BwdArgs q = bwd_args(x, dt, a, bm, cm, dy, strides, S, H, G, P, N,
+                             bh);
+  const int tid = threadIdx.x;
+  const int c0 = ch * L, c1 = min(S, c0 + L);
+  const int n_stages = (c1 - c0 + kBwdStage - 1) / kBwdStage;
+  const long long cs = static_cast<long long>(bhc) * P * N;
+  // per-head rows of (B, S, H, N) and (B, S, H, P), step t
+  auto head_row = [&](int t, int w) {
+    return ((q.b_idx * static_cast<long long>(S) + t) * H + q.h) * w;
+  };
+  float s[D];
+
+  if (role == 0) {
+    // column n of S, forward from S_in_c: dC_t[n] = sum_p S_t[p, n] dy_t[p]
+    const int n = tid;
+#pragma unroll
+    for (int p = 0; p < D; ++p)
+      s[p] = n < N && p < P ? s_chunks[cs + p * N + n] : 0.f;
+    for (int sg = 0; sg < n_stages; ++sg) {
+      const int t0 = c0 + sg * kBwdStage, nt = min(kBwdStage, c1 - t0);
+      bwd_load<D>(st, q, t0, nt);
+      for (int tt = 0; tt < nt; ++tt) {
+        const float bn = st.dt[tt] * st.b[tt][n], et = st.e[tt];
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int p = 0; p < D; ++p) {
+          s[p] = fmaf(et, s[p], st.x[tt][p] * bn);
+          acc[p & 3] = fmaf(s[p], st.g[tt][p], acc[p & 3]);
+        }
+        if (n < N)
+          dc_head[head_row(t0 + tt, N) + n] = (acc[0] + acc[1]) +
+                                              (acc[2] + acc[3]);
+      }
+    }
+    // <S_e, dS_out_c>: this column's share, then the CTA's in order
+    float part = 0.f;
+    if (n < N) {
+#pragma unroll
+      for (int p = 0; p < D; ++p)
+        if (p < P) part = fmaf(s[p], ds_chunks[cs + p * N + n], part);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      part += __shfl_xor_sync(0xffffffffu, part, off);
+    if ((tid & 31) == 0) red[tid >> 5] = part;
+    __syncthreads();
+    if (tid == 0) {
+      float total = 0.f;
+#pragma unroll
+      for (int w = 0; w < D / 32; ++w) total += red[w];
+      sds[bhc] = total;
+    }
+  } else if (role == 1) {
+    // column n of dS, backward from dS_out_c: (dS_t^T x_t)[n]
+    const int n = tid;
+#pragma unroll
+    for (int p = 0; p < D; ++p)
+      s[p] = n < N && p < P ? ds_chunks[cs + p * N + n] : 0.f;
+    for (int sg = n_stages - 1; sg >= 0; --sg) {
+      const int t0 = c0 + sg * kBwdStage, nt = min(kBwdStage, c1 - t0);
+      bwd_load<D>(st, q, t0, nt);
+      for (int tt = nt - 1; tt >= 0; --tt) {
+        const float cn = st.c[tt][n], et = st.e[tt];
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int p = 0; p < D; ++p) {
+          s[p] = fmaf(st.g[tt][p], cn, s[p]);  // dS_t
+          acc[p & 3] = fmaf(s[p], st.x[tt][p], acc[p & 3]);
+          s[p] *= et;  // its share of dS_{t-1}
+        }
+        if (n < N)
+          dsx_head[head_row(t0 + tt, N) + n] = (acc[0] + acc[1]) +
+                                               (acc[2] + acc[3]);
+      }
+    }
+  } else {
+    // row p of dS, backward from dS_out_c: dx_t[p] = dt_t (dS_t B_t)[p]
+    // + d dy_t[p]
+    const int p = tid;
+    const float dh = d_skip ? d_skip[q.h] : 0.f;
+#pragma unroll
+    for (int n = 0; n < D; ++n)
+      s[n] = p < P && n < N ? ds_chunks[cs + p * N + n] : 0.f;
+    for (int sg = n_stages - 1; sg >= 0; --sg) {
+      const int t0 = c0 + sg * kBwdStage, nt = min(kBwdStage, c1 - t0);
+      bwd_load<D>(st, q, t0, nt);
+      for (int tt = nt - 1; tt >= 0; --tt) {
+        const float gp = st.g[tt][p], et = st.e[tt];
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int n = 0; n < D; ++n) {
+          s[n] = fmaf(gp, st.c[tt][n], s[n]);
+          acc[n & 3] = fmaf(s[n], st.b[tt][n], acc[n & 3]);
+          s[n] *= et;
+        }
+        if (p < P)
+          dx[head_row(t0 + tt, P) + p] = fmaf(
+              st.dt[tt], (acc[0] + acc[1]) + (acc[2] + acc[3]), dh * gp);
+      }
+    }
+  }
+}
+
+// sum over a warp, the same order on every lane
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// Pass 4, one warp a chunk, backward over its steps: ddt, dB per head in
+// place (dt dS^T x), and the chunk's partials of da and dd.
+__global__ void __launch_bounds__(32)
+ssd_bwd_dt(const float* __restrict__ x, const float* __restrict__ dt,
+           const float* __restrict__ a, const float* __restrict__ bm,
+           const float* __restrict__ cm, const float* __restrict__ dy,
+           Strides q, const float* __restrict__ dc_head,
+           float* __restrict__ dsx_head, const float* __restrict__ sds,
+           float* __restrict__ ddt, float* __restrict__ da_part,
+           float* __restrict__ dd_part, int S, int H, int G, int P, int N,
+           int L, int n_chunks) {
+  const int bhc = blockIdx.x;
+  const int bh = bhc / n_chunks, ch = bhc - bh * n_chunks;
+  const int bi = bh / H, h = bh - bi * H, g = h / (H / G);
+  const int lane = threadIdx.x;
+  const float ah = a[h];
+  const int c0 = ch * L, c1 = min(S, c0 + L);
+  float dac = sds[bhc];  // D: <S_e, dS_out_c>, then the g_t added
+  float da = 0.f, dd = 0.f;
+  for (int t = c1 - 1; t >= c0; --t) {
+    const long long hn = ((bi * static_cast<long long>(S) + t) * H + h) * N;
+    const long long hp = ((bi * static_cast<long long>(S) + t) * H + h) * P;
+    const float* bt = bm + bi * q.b_b + t * q.b_s + g * q.b_g;
+    const float* ct = cm + bi * q.c_b + t * q.c_s + g * q.c_g;
+    const float* xt = x + bi * q.x_b + t * q.x_s + h * q.x_h;
+    const float dtt = dt[bi * q.dt_b + t * q.dt_s + h * q.dt_h];
+    float cdc = 0.f, bsx = 0.f, gx = 0.f;
+    for (int n = lane; n < N; n += 32) {
+      const float sx = dsx_head[hn + n];
+      cdc = fmaf(ct[n], dc_head[hn + n], cdc);
+      bsx = fmaf(bt[n], sx, bsx);
+      dsx_head[hn + n] = dtt * sx;  // dB of this head
+    }
+    for (int p = lane; p < P; p += 32) gx = fmaf(dy[hp + p], xt[p], gx);
+    cdc = warp_sum(cdc);
+    bsx = warp_sum(bsx);  // x^T dS B
+    gx = warp_sum(gx);
+    dac += fmaf(-dtt, bsx, cdc);  // g_t = C . dC - dt x^T dS B
+    if (lane == 0) ddt[(bi * static_cast<long long>(S) + t) * H + h] =
+        fmaf(ah, dac, bsx);
+    da = fmaf(dtt, dac, da);
+    dd += gx;
+  }
+  if (lane == 0) {
+    da_part[bhc] = da;
+    dd_part[bhc] = dd;
+  }
+}
+
+template <int D>
+int ssd_bwd_launch_d(const float* x, const float* dt, const float* a,
+                     const float* b, const float* c, const float* d_skip,
+                     const float* init, const float* dy, const float* dstate,
+                     float* dx, float* ddt, float* db_head, float* dc_head,
+                     float* dinit, float* da_part, float* dd_part,
+                     float* s_chunks, float* ds_chunks, float* decay,
+                     float* sds, const Strides& st, int B, int S, int H,
+                     int G, int P, int N, int L, cudaStream_t s) {
+  const int n_chunks = (S + L - 1) / L;
+  const long long ctas = static_cast<long long>(B) * H * n_chunks;
+  if (ctas == 0) return 0;
+  cudaError_t err;
+  ssd_bwd_local<D><<<static_cast<unsigned>(2 * ctas), D, 0, s>>>(
+      x, dt, a, b, c, dy, st, s_chunks, ds_chunks, decay, S, H, G, P, N, L,
+      n_chunks);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  const long long elems = static_cast<long long>(B) * H * P * N;
+  ssd_bwd_scan<<<static_cast<unsigned>((elems + kBwdScanThreads - 1) /
+                                       kBwdScanThreads),
+                 kBwdScanThreads, 0, s>>>(s_chunks, ds_chunks, decay, init,
+                                          dstate, dinit, B * H, P * N,
+                                          n_chunks);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  ssd_bwd_chunk<D><<<static_cast<unsigned>(3 * ctas), D, 0, s>>>(
+      x, dt, a, b, c, dy, d_skip, st, s_chunks, ds_chunks, dx, dc_head,
+      db_head, sds, S, H, G, P, N, L, n_chunks);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  ssd_bwd_dt<<<static_cast<unsigned>(ctas), 32, 0, s>>>(
+      x, dt, a, b, c, dy, st, dc_head, db_head, sds, ddt, da_part, dd_part,
+      S, H, G, P, N, L, n_chunks);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -665,6 +1069,46 @@ int ssd_bf16(const void* x, const void* dt, const void* a, const void* b,
              int G, int P, int N, int device, void* stream) {
   return ssd_launch<__nv_bfloat16>(x, dt, a, b, c, d_skip, init, y, state,
                                    strides, B, S, H, G, P, N, device, stream);
+}
+
+// The backward, f32 only.  x, dt, b, c read through `strides` as the
+// forward reads them (any alignment); a, d_skip (null: no skip term) (H,);
+// init (null: zero) and dstate (null: zero): contiguous (B, H, P, N); dy:
+// contiguous (B, S, H, P).  Out: dx (B, S, H, P), ddt (B, S, H), db_head
+// and dc_head (B, S, H, N) per head (the wrapper sums each group's),
+// dinit (B, H, P, N, may be null), da_part and dd_part (B, H, ceil(S /
+// L)).  Scratch: s_chunks and ds_chunks (B, H, ceil(S / L), P, N), decay
+// and sds (B, H, ceil(S / L)).  L: steps per chunk (>= 1).
+int ssd_backward_f32(const void* x, const void* dt, const void* a,
+                     const void* b, const void* c, const void* d_skip,
+                     const void* init, const void* dy, const void* dstate,
+                     void* dx, void* ddt, void* db_head, void* dc_head,
+                     void* dinit, void* da_part, void* dd_part,
+                     void* s_chunks, void* ds_chunks, void* decay, void* sds,
+                     const long long* strides, int B, int S, int H, int G,
+                     int P, int N, int L, int device, void* stream) {
+  if (P < 1 || P > 128 || N < 1 || N > 128 || G < 1 || H % G || L < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Strides st{strides[0], strides[1], strides[2],  strides[3],
+                   strides[4], strides[5], strides[6],  strides[7],
+                   strides[8], strides[9], strides[10], strides[11]};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto w = [](void* p) { return static_cast<float*>(p); };
+#define SSD_BWD(DD)                                                         \
+  ssd_bwd_launch_d<DD>(f(x), f(dt), f(a), f(b), f(c), f(d_skip), f(init),   \
+                       f(dy), f(dstate), w(dx), w(ddt), w(db_head),         \
+                       w(dc_head), w(dinit), w(da_part), w(dd_part),        \
+                       w(s_chunks), w(ds_chunks), w(decay), w(sds), st, B,  \
+                       S, H, G, P, N, L, s)
+  switch (tile_of(P > N ? P : N)) {
+    case 32: return SSD_BWD(32);
+    case 64: return SSD_BWD(64);
+    default: return SSD_BWD(128);
+  }
+#undef SSD_BWD
 }
 
 }  // extern "C"

@@ -130,37 +130,40 @@ class _Launch(Exception):
 
 def test_grad_without_a_backward_kernel_raises_on_cuda(monkeypatch):
     """Fake CUDA tensors: a gradient through bf16 flash (MLA's D 192
-    too), f32 flash at D 224, WKV6 or SSD raises ``NotImplementedError``
-    naming the roadmap before any library is loaded; under ``no_grad``,
-    or without an input that requires a gradient, the guard lets the call
-    through.  f32 at MLA's D 192 / Dv 128 passes every guard: the call
-    under grad takes the forward with the LSE, and its backward reaches
-    the backward kernel's launch, past every check (the library it loads
+    too), f32 flash at D 224, bf16 WKV6 or bf16 SSD raises
+    ``NotImplementedError`` naming the roadmap before any library is
+    loaded; under ``no_grad``, or without an input that requires a
+    gradient, the guard lets the call through.  f32 flash at MLA's D 192
+    / Dv 128, f32 WKV6 and f32 SSD pass every guard: the call under grad
+    takes its autograd function's forward, and its backward reaches the
+    backward kernel's launch, past every check (the library it loads
     there is a stand-in that raises, the forward a stand-in for its
     kernel)."""
     with FakeTensorMode():
         cuda = torch.device("cuda")
         mk = lambda *s, dt=torch.float32: torch.empty(s, device=cuda,
                                                       dtype=dt)
-        q, k, v = (mk(1, 8, 2, 64, dt=torch.bfloat16) for _ in range(3))
+        bf16 = torch.bfloat16
+        q, k, v = (mk(1, 8, 2, 64, dt=bf16) for _ in range(3))
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             fa.flash_attention(q.requires_grad_(), k, v)
-        q, k = (mk(1, 8, 2, 192, dt=torch.bfloat16) for _ in range(2))
+        q, k = (mk(1, 8, 2, 192, dt=bf16) for _ in range(2))
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            fa.flash_attention(q, k, mk(1, 8, 2, 128, dt=torch.bfloat16)
+            fa.flash_attention(q, k, mk(1, 8, 2, 128, dt=bf16)
                                .requires_grad_())
         q, k, v = mk(1, 8, 2, 224), mk(1, 8, 2, 224), mk(1, 8, 2, 128)
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             fa.flash_attention(q, k, v.requires_grad_())
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             fa._check_grad_kernel(mk(1, 8, 2, 192), 192, 136)
-        r = mk(1, 8, 2, 64).requires_grad_()
+        r = mk(1, 8, 2, 64, dt=bf16).requires_grad_()
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            wk.wkv6(r, mk(1, 8, 2, 64), mk(1, 8, 2, 64), mk(1, 8, 2, 64),
-                    mk(2, 64))
-        x = mk(1, 8, 4, 16).requires_grad_()
+            wk.wkv6(r, mk(1, 8, 2, 64, dt=bf16), mk(1, 8, 2, 64, dt=bf16),
+                    mk(1, 8, 2, 64), mk(2, 64))
+        x = mk(1, 8, 4, 16, dt=bf16).requires_grad_()
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            sk.ssd(x, mk(1, 8, 4), mk(4), mk(1, 8, 1, 16), mk(1, 8, 1, 16))
+            sk.ssd(x, mk(1, 8, 4, dt=bf16), mk(4), mk(1, 8, 1, 16, dt=bf16),
+                   mk(1, 8, 1, 16, dt=bf16))
         with torch.no_grad():
             for name, t in (("wkv6", r), ("ssd", x)):
                 fa._build.refuse_grad(name, cuda, t)
@@ -168,28 +171,71 @@ def test_grad_without_a_backward_kernel_raises_on_cuda(monkeypatch):
         reached = []
 
         def forward(q, k, v, causal, window, scale, with_lse):
-            reached.append(("forward", with_lse))
+            reached.append(("flash forward", with_lse))
             b, sq, h, _ = q.shape
             return q.new_empty((b, sq, h, v.shape[-1])), q.new_empty(
                 (b, h, sq))
 
-        def launch():
-            reached.append(("backward", None))
-            raise _Launch
+        def wkv6_forward(r, k, v, lw, u, steps):
+            reached.append(("wkv6 forward", steps))
+            b, s, h, n = r.shape
+            return (torch.empty_like(r), r.new_empty((b, h, n, n)),
+                    r.new_empty((b, h, -(-s // steps), n, n)))
 
-        # FlashAttention's own forward and backward, run without the
+        def ssd_forward(x, dt, a, b, c, d_skip, init_state):
+            reached.append(("ssd forward", None))
+            return torch.empty_like(x), x.new_empty(
+                (x.shape[0], x.shape[2], x.shape[3], b.shape[3]))
+
+        def launch(name):
+            def lib():
+                reached.append((f"{name} backward", None))
+                raise _Launch
+            return lib
+
+        def ctx():  # an autograd context for a Function run by hand
+            return type("Ctx", (), {
+                "save_for_backward": lambda self, *t: setattr(
+                    self, "saved_tensors", t),
+                "set_materialize_grads": lambda self, v: None})()
+
+        # each Function's own forward and backward, run without the
         # autograd engine (which needs a card)
-        ctx = type("Ctx", (), {"save_for_backward": lambda self, *t:
-                               setattr(self, "saved_tensors", t)})()
-        monkeypatch.setattr(fa, "_forward", forward)
-        monkeypatch.setattr(fa, "_lib", launch)
-        monkeypatch.setattr(fa.FlashAttention, "apply", staticmethod(
-            lambda *a: fa.FlashAttention.forward(ctx, *a)))
+        ctxs = {}
+        for mod, fn, fwd_name, fwd in ((fa, fa.FlashAttention, "_forward",
+                                        forward),
+                                       (wk, wk.WKV6, "_launch",
+                                        wkv6_forward),
+                                       (sk, sk.SSD, "_launch", ssd_forward)):
+            ctxs[fn] = ctx()
+            monkeypatch.setattr(mod, fwd_name, fwd)
+            monkeypatch.setattr(mod, "_lib", launch(mod.__name__.split(
+                ".")[-1]))
+            monkeypatch.setattr(fn, "apply", staticmethod(
+                lambda *a, fn=fn: fn.forward(ctxs[fn], *a)))
+        monkeypatch.setattr(fa._build, "steps_for", lambda t: 16)
         q, k = mk(1, 8, 2, 192), mk(1, 8, 2, 192)
         v = mk(1, 8, 2, 128).requires_grad_()
         out = fa.flash_attention(q, k, v, causal=True)
         assert out.shape == (1, 8, 2, 128)
         # (the engine runs a backward with grad mode off)
         with torch.no_grad(), pytest.raises(_Launch):
-            fa.FlashAttention.backward(ctx, torch.ones_like(out))
-        assert reached == [("forward", True), ("backward", None)]
+            fa.FlashAttention.backward(ctxs[fa.FlashAttention],
+                                       torch.ones_like(out))
+        r, k, v, lw = (mk(1, 40, 2, 64) for _ in range(4))
+        o, state = wk.wkv6(r.requires_grad_(), k, v, lw, mk(2, 64))
+        assert o.shape == r.shape and state.shape == (1, 2, 64, 64)
+        with torch.no_grad(), pytest.raises(_Launch):
+            wk.WKV6.backward(ctxs[wk.WKV6], torch.ones_like(o), None)
+        x = mk(1, 40, 4, 16).requires_grad_()
+        y, state = sk.ssd(x, mk(1, 40, 4), mk(4), mk(1, 40, 2, 16),
+                          mk(1, 40, 2, 16), mk(4), init_state=mk(1, 4, 16,
+                                                                 16))
+        assert y.shape == x.shape and state.shape == (1, 4, 16, 16)
+        with torch.no_grad(), pytest.raises(_Launch):
+            sk.SSD.backward(ctxs[sk.SSD], torch.ones_like(y),
+                            torch.ones_like(state))
+        assert reached == [("flash forward", True),
+                           ("flash_attention backward", None),
+                           ("wkv6 forward", 16), ("wkv6 backward", None),
+                           ("ssd forward", None), ("ssd backward", None)]

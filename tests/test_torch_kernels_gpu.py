@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain versions, on the card: the
 orchestration kernels, flash attention (forward, its LSE, and the
-backward kernel, alone and through autograd), WKV6 and the SSD scan,
-the refusal of a gradient by the kernels that have no backward; and the
+backward kernel, alone and through autograd), WKV6 and the SSD scan
+(forward, and the backward kernels alone and through autograd), the
+refusal of a gradient where there is no backward kernel (bf16); and the
 orchestration kernels under a 2-rank cells group against the port's
 plain route on the CPU.
 
@@ -561,9 +562,9 @@ def test_flash_autograd_at_mla_head_dims(cuda):
 
 @pytest.mark.gpu
 def test_kernels_without_a_backward_refuse_grad(cuda):
-    """Under grad, bf16 flash (at D 192 too), f32 flash at D 224, WKV6
-    and SSD raise naming the roadmap; under ``no_grad`` the same calls
-    run."""
+    """Under grad, bf16 flash (at D 192 too), f32 flash at D 224, and bf16
+    WKV6 and SSD raise naming the roadmap (float32 WKV6 and SSD have
+    their backward kernels); under ``no_grad`` the same calls run."""
     q, k, v = (t.to(cuda) for t in _flash_inputs(1, 1, 64, 64, 2, 2, 64, 64,
                                                  torch.float32))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -579,10 +580,12 @@ def test_kernels_without_a_backward_refuse_grad(cuda):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         fa.flash_attention(qw, kw.requires_grad_(), vw)
     r, kk, vv, lw, u = (t.to(cuda) for t in _wkv_inputs(3, 1, 32, 2, 64))
+    r, kk, vv = (t.bfloat16() for t in (r, kk, vv))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         wk.wkv6(r.requires_grad_(), kk, vv, lw, u)
     x, dt, a, bm, cm, d = (t.to(cuda) for t in _ssd_inputs(4, 1, 32, 4, 16,
                                                            1, 16))
+    x, dt, bm, cm = (t.bfloat16() for t in (x, dt, bm, cm))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         sk.ssd(x.requires_grad_(), dt, a, bm, cm, d)
     with torch.no_grad():
@@ -641,7 +644,7 @@ def test_wkv6_kernel_chunk_lengths(cuda, steps):
     staging, a chunk longer than S."""
     r, k, v, lw, u = (t.to(cuda) for t in _wkv_inputs(steps, 2, 200, 3, 32))
     want_o, want_s = wkv6_recurrent(r, k, v, lw, u)
-    got_o, got_s = wk._launch(r, k, v, lw, u, steps)
+    got_o, got_s, _ = wk._launch(r, k, v, lw, u, steps)
     torch.testing.assert_close(got_o, want_o, atol=5e-4, rtol=1e-3)
     torch.testing.assert_close(got_s, want_s, atol=5e-4, rtol=1e-3)
 
@@ -933,3 +936,209 @@ def test_cells_group_on_the_card_matches_the_cpu(cuda, layout):
     for r in got["ranks"]:
         assert r["launches"] == {"queue_admit": got["n_ticks"],
                                  "group_occupancy": 3 * got["n_ticks"]}
+
+
+# ----------------------------------------------------- WKV6 / SSD backward
+def _wkv_bwd_case(seed, b, s, h, n, decay_scale=1.0, dstate=True):
+    args = _wkv_inputs(seed, b, s, h, n, decay_scale)
+    rng = np.random.default_rng(seed + 1)
+    do = torch.as_tensor(rng.standard_normal((b, s, h, n)).astype(
+        np.float32))
+    ds = (torch.as_tensor(rng.standard_normal((b, h, n, n)).astype(
+        np.float32)) if dstate else None)
+    return args, do, ds
+
+
+def _wkv_bwd_kernel(args, do, ds, cuda):
+    """The forward kernel's chunk states, then the backward kernels."""
+    r, k, v, lw, u = (t.to(cuda) for t in args)
+    _, _, chunk_state = wk._launch(r, k, v, lw, u, wk._build.steps_for(r))
+    return wk.wkv6_backward(r, k, v, lw, u, chunk_state, do.to(cuda),
+                            None if ds is None else ds.to(cuda))
+
+
+def _f64_on(dev, ts):
+    return [None if t is None else t.to(dev, torch.float64) for t in ts]
+
+
+# (b, s, h, n, decay_scale, dstate): one and several chunks of the
+# smallest length, ragged S, weak and strong decay (w underflows), N 16 /
+# 32 / 64, no final-state gradient
+WKV_BWD_CASES = [
+    (1, 64, 2, 16, 1.0, True), (2, 200, 3, 32, 1.0, False),
+    (2, 77, 4, 64, 0.05, True), (2, 128, 2, 64, 5.0, True),
+    (1, 9, 2, 64, 1.0, True), (4, 300, 8, 64, 1.0, True),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,n,decay_scale,dstate", WKV_BWD_CASES)
+def test_wkv6_backward_kernel_matches_plain(cuda, b, s, h, n, decay_scale,
+                                            dstate):
+    """dr, dk, dv, dlw, du of the backward kernels within 1e-4 of each
+    float64 plain gradient's largest magnitude; one launch a call."""
+    args, do, ds = _wkv_bwd_case(s + n, b, s, h, n, decay_scale, dstate)
+    want = wk.wkv6_backward_plain(*_f64_on(cuda, (*args, do, ds)))
+    before = wk.LAUNCHES["wkv6_backward"]
+    got = _wkv_bwd_kernel(args, do, ds, cuda)
+    torch.cuda.synchronize()
+    assert wk.LAUNCHES["wkv6_backward"] == before + 1
+    for name, g, w in zip(("dr", "dk", "dv", "dlw", "du"), got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32, name
+        assert _rel_to_max(g, w.cpu()) <= 1e-4, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [2048, 2000])
+def test_wkv6_backward_kernel_training_shape(cuda, s):
+    """rwkv6-1.6b's training shape (B 4, H 32, N 64) and a ragged S."""
+    args, do, ds = _wkv_bwd_case(s, 4, s, 32, 64)
+    want = wk.wkv6_backward_plain(*_f64_on(cuda, (*args, do, ds)))
+    got = _wkv_bwd_kernel(args, do, ds, cuda)
+    for g, w in zip(got, want):
+        assert _rel_to_max(g, w.cpu()) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_wkv6_backward_kernel_repeats_bit_identical(cuda):
+    """No atomics: five backward calls give the same bits (du from the
+    per-CTA partials summed in a fixed order)."""
+    args, do, ds = _wkv_bwd_case(7, 4, 512, 32, 64)
+    outs = [_wkv_bwd_kernel(args, do, ds, cuda) for _ in range(5)]
+    for other in outs[1:]:
+        assert all(torch.equal(x, y) for x, y in zip(outs[0], other))
+
+
+@pytest.mark.gpu
+def test_wkv6_autograd_launches_the_backward_kernel(cuda):
+    """``torch.autograd.grad`` through ``wkv6`` on the card (o and the
+    final state used) runs one forward and one backward launch and
+    agrees with the CPU's plain route within 1e-4 of each gradient's
+    largest magnitude; repeated, bit for bit."""
+    args, do, ds = _wkv_bwd_case(8, 2, 150, 4, 32)
+
+    def grads(dev):
+        leaves = [t.to(dev).requires_grad_(True) for t in args]
+        o, state = wk.wkv6(*leaves)
+        return torch.autograd.grad((o, state), leaves,
+                                   (do.to(dev), ds.to(dev)))
+
+    want = grads("cpu")
+    wk.reset_launch_counts()
+    got = grads(cuda)
+    assert wk.LAUNCHES == {"wkv6": 1, "wkv6_backward": 1}
+    again = grads(cuda)
+    for g, w, a in zip(got, want, again):
+        assert _rel_to_max(g, w) <= 1e-4
+        assert torch.equal(g, a)
+
+
+def _ssd_bwd_case(seed, b, s, h, p, g, n, decay_scale=1.0, init=True,
+                  dstate=True):
+    args = _ssd_inputs(seed, b, s, h, p, g, n, decay_scale)
+    rng = np.random.default_rng(seed + 1)
+    mk = lambda *sh: torch.as_tensor(rng.standard_normal(sh).astype(
+        np.float32))
+    st0 = mk(b, h, p, n) if init else None
+    return (*args, st0), mk(b, s, h, p), (mk(b, h, p, n) if dstate
+                                         else None)
+
+
+SSD_BWD_NAMES = ("dx", "ddt", "da", "db", "dc", "dd", "dinit")
+# (b, s, h, p, g, n, decay_scale, init, dstate): the forward's shapes
+# with the three tile widths (D 32, 64, 128), G = 2, P != N, ragged S,
+# weak and strong decay
+SSD_BWD_CASES = [
+    (1, 64, 2, 8, 1, 8, 1.0, False, False),
+    (2, 96, 4, 16, 2, 8, 1.0, True, True),
+    (1, 130, 4, 64, 2, 32, 1.0, True, True),
+    (1, 70, 2, 128, 1, 128, 1.0, False, True),
+    (1, 40, 2, 16, 1, 48, 8.0, True, True),
+    (2, 190, 2, 48, 1, 16, 0.05, True, False),
+    (1, 257, 4, 64, 1, 48, 1.0, False, True),
+    (2, 1, 2, 16, 1, 16, 1.0, True, True),
+]
+
+
+def _ssd_bwd_kernel(args, dy, ds, dev):
+    return sk.ssd_backward(*(None if t is None else t.to(dev) for t in args),
+                           dy.to(dev), None if ds is None else ds.to(dev))
+
+
+def _assert_ssd_grads(got, want, bar=1e-4):
+    for name, g, w in zip(SSD_BWD_NAMES, got, want):
+        if w is None:
+            assert g is None, name
+            continue
+        assert g.shape == w.shape and g.dtype == torch.float32, name
+        assert _rel_to_max(g, w.cpu()) <= bar, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,p,g,n,decay_scale,init,dstate",
+                         SSD_BWD_CASES)
+def test_ssd_backward_kernel_matches_plain(cuda, b, s, h, p, g, n,
+                                           decay_scale, init, dstate):
+    """dx, ddt, da, dB, dC, dd and dinit of the backward kernels within
+    1e-4 of each float64 plain gradient's largest magnitude; one launch
+    a call."""
+    args, dy, ds = _ssd_bwd_case(s + p, b, s, h, p, g, n, decay_scale, init,
+                                 dstate)
+    want = sk.ssd_backward_plain(*_f64_on(cuda, (*args, dy, ds)))
+    before = sk.LAUNCHES["ssd_backward"]
+    got = _ssd_bwd_kernel(args, dy, ds, cuda)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES["ssd_backward"] == before + (1 if s else 0)
+    _assert_ssd_grads(got, want)
+
+
+@pytest.mark.gpu
+def test_ssd_backward_kernel_training_shape(cuda):
+    """zamba2-1.2b's training shape (B 4, S 2048, H 64, P 64, G 1, N 64),
+    and its ragged S at G = 2."""
+    for s, g in ((2048, 1), (2000, 2)):
+        args, dy, ds = _ssd_bwd_case(s, 4, s, 64, 64, g, 64)
+        want = sk.ssd_backward_plain(*_f64_on(cuda, (*args, dy, ds)))
+        _assert_ssd_grads(_ssd_bwd_kernel(args, dy, ds, cuda), want)
+
+
+@pytest.mark.gpu
+def test_ssd_backward_kernel_repeats_bit_identical(cuda):
+    args, dy, ds = _ssd_bwd_case(9, 4, 512, 16, 64, 2, 64)
+    outs = [_ssd_bwd_kernel(args, dy, ds, cuda) for _ in range(5)]
+    for other in outs[1:]:
+        assert all(torch.equal(x, y) for x, y in zip(outs[0], other))
+
+
+@pytest.mark.gpu
+def test_ssd_autograd_launches_the_backward_kernel(cuda):
+    """``torch.autograd.grad`` through ``ssd`` on the card, x, B and C the
+    strided views of one convolution output as the model hands them
+    over, the skip term and an initial state: one forward and one
+    backward launch, the gradients of the buffer, dt, a, D and the
+    initial state within 1e-4 of the CPU's plain route; repeated, bit for
+    bit."""
+    (x, dt, a, bm, cm, d, st0), dy, ds = _ssd_bwd_case(10, 2, 150, 4, 16, 2,
+                                                       16)
+    conv = torch.cat([x.reshape(2, 150, 64), bm.reshape(2, 150, 32),
+                      cm.reshape(2, 150, 32)], dim=-1)
+
+    def grads(dev):
+        leaves = [t.to(dev).requires_grad_(True)
+                  for t in (conv, dt, a, d, st0)]
+        c_ = leaves[0]
+        y, state = sk.ssd(c_[..., :64].reshape(2, 150, 4, 16), leaves[1],
+                          leaves[2], c_[..., 64:96].reshape(2, 150, 2, 16),
+                          c_[..., 96:].reshape(2, 150, 2, 16), leaves[3],
+                          init_state=leaves[4])
+        return torch.autograd.grad((y, state), leaves,
+                                   (dy.to(dev), ds.to(dev)))
+
+    want = grads("cpu")
+    sk.reset_launch_counts()
+    got = grads(cuda)
+    assert sk.LAUNCHES == {"ssd": 1, "ssd_backward": 1}
+    again = grads(cuda)
+    for g, w, a_ in zip(got, want, again):
+        assert _rel_to_max(g, w) <= 1e-4
+        assert torch.equal(g, a_)

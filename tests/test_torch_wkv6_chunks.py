@@ -25,10 +25,10 @@ import torch
 
 from repro.kernels.wkv6 import wkv6_pallas
 from repro.models.rwkv6 import wkv6_recurrent
-from repro_torch.kernels import wkv6 as wk
+from repro_torch.kernels import _build
 
 TOL = dict(atol=5e-4, rtol=1e-3)
-L_MAIN = wk.STEPS_PER_CTA
+L_MAIN = _build.STEPS_PER_CTA
 
 
 def _inputs(seed, b, s, h, n, decay_scale=1.0):
@@ -127,7 +127,7 @@ def test_chunks_match_recurrence(n, s, decay_scale):
     _check(got, wkv6_recurrent(*map(jnp.asarray, arrays)))
 
 
-@pytest.mark.parametrize("steps", [wk.MIN_STEPS, 17, L_MAIN])
+@pytest.mark.parametrize("steps", [_build.MIN_STEPS, 17, L_MAIN])
 @pytest.mark.parametrize("n,s", [(16, 3 * L_MAIN + 5), (64, L_MAIN + 1)])
 def test_chunks_match_pallas(n, s, steps):
     """Against the TPU kernel (interpret mode, its chunk of 64), at the
@@ -143,11 +143,11 @@ def test_chunk_decay_underflow_is_exact_zero_carry(decay_scale):
     """At strong decay a chunk's decay product underflows to 0 and the
     carried state is the previous chunk's local state alone, which is the
     recurrence's value; at weak decay the carry spans many chunks."""
-    arrays = _inputs(3, 1, 4 * wk.MIN_STEPS + 3, 2, 16, decay_scale)
-    w = torch.exp(torch.as_tensor(arrays[3][:, :4 * wk.MIN_STEPS]))
-    chunk_decay = w.reshape(1, 4, wk.MIN_STEPS, 2, 16).prod(dim=2)
+    arrays = _inputs(3, 1, 4 * _build.MIN_STEPS + 3, 2, 16, decay_scale)
+    w = torch.exp(torch.as_tensor(arrays[3][:, :4 * _build.MIN_STEPS]))
+    chunk_decay = w.reshape(1, 4, _build.MIN_STEPS, 2, 16).prod(dim=2)
     assert bool((chunk_decay == 0).any()) == (decay_scale > 1)
-    _check(emulate(*arrays, wk.MIN_STEPS),
+    _check(emulate(*arrays, _build.MIN_STEPS),
            wkv6_recurrent(*map(jnp.asarray, arrays)))
 
 
@@ -160,7 +160,7 @@ def test_chunk_decay_underflow_is_exact_zero_carry(decay_scale):
     (128, 300, 132, 64),
 ])
 def test_chunk_len(bh, s, n_sms, want):
-    steps = wk.chunk_len(bh, s, n_sms)
+    steps = _build.chunk_len(bh, s, n_sms)
     assert steps == want
-    assert bh * -(-s // steps) >= min(wk.CTAS_PER_SM * n_sms,
-                                      bh * -(-s // wk.MIN_STEPS))
+    assert bh * -(-s // steps) >= min(_build.CTAS_PER_SM * n_sms,
+                                      bh * -(-s // _build.MIN_STEPS))

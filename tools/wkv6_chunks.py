@@ -81,7 +81,8 @@ def main() -> int:
                                passes_ms=pass_ms(torch, run),
                                blocker_held=timed["blocker_held"])
         results[name] = dict(shape=dict(B=b, S=s, H=h, N=n),
-                             wrapper_steps=wk.chunk_len(b * h, s, n_sms),
+                             wrapper_steps=wk._build.chunk_len(b * h, s,
+                                                               n_sms),
                              by_steps=rows)
         print(json.dumps({name: results[name]}), flush=True)
     (OUT / "wkv6_chunks.json").write_text(json.dumps(results, indent=1))
