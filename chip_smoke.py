@@ -80,8 +80,10 @@ CUDA toolkit's nvcc.  Phases, each printing one JSON line:
    beside) and the flash and SSD kernels' tensor-core instruction counts
    from ``cuobjdump -sass`` of the built libraries (every instance must
    hold some, and the three-panel bf16 instance must be there; every
-   backward instance, ``flash_bwd_dkdv_kernel`` and
-   ``flash_bwd_dq_kernel``, must run TF32 ``HGMMA`` and no ``HMMA``);
+   backward instance, ``flash_bwd_dkdv_kernel``,
+   ``flash_bwd_dq_kernel``, ``ssd_bwd_local`` and ``ssd_bwd_chunk``,
+   must run TF32 ``HGMMA`` and no ``HMMA``, and no ``ssd_bwd_*`` kernel
+   may spill registers);
    then the flash backward (``BWD_SHAPES``: musicgen-medium's and
    yi-6b's training shapes, h2o-danube's window 4,096 at D 120 and S
    4,608, a continuation Sq < Sk, Dk != Dv, deepseek-v2-236b's MLA at Dk
@@ -99,10 +101,14 @@ CUDA toolkit's nvcc.  Phases, each printing one JSON line:
    an initial state and a final-state gradient), WKV6's from the forward
    kernel's chunk states: every gradient within 1e-4 of the float64
    plain backward's largest magnitude on the card (the float32 plain
-   version's own distance beside), bit-identical over two calls, timed
-   beside the float32 plain backward, with their bound (bytes at 3.35
-   TB/s or 12 N^2 / 12 P N FP32 operations a step at 67 TFLOP/s,
-   whichever is larger), each backward kernel's device ms of one call
+   version's own distance beside; SSD's da no further than it),
+   bit-identical over two calls, timed beside the float32 plain
+   backward, with their bound (bytes at 3.35 TB/s or operations,
+   whichever is larger: WKV6's 12 N^2 FP32 operations a step at 67
+   TFLOP/s; SSD's 64 x 64 x 64 products, as three TF32 products each at
+   495 TFLOP/s, with the exact recurrence's 12 P N FP32 operations a
+   step and the design's own bytes beside), each backward kernel's
+   device ms of one call
    in the profiler (None where the trace's sum lies more than
    ``SPLIT_TOL`` from the CUDA-event time), and the ptxas registers and
    spills of every
@@ -1151,8 +1157,10 @@ SSD_BWD_SHAPES = (
 # the backward kernels by name in the profiler, each one's device ms of a
 # call (plus the wrappers' sums of partials, elsewhere in the trace)
 WKV6_BWD_KERNELS = ("wkv6_bwd_local", "wkv6_bwd_scan", "wkv6_bwd_chunk")
-SSD_BWD_KERNELS = ("ssd_bwd_local", "ssd_bwd_scan", "ssd_bwd_chunk",
-                   "ssd_bwd_dt")
+SSD_BWD_KERNELS = ("ssd_bwd_local", "ssd_bwd_scan", "ssd_bwd_chunk")
+# the SSD backward's products a sub-chunk of 64 steps and (batch, head):
+# eight in the chunk pass, two in the local pass
+SSD_BWD_CHUNK_PRODUCTS, SSD_BWD_LOCAL_PRODUCTS = 8, 2
 # bf16 flash: largest |kernel row - plain row| / |plain row| over the
 # (query, head) rows, beside the element-wise 3e-2 / 3e-2
 BF16_ROW_BAR = 1e-2
@@ -1207,7 +1215,7 @@ def sass_tensor_ops(lib: Path) -> dict | None:
     for line in sass.splitlines():
         if "Function :" in line:
             # flash_fwd_kernel_tf32<8>, flash_bwd_dq_kernel<2,2>,
-            # ssd_kernel<bf16,32,64>, ...
+            # ssd_kernel<bf16,32,64>, ...; ssd_bwd_chunk, ...
             m = re.search(r"(flash_fwd_kernel_\w+?|flash_bwd_\w+?_kernel"
                           r"|ssd_kernel)I"
                           r"(f|13__nv_bfloat16)?((?:Li\d+E)+)E", line)
@@ -1215,6 +1223,8 @@ def sass_tensor_ops(lib: Path) -> dict | None:
             if m and m[2]:
                 args.insert(0, "float" if m[2] == "f" else "bf16")
             fn = f"{m[1]}<{','.join(args)}>" if m else None
+            if fn is None and (m := re.search(r"\d(ssd_bwd_[a-z]+)E", line)):
+                fn = m[1]
             if fn:
                 counts[fn] = {"HMMA.TF32": 0, "HMMA": 0, "HGMMA.BF16": 0,
                               "HGMMA.TF32": 0}
@@ -1243,15 +1253,22 @@ def phase_lm_kernels(torch, dev, ptxas: dict) -> dict:
                                  "HGMMA.BF16"),
                                 (sass, "flash_bwd_dkdv_kernel", "HGMMA.TF32"),
                                 (sass, "flash_bwd_dq_kernel", "HGMMA.TF32"),
-                                (ssd_sass, "ssd_kernel", "HMMA.TF32")):
+                                (ssd_sass, "ssd_kernel", "HMMA.TF32"),
+                                (ssd_sass, "ssd_bwd_local", "HGMMA.TF32"),
+                                (ssd_sass, "ssd_bwd_chunk", "HGMMA.TF32")):
         if found_in is None:
             continue
         found = {k: v for k, v in found_in.items() if k.startswith(inst)}
         check(bool(found), f"cuobjdump lists an instance of {inst}")
         for fn, ops in found.items():
             check(ops[key] > 0, f"{fn} runs {key} on the tensor cores")
-            if inst.startswith("flash_bwd"):  # wgmma only, no mma.sync
+            if "_bwd_" in inst:  # wgmma only, no mma.sync
                 check(ops["HMMA"] == 0, f"{fn} runs no HMMA ({ops})")
+    ssd_bwd_ptxas = {k: v for k, v in ptxas.items() if "ssd_bwd" in k}
+    for fn, use in ssd_bwd_ptxas.items():
+        check(use.get("spill_stores", 0) == 0 and
+              use.get("spill_loads", 0) == 0, f"{fn} spills no registers "
+              f"({use})")
     if sass is not None:  # the bf16 instances at D in (128, 192]
         check(any(k.startswith("flash_fwd_kernel_wgmma<3,") for k in sass),
               "cuobjdump lists the three-panel (D 192) wgmma instance")
@@ -1350,8 +1367,9 @@ def phase_lm_kernels(torch, dev, ptxas: dict) -> dict:
     for name, b, s, h, p, g, n, init, dstate in SSD_BWD_SHAPES:
         out[f"{name}_backward"] = dict(ssd_backward_entry(
             torch, dev, g_=g, b=b, s=s, h=h, p=p, n=n, init=init,
-            dstate=dstate), ptxas={k: v for k, v in ptxas.items()
-                                   if "ssd_bwd" in k})
+            dstate=dstate), ptxas=ssd_bwd_ptxas, sass_tensor_ops=None
+            if ssd_sass is None else {k: v for k, v in ssd_sass.items()
+                                      if k.startswith("ssd_bwd")})
         torch.cuda.empty_cache()
     bwd_ptxas = {k: v for k, v in ptxas.items() if "flash_bwd" in k}
     for name, b, sq, sk, h, kv, d, dv, window in BWD_SHAPES:
@@ -1722,12 +1740,18 @@ def ssd_backward_entry(torch, dev, *, g_, b, s, h, p, n, init,
     errs = backward_errors(torch, f"ssd backward (S {s}, G {g_})",
                            ("dx", "ddt", "da", "db", "dc", "dd", "dinit"),
                            got, want, want_f32)
+    # da's partials per 64-step sub-chunk keep it no further from the
+    # float64 gradient than the float32 plain version's own da
+    da_err, da_f32 = (errs[k]["da"] for k in ("max_rel_to_max_err",
+                                              "f32_plain_rel_to_max_err"))
+    check(da_err <= da_f32, f"ssd backward (S {s}, G {g_}) da within the "
+          f"f32 plain version's distance ({da_err} > {da_f32})")
     del got, want, want_f32
     kern = cuda_ms(torch, lambda: sk.ssd_backward(*args), iters=10)
     plain_t = cuda_ms(torch, lambda: plain(*args), iters=2, warmup=1)
     by_kernel = kernel_split(torch, lambda: sk.ssd_backward(*args),
                              SSD_BWD_KERNELS, kern["ms"])
-    steps = sk._build.steps_for(x)
+    n_sub = -(-s // sk.SUB)
     # x, dy read and dx written (B, S, H, P); dt read and its gradient
     # written; B, C read and their gradients written; a, d and their
     # gradients; the initial state and the final state's gradient read,
@@ -1735,16 +1759,41 @@ def ssd_backward_entry(torch, dev, *, g_, b, s, h, p, n, init,
     n_bytes = 4 * (3 * b * s * h * p + 2 * b * s * h + 4 * b * s * g_ * n
                    + 4 * h + b * h * p * n * ((2 if init else 0)
                                               + (1 if dstate else 0)))
-    # per (batch, step, head): the S and dS recurrences (3 P N each) and
+    # the products the kernels run, each 64 x 64 x 64 (P and N padded to
+    # 64; at P = N = 64 no slicing), as three TF32 products at the TF32
+    # peak
+    products = b * h * n_sub * (SSD_BWD_CHUNK_PRODUCTS
+                                + SSD_BWD_LOCAL_PRODUCTS)
+    flops = 2 * 64 ** 3 * products
+    # the design's own bytes (at 4 bytes an element): the local pass reads
+    # x, dy, B and C and writes each sub-chunk's state and its gradient
+    # (padded rows of n4); the scan reads and writes both; the chunk pass
+    # reads x, dy, B, C, dt and both states and writes dx, ddt and the
+    # per-head dB and dC, which the wrapper reads and sums per group
+    n4 = -(-n // 4) * 4
+    states = 2 * b * h * n_sub * p * n4
+    per_head = 2 * b * s * h * n
+    design_bytes = 4 * ((2 * b * s * h * p + 2 * b * s * g_ * n + states)
+                        + 2 * states
+                        + (3 * b * s * h * p + 2 * b * s * g_ * n + states
+                           + 2 * b * s * h + per_head)
+                        + (per_head + 2 * b * s * g_ * n))
+    # beside it the bound of the exact recurrences on the CUDA cores:
+    # per (batch, step, head) the S and dS recurrences (3 P N each) and
     # the three matrix-vector products S^T dy, dS^T x, dS B (2 P N each)
-    flops = 12 * b * s * h * p * n
+    # at the FP32 peak
+    rec_flops = 12 * b * s * h * p * n
     return dict(
         name="ssd_backward", route="cuda", source=SOURCES["ssd"],
         replaces=REPLACES["ssd_backward"], **errs, bit_identical=identical,
         ms=kern["ms"], plain_ms=plain_t["ms"], library_ms=None,
-        **roofline(n_bytes, flops, PEAK_FP32),
+        **roofline(n_bytes, 3 * flops, PEAK_TF32),
+        fp32_recurrence_bound_ms=roofline(n_bytes, rec_flops,
+                                          PEAK_FP32)["bound_ms"],
+        design_byte_floor_ms=bound_ms(design_bytes),
+        products=products,
         by_kernel_ms=by_kernel,
-        steps_per_cta=steps, ctas_per_role=b * h * -(-s // steps),
+        steps_per_item=sk.SUB, items_per_pass=b * h * n_sub,
         call_ms=kern["call_ms"], plain_call_ms=plain_t["call_ms"],
         blocker_held=kern["blocker_held"],
         shape=dict(B=b, S=s, H=h, P=p, G=g_, N=n, dtype="float32",
@@ -1760,9 +1809,19 @@ def kernel_split(torch, fn, names, ms: float) -> dict:
     ``PROFILE_ATTEMPTS`` times (each counted in
     ``results["profiler_lost_traces"]``, the sums that disagreed in
     ``results["profiler_split_off"]``), and after that each kernel's
-    time is None: the split informs, it checks nothing."""
+    time is None: the split informs, it checks nothing.  So a profiler
+    that records no device event at all in ``traced``'s attempts (CUPTI
+    on the card has lost whole traces after the kernels' libraries ran)
+    costs the split, not the run."""
     for _ in range(PROFILE_ATTEMPTS):
-        prof, _ = _device_time(torch, fn, names)
+        try:
+            prof, _ = _device_time(torch, fn, names)
+        except RuntimeError as e:
+            if "recorded no device event" not in str(e):
+                raise
+            results.setdefault("profiler_empty_splits", []).append(
+                list(names))
+            return dict.fromkeys(names)
         split = prof["match_ms"]
         if all(split[n] > 0 for n in names):
             total = sum(split.values())

@@ -81,8 +81,10 @@ F64_SITES = frozenset({
     "repro_torch.hltrain.trainer._emit_epoch",  # the on_epoch lane
 })
 # kernel sources that may hold ``double``, and the functions there: the
-# SSD kernel's decay scan keeps its cumulative sums in float64
-F64_KERNEL_SITES = {"ssd.cu": frozenset({"chunk_scan", "ssd_kernel"})}
+# SSD kernels' decay scans keep their cumulative sums in float64 (the
+# forward's chunk_scan; the backward's scan_dt and its vector dac_at)
+F64_KERNEL_SITES = {"ssd.cu": frozenset({
+    "chunk_scan", "ssd_kernel", "scan_dt", "dac_at"})}
 BANNED_DTYPES = frozenset({"complex128"})
 
 # ops that block the host on a CUDA device whatever their arguments

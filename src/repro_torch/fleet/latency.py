@@ -133,3 +133,30 @@ def response_times(actions, weak_s, weak_e, busy_p_s, busy_m_s, busy_m_e,
     t = torch.where(is_edge, te[:, None], t)
     t = torch.where(is_cloud, tc[:, None], t)
     return t + pen(weak_s & mask, "weak_s")
+
+
+def round_metrics(actions, weak_s, weak_e, mask=None, **bg):
+    """(average response time ms, average accuracy %) of C cells' rounds
+    over their real slots, each (C,) float32.
+
+    actions, weak_s: (C, n); weak_e: (C,); mask: (C, n) bool of real
+    slots (None: all real); ``bg`` takes :func:`response_times`' busy
+    flags and background occupancy by name, quiet where absent (no busy
+    flag, no background), as the reference's defaults.  With a mask the
+    means divide by ``max(1, mask.sum(-1))``, so a cell with no real slot
+    reads 0."""
+    c, n = actions.shape
+    dev = actions.device
+    flags = lambda shape: torch.zeros(shape, dtype=torch.bool, device=dev)
+    counts = lambda: torch.zeros(c, dtype=torch.int32, device=dev)
+    real = flags((c, n)).logical_not() if mask is None else mask
+    t = response_times(
+        actions, weak_s, weak_e,
+        bg.get("busy_p_s", flags((c, n))), bg.get("busy_m_s", flags((c, n))),
+        bg.get("busy_m_e", flags(c)), bg.get("busy_m_c", flags(c)),
+        bg.get("bg_edge", counts()), bg.get("bg_cloud", counts()), real)
+    acc = action_accuracy(actions)
+    if mask is None:
+        return t.mean(-1), acc.mean(-1)
+    denom = mask.sum(-1).clamp(min=1).to(t.dtype)
+    return (t * mask).sum(-1) / denom, (acc * mask).sum(-1) / denom

@@ -49,15 +49,20 @@ def nvcc_path() -> str:
 
 
 def library_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """The library of ``source``, named by a hash of it, the headers of
+    ``csrc/`` and the flags."""
+    text = source.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{source.stem}-{digest[:16]}.so"
 
 
 def build(source: Path, force: bool = False) -> tuple[Path, str]:
-    """Compile ``source`` unless its library exists (or ``force``).
-    Returns the library path and nvcc's output (``-Xptxas -v`` register
-    and shared-memory lines), empty when nothing was compiled."""
+    """Compile ``source`` unless its library exists (or ``force``), with
+    ``csrc/`` on the include path (a variant written elsewhere finds the
+    shared header).  Returns the library path and nvcc's output
+    (``-Xptxas -v`` register and shared-memory lines), empty when nothing
+    was compiled."""
     out = library_path(source)
     if out.exists() and not force:
         return out, ""
@@ -69,8 +74,8 @@ def build(source: Path, force: bool = False) -> tuple[Path, str]:
             return out, ""
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
         proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
-            capture_output=True, text=True)
+            [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+             str(source)], capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {source.name} "
                                f"(exit {proc.returncode}):\n{proc.stderr}")
@@ -133,11 +138,10 @@ def refuse_grad(name: str, device: torch.device, *tensors) -> None:
             f"item 10.4c)")
 
 
-# steps per CTA of the chunked scans (WKV6's forward and backward, SSD's
-# backward), halved (down to MIN_STEPS) while the grid would give fewer
-# than CTAS_PER_SM CTAs per SM (chosen by timing the WKV6 forward,
-# tools/wkv6_chunks.py; tools/bwd_chunks.py times both backwards by chunk
-# length)
+# steps per CTA of the chunked scans (WKV6's forward and backward), halved
+# (down to MIN_STEPS) while the grid would give fewer than CTAS_PER_SM
+# CTAs per SM (chosen by timing the WKV6 forward, tools/wkv6_chunks.py;
+# tools/bwd_chunks.py times the backward by chunk length)
 STEPS_PER_CTA, MIN_STEPS, CTAS_PER_SM = 256, 16, 4
 
 

@@ -99,6 +99,8 @@
 
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1e30f;  // the reference's NEG_INF
@@ -108,10 +110,6 @@ constexpr int kMaxDv = 128;  // Dv of every instance
 struct Strides {  // element strides of the (B, S, H, D) operands
   long long q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, o_b, o_s, o_h;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // The key-tile range [first, end) a query tile [q0, q0 + rows) can see.
 __device__ __forceinline__ void key_range(int q0, int rows, int Sq, int Sk,
@@ -150,27 +148,6 @@ constexpr int kWideWarps = 8, kWideBK = 32;
 // pitch is 4 mod 8 (conflict-free fragment reads, 16-byte rows)
 __host__ __device__ __forceinline__ int pitch(int d) {
   return (d + 7) / 8 * 8 + 4;
-}
-
-// cvt.rna.tf32.f32 on a finite value: round the magnitude to 10 mantissa
-// bits, ties away from zero.  Two integer operations: the instruction
-// itself also screens for inf / NaN, which costs three more per value
-__device__ __forceinline__ uint32_t tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-}
-
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // c += a.b in split precision: the two small terms first
@@ -514,26 +491,6 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// wait until at most n committed wgmma groups are still in flight
-template <int n>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(n) : "memory");
-}
-
-// keeps the compiler from moving reads or writes of registers that an
-// in-flight wgmma owns across this point
-template <int n>
-__device__ __forceinline__ void fence_regs(float (&r)[n]) {
-#pragma unroll
-  for (int i = 0; i < n; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
 // named barriers 1 and 2, shared by the two consumer warpgroups
 __device__ __forceinline__ void named_sync(int id) {
   asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
@@ -548,70 +505,10 @@ __device__ __forceinline__ float ex2(float x) {  // 2^x, flushed to 0
   return y;
 }
 
-// shared-memory matrix descriptor, 128-byte swizzle; offsets in bytes
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
                : "memory");
 }
-// spins until the phase of the given parity has completed; a barrier
-// that stays open for about ten seconds traps (the launch then fails
-// with an error) rather than holding the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  long long start = 0;
-  for (int spin = 0;; ++spin) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (spin == 0)
-      start = clock64();
-    else if (clock64() - start > (1ll << 34))
-      __trap();
-  }
-}
-
-// one (64 columns x 128 rows) box of a 4-d tensor map whose outer axes
-// are head, row and batch in the order of their strides: perm holds the
-// map axis (1..3) of head in bits 0-1, of row in 2-3, of batch in 4-5
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int perm, uint32_t bar, int col,
-                                         int head, int row, int batch) {
-  const int ph = perm & 3, ps = (perm >> 2) & 3;
-  const int c1 = ph == 1 ? head : ps == 1 ? row : batch;
-  const int c2 = ph == 2 ? head : ps == 2 ? row : batch;
-  const int c3 = ph == 3 ? head : ps == 3 ? row : batch;
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&x);
@@ -882,61 +779,6 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
 }
 
 // ------------------------------------------------------------ launchers
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from libcuda, which the process has loaded
-// (the runtime API has no tensor-map encoder, and nothing links libcuda)
-EncodeTiled encoder() {
-  static EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    return lib ? reinterpret_cast<EncodeTiled>(
-                     dlsym(lib, "cuTensorMapEncodeTiled"))
-               : nullptr;
-  }();
-  return fn;
-}
-
-// a bf16 tensor map of a (B, S, H, d) operand: axis 0 is d, axes 1-3
-// are head, row and batch sorted by stride (*perm says where each went);
-// (64, rows) boxes with the 128-byte swizzle; reads past d or S are
-// zero-filled
-bool make_map(CUtensorMap* map, int* perm, const void* ptr, int d, int heads,
-              int s, int batch, long long st_h, long long st_s,
-              long long st_b, int rows) {
-  EncodeTiled fn = encoder();
-  if (fn == nullptr) return false;
-  const long long size[3] = {heads, s, batch}, stride[3] = {st_h, st_s, st_b};
-  int order[3] = {0, 1, 2};  // logical axes (head, row, batch) by stride
-  for (int i = 1; i < 3; ++i)
-    for (int j = i; j > 0 && stride[order[j]] < stride[order[j - 1]]; --j) {
-      const int x = order[j];
-      order[j] = order[j - 1];
-      order[j - 1] = x;
-    }
-  cuuint64_t dims[4] = {static_cast<cuuint64_t>(d)}, strides[3];
-  cuuint32_t box[4] = {64};
-  *perm = 0;
-  for (int i = 0; i < 3; ++i) {
-    const int ax = order[i];
-    dims[i + 1] = static_cast<cuuint64_t>(size[ax]);
-    strides[i] = static_cast<cuuint64_t>(stride[ax]) * 2;
-    box[i + 1] = ax == 1 ? rows : 1;
-    *perm |= (i + 1) << (2 * ax);
-  }
-  const cuuint32_t estr[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-            const_cast<void*>(ptr), dims, strides, box, estr,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
@@ -996,9 +838,12 @@ int launch_wgmma(const void* q, const void* k, const void* v,
                  int window, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   int pq, pk, pv;
-  if (!make_map(&tq, &pq, q, D, H, Sq, B, st.q_h, st.q_s, st.q_b, 128) ||
-      !make_map(&tk, &pk, k, D, KV, Sk, B, st.k_h, st.k_s, st.k_b, kBK) ||
-      !make_map(&tv, &pv, v, Dv, KV, Sk, B, st.v_h, st.v_s, st.v_b, kBK))
+  if (!make_map(&tq, &pq, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 64, q, D, H,
+                Sq, B, st.q_h, st.q_s, st.q_b, 128) ||
+      !make_map(&tk, &pk, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 64, k, D, KV,
+                Sk, B, st.k_h, st.k_s, st.k_b, kBK) ||
+      !make_map(&tv, &pv, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 64, v, Dv, KV,
+                Sk, B, st.v_h, st.v_s, st.v_b, kBK))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = 1024 + static_cast<size_t>(kNPK) * kPanel +
                       static_cast<size_t>(kStg) * (kNPK + kNPV) * kBK * 128 +
@@ -1205,107 +1050,9 @@ __host__ __device__ constexpr int bwd_smem() {
          8 * (7 + 2 * kBwdStages);
 }
 
-__device__ __forceinline__ float lds(const uint8_t* p) {
-  return *reinterpret_cast<const float*>(p);
-}
-
-// the lo half of a raw float32 word that wgmma reads as tf32 (its low 13
-// bits dropped): rna_tf32(a - trunc_tf32(a))
-__device__ __forceinline__ float raw_lo(float x) {
-  return __uint_as_float(
-      tf32(x - __uint_as_float(__float_as_uint(x) & 0xFFFFE000u)));
-}
-
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
 // the consumer warpgroup's own barrier (named barrier 1, 128 threads)
 __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, 128;\n" ::: "memory");
-}
-
-// one (32 columns x rows) box of a float32 tensor map with axes
-// (column, head, row, batch)
-__device__ __forceinline__ void tma_load_f32(uint32_t dst,
-                                             const CUtensorMap* map,
-                                             uint32_t bar, int col, int head,
-                                             int row, int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(head),
-      "r"(row), "r"(batch)
-      : "memory");
-}
-
-// D (64 x 16, f32) += A (64 x 8, tf32 in registers) . B (16 x 8, tf32 in
-// shared memory, K-major, 128-byte swizzle)
-__device__ __forceinline__ void wgmma_tf32_n16(float (&d)[8],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D (64 x 32, f32) += A (64 x 8, tf32 in registers) . B (32 x 8, tf32 in
-// shared memory, K-major, 128-byte swizzle)
-__device__ __forceinline__ void wgmma_tf32_n32(float (&d)[16],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D (64 x 64, f32) += A (64 x 8, tf32 in registers) . B (64 x 8, tf32 in
-// shared memory, K-major, 128-byte swizzle)
-__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2],
-                                           const uint32_t (&a)[4],
-                                           uint64_t db) {
-  if constexpr (N == 16)
-    wgmma_tf32_n16(d, a, db);
-  else if constexpr (N == 32)
-    wgmma_tf32_n32(d, a, db);
-  else
-    wgmma_tf32_n64(d, a, db);
 }
 
 // The A fragments are gathered from swizzled tiles.  For a tile whose

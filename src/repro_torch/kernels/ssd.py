@@ -33,17 +33,22 @@ an aligned buffer (``_build.aligned``).  The model's x, b and c, slices
 of one float32 convolution output whose width is a multiple of 4, are
 never copied.
 
-The backward kernels (``csrc/ssd.cu``, exact per-step recurrences on the
-CUDA cores in float32) walk chunks of ``_build.chunk_len`` steps, one CTA per
-chunk and role: a pass that runs each chunk's state from zero and its
-gradient from a zero end gradient, a scan that carries both across
-chunks (the chunk states are recomputed, not kept by the forward), a
-pass that walks each chunk forward (dC) and back (dx, dS^T x), and a
-warp a chunk for dt's gradient with the chunk-local decay sums.  They
-read x, b and c through their strides, so the gradients of the model's
-views need no copy of their inputs; dB and dC come per head and each
-group's heads, like da's and dd's per-chunk partials, are summed here in
-a fixed order.
+The backward (``csrc/ssd.cu``) is the chunked SSD form's gradient on the
+tensor cores (3xTF32 ``wgmma``), per sub-chunk of 64 steps, with state
+passing over the sub-chunks: a pass that runs each sub-chunk's state
+from zero and its gradient from a zero end gradient, a scan that carries
+both across sub-chunks (their states are recomputed, not kept by the
+forward), and a pass that computes every gradient of a sub-chunk from
+the state at its start and the gradient at its end.  They read x,
+b, c and dy through their strides, so the gradients of the model's views
+need no copy of their inputs; the kernels take P and N up to 64, so a
+wider P or N is split into slices of 64 here (the scan is a sum of
+independent scans over slices of P and of N) and their gradients summed.
+dB and dC come per head and each group's heads, like da's and dd's
+per-sub-chunk partials (added pairwise), are summed here in a fixed
+order.  The kernels write dx, dB, dC and the sub-chunks' states by TMA,
+whose strides are multiples of 16 bytes, so those rows are padded here
+to a multiple of 4 floats and the gradients returned as views.
 """
 from __future__ import annotations
 
@@ -55,12 +60,14 @@ from repro_torch.kernels import _build
 
 LAUNCHES = {"ssd": 0, "ssd_backward": 0}
 MAX_DIM = 128
+BWD_SLICE = 64  # P and N of one backward kernel call
+SUB = 64  # steps of the backward's sub-chunk: wgmma's M
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
          _P]
 _SIGNATURES = {"ssd_f32": _ARGS, "ssd_bf16": _ARGS,
-               "ssd_backward_f32": [_P] * 21 + [_I] * 8 + [_P]}
+               "ssd_backward_f32": [_P] * 20 + [_I] * 7 + [_P]}
 _FN = {torch.float32: "ssd_f32", torch.bfloat16: "ssd_bf16"}
 
 
@@ -163,6 +170,61 @@ def _launch(x, dt, a, b, c, d_skip, init_state):
     return y, state
 
 
+def _pairwise(t):
+    """Sum over the last axis by adjacent pairs, level by level: a fixed
+    order, and no running sum over the whole axis."""
+    while t.shape[-1] > 1:
+        if t.shape[-1] % 2:
+            t = torch.cat([t, t.new_zeros(t.shape[:-1] + (1,))], dim=-1)
+        t = t[..., 0::2] + t[..., 1::2]
+    return t[..., 0]
+
+
+def _backward_call(lib, x, dt, a, b, c, d_skip, init_state, dy, dstate):
+    """One launch of the backward kernels on a slice of at most
+    BWD_SLICE columns of P and of N: (dx, ddt, db_head, dc_head, dinit,
+    da_part, dd_part), the partials per (batch, head, 64-step
+    sub-chunk)."""
+    bb, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    x, b, c, dy = (_build.aligned(t) for t in (x, b, c, dy))
+    init_state, dstate = (None if t is None else t.contiguous()
+                          for t in (init_state, dstate))
+    # the kernels write every element of these but the columns past P or
+    # N of the rows they pad to a multiple of 4 (TMA's 16-byte strides)
+    p4, n4 = -(-p // 4) * 4, -(-n // 4) * 4
+    dx = torch.empty((bb, s, h, p4), **f32)
+    ddt = torch.empty((bb, s, h), **f32)
+    db_head, dc_head = (torch.empty((bb, s, h, n4), **f32) for _ in range(2))
+    dinit = None if init_state is None else torch.empty((bb, h, p, n), **f32)
+    n_sub = -(-s // SUB)
+    da_part, dd_part, decay = (torch.empty((bb, h, n_sub), **f32)
+                               for _ in range(3))
+    s_chunks, ds_chunks = (torch.empty((bb, h, n_sub, p, n4), **f32)
+                           for _ in range(2))
+    strides = (ctypes.c_longlong * 15)(
+        *_build.row_strides(x), *(dt.stride(i) for i in (0, 1, 2)),
+        *_build.row_strides(b), *_build.row_strides(c),
+        *_build.row_strides(dy))
+    err = lib.ssd_backward_f32(
+        x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+        c.data_ptr(), _ptr(d_skip), _ptr(init_state), dy.data_ptr(),
+        _ptr(dstate), dx.data_ptr(), ddt.data_ptr(), db_head.data_ptr(),
+        dc_head.data_ptr(), _ptr(dinit), da_part.data_ptr(),
+        dd_part.data_ptr(), s_chunks.data_ptr(), ds_chunks.data_ptr(),
+        decay.data_ptr(), strides, bb, s, h, g, p, n, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.raise_on(err, "ssd_backward")
+    return (dx[..., :p], ddt, db_head[..., :n], dc_head[..., :n], dinit,
+            da_part, dd_part)
+
+
+def _slices(n):
+    return [(i, min(n, i + BWD_SLICE)) for i in range(0, n, BWD_SLICE)]
+
+
 def ssd_backward(x, dt, a, b, c, d_skip, init_state, dy, dstate=None):
     """(dx, ddt, da, db, dc, dd, dinit) of :func:`ssd` at its inputs for
     the output gradient ``dy`` and the final state's ``dstate`` (None:
@@ -185,40 +247,49 @@ def ssd_backward(x, dt, a, b, c, d_skip, init_state, dy, dstate=None):
     if dstate is not None:
         _build.check("dstate", dstate, torch.float32, (bb, h, p, n), dev,
                      contiguous=False)
-        dstate = dstate.contiguous()
-    dy = dy.contiguous()
-    # the kernels write every element of these
+    if dy.stride(-1) != 1:
+        dy = dy.contiguous()
     f32 = dict(dtype=torch.float32, device=dev)
-    dx = torch.empty((bb, s, h, p), **f32)
-    ddt = torch.empty((bb, s, h), **f32)
-    db_head, dc_head = (torch.empty((bb, s, h, n), **f32) for _ in range(2))
-    dinit = None if init_state is None else torch.empty((bb, h, p, n), **f32)
-    if bb * h * s > 0:
-        lib, steps = _lib(), _build.steps_for(x)
-        n_chunks = -(-s // steps)
-        da_part, dd_part, decay, sds = (torch.empty((bb, h, n_chunks), **f32)
-                                        for _ in range(4))
-        s_chunks, ds_chunks = (torch.empty((bb, h, n_chunks, p, n), **f32)
-                               for _ in range(2))
-        err = lib.ssd_backward_f32(
-            x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
-            c.data_ptr(), _ptr(d_skip), _ptr(init_state), dy.data_ptr(),
-            _ptr(dstate), dx.data_ptr(), ddt.data_ptr(), db_head.data_ptr(),
-            dc_head.data_ptr(), _ptr(dinit), da_part.data_ptr(),
-            dd_part.data_ptr(), s_chunks.data_ptr(), ds_chunks.data_ptr(),
-            decay.data_ptr(), sds.data_ptr(), _strides(x, dt, b, c), bb, s,
-            h, g, p, n, steps, dev.index,
-            torch.cuda.current_stream(dev).cuda_stream)
-        _build.raise_on(err, "ssd_backward")
-        LAUNCHES["ssd_backward"] += 1
-        da, dd = da_part.sum(dim=(0, 2)), dd_part.sum(dim=(0, 2))
-    else:  # no step: the final state is the initial one
-        da, dd = torch.zeros_like(a), torch.zeros((h,), **f32)
-        if dinit is not None and dstate is not None:
-            dinit.copy_(dstate)
-        elif dinit is not None:
-            dinit.zero_()
-    # each group's heads, and da's and dd's partials, in a fixed order
+    if bb * h * s == 0:  # no step: the final state is the initial one
+        dinit = None
+        if init_state is not None:
+            dinit = torch.zeros((bb, h, p, n), **f32)
+            if dstate is not None:
+                dinit.copy_(dstate)
+        return (torch.empty((bb, s, h, p), **f32),
+                torch.empty((bb, s, h), **f32), torch.zeros_like(a),
+                torch.zeros((bb, s, g, n), **f32),
+                torch.zeros((bb, s, g, n), **f32),
+                None if d_skip is None else torch.zeros((h,), **f32), dinit)
+    lib = _lib()
+    cut = lambda t, p_, n_: None if t is None else t[:, :, p_[0]:p_[1],
+                                                      n_[0]:n_[1]]
+    ps, ns = _slices(p), _slices(n)
+    parts = {(i, j): _backward_call(
+        lib, x[..., pi[0]:pi[1]], dt, a, b[..., nj[0]:nj[1]],
+        c[..., nj[0]:nj[1]], d_skip if j == 0 else None,
+        cut(init_state, pi, nj), dy[..., pi[0]:pi[1]], cut(dstate, pi, nj))
+        for i, pi in enumerate(ps) for j, nj in enumerate(ns)}
+    LAUNCHES["ssd_backward"] += 1
+    one = lambda ts: ts[0] if len(ts) == 1 else ts[0] + ts[1]
+    cat = lambda ts, dim: ts[0] if len(ts) == 1 else torch.cat(ts, dim)
+    # dx sums over N's slices, dB and dC over P's, ddt and da over both
+    dx = cat([one([parts[i, j][0] for j in range(len(ns))])
+              for i in range(len(ps))], -1)
+    ddt = parts[0, 0][1] if len(parts) == 1 else _pairwise(
+        torch.stack([t[1] for t in parts.values()], -1))
+    db_head, dc_head = (cat([one([parts[i, j][k] for i in range(len(ps))])
+                             for j in range(len(ns))], -1) for k in (2, 3))
+    dinit = None
+    if init_state is not None:
+        dinit = cat([cat([parts[i, j][4] for j in range(len(ns))], -1)
+                     for i in range(len(ps))], -2)
+    # da's and dd's partials per sub-chunk, pairwise over batch, slices
+    # and sub-chunks
+    flat = lambda ts: torch.stack(ts).permute(2, 0, 1, 3).reshape(h, -1)
+    da = _pairwise(flat([t[5] for t in parts.values()]))
+    dd = _pairwise(flat([parts[i, 0][6] for i in range(len(ps))]))
+    # each group's heads in a fixed order
     db, dc = (t.view(bb, s, g, h // g, n).sum(dim=3)
               for t in (db_head, dc_head))
     return (dx, ddt, da, db, dc, None if d_skip is None else dd, dinit)

@@ -186,10 +186,11 @@ class TestF64Injection:
                    for m in msgs), msgs
 
     def test_kernel_sources_scanned(self, tmp_path):
-        # the committed kernels hold double only in the SSD decay scan
+        # the committed kernels hold double only in the SSD decay scans
         assert contracts.kernel_float64_problems() == []
         sites = {(f, fn) for f, fn, _ in contracts.kernel_float64_sites()}
-        assert sites == {("ssd.cu", "chunk_scan"), ("ssd.cu", "ssd_kernel")}
+        assert sites == {("ssd.cu", fn) for fn in (
+            "chunk_scan", "ssd_kernel", "scan_dt", "dac_at")}
         (tmp_path / "toy.cu").write_text(textwrap.dedent("""\
             // a double in a comment is not code
             __global__ void toy_kernel(float* x) {
@@ -200,7 +201,8 @@ class TestF64Injection:
         msgs = contracts.kernel_float64_problems(tmp_path)
         assert msgs == [
             "[kernels] float64: double in toy.cu:3 (toy_kernel), outside "
-            "F64_KERNEL_SITES {'ssd.cu': ['chunk_scan', 'ssd_kernel']}"]
+            "F64_KERNEL_SITES {'ssd.cu': ['chunk_scan', 'dac_at', "
+            "'scan_dt', 'ssd_kernel']}"]
         assert contracts.kernel_float64_problems(
             tmp_path, {"toy.cu": {"toy_kernel"}}) == []
 

@@ -2,6 +2,9 @@
 
 * ``response_times`` against the numpy ``repro.env.latency_model`` in
   float64 at 1e-5 (and in float32, the serving dtype, at 1e-6 relative).
+* ``round_metrics`` against ``repro.fleet.latency.round_metrics`` at
+  1e-5: quiet and with busy flags and background, unmasked and masked,
+  with a cell whose mask is all false.
 * ``random_fleet`` bit-equal to the reference's from the same key, at
   7, 1,000 and 65,536 cells.
 * ``observe`` / ``step`` against ``repro.fleet.env.make_fleet_env`` for
@@ -18,6 +21,7 @@ import torch
 from repro.env import latency_model as ref_lm
 from repro.fleet.env import FleetConfig as RefFleetConfig
 from repro.fleet.env import make_fleet_env as ref_make_fleet_env
+from repro.fleet.latency import round_metrics as ref_round_metrics
 from repro.fleet.workload import random_fleet as ref_random_fleet
 from repro_torch import convert
 from repro_torch import random as rnd
@@ -81,6 +85,41 @@ def test_masked_slots_add_no_time_or_contention():
     x3 = {k: (v[:, :3] if np.ndim(v) == 2 else v) for k, v in x.items()}
     np.testing.assert_allclose(got[:, :3].numpy(), _ref_times(x3),
                                rtol=1e-6)
+
+
+@pytest.mark.parametrize("masked,busy", [(False, False), (False, True),
+                                          (True, False), (True, True)])
+def test_round_metrics_match_reference(masked, busy):
+    """(ART, accuracy) over each cell's real slots, with the reference's
+    quiet defaults where no busy flag or background is given; a masked
+    run holds one cell with no real slot, which reads 0."""
+    x = _random_rounds(4 + 2 * masked + busy, 60, 6)
+    rng = np.random.default_rng(9)
+    mask = rng.random((60, 6)) < 0.6 if masked else None
+    if masked:
+        mask[7] = False
+    names = (("busy_p_s", "busy_m_s", "busy_m_e", "busy_m_c", "bg_edge",
+              "bg_cloud") if busy else ())
+    bg = {k: x[k] for k in names}
+    args = (x["actions"], x["weak_s"], x["weak_e"])
+
+    def one(i):
+        return ref_round_metrics(
+            *(np.asarray(a[i]) for a in args),
+            mask=None if mask is None else mask[i],
+            **{k: np.asarray(v[i]) for k, v in bg.items()})
+
+    want = np.array([[float(v) for v in one(i)] for i in range(60)])
+    t = lambda v: torch.as_tensor(v).to(
+        torch.int32 if v.dtype.kind in "iu" else torch.bool)
+    got = latency.round_metrics(
+        *(t(a) for a in args), mask=None if mask is None else t(mask),
+        **{k: t(v) for k, v in bg.items()})
+    assert all(g.dtype == torch.float32 and g.shape == (60,) for g in got)
+    np.testing.assert_allclose(torch.stack(got, -1).numpy(), want,
+                               atol=1e-5, rtol=1e-6)
+    if masked:
+        assert got[0][7] == 0 and got[1][7] == 0
 
 
 def test_action_accuracy_matches_reference():

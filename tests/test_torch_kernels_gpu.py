@@ -1111,6 +1111,31 @@ def test_ssd_backward_kernel_repeats_bit_identical(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,p,g,n", [
+    (2, 300, 4, 128, 2, 128),  # P = N = 128: four slices, ragged S, G 2
+    (1, 517, 2, 96, 1, 40),    # P != N, a slice of 32 columns of P
+    (2, 70, 4, 24, 2, 72),     # N past one slice, one short sub-chunk
+    (1, 100, 2, 6, 1, 10),     # P and N not multiples of 4 (padded rows)
+    (1, 70, 2, 70, 2, 66),     # slices of 6 and 2 columns past 64
+])
+def test_ssd_backward_kernel_slices_and_repeats(cuda, b, s, h, p, g, n):
+    """P or N past the kernels' 64 columns (the wrapper's slices), P or N
+    not a multiple of 4 (the outputs' rows padded for TMA), a ragged S and
+    G = 2, with an initial state and a final-state gradient:
+    every gradient within 1e-4 of the float64 plain backward's largest
+    magnitude, one launch counted a call, and two calls bit-identical."""
+    args, dy, ds = _ssd_bwd_case(s * n + p, b, s, h, p, g, n)
+    want = sk.ssd_backward_plain(*_f64_on(cuda, (*args, dy, ds)))
+    before = sk.LAUNCHES["ssd_backward"]
+    got = _ssd_bwd_kernel(args, dy, ds, cuda)
+    again = _ssd_bwd_kernel(args, dy, ds, cuda)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES["ssd_backward"] == before + 2
+    _assert_ssd_grads(got, want)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.gpu
 def test_ssd_autograd_launches_the_backward_kernel(cuda):
     """``torch.autograd.grad`` through ``ssd`` on the card, x, B and C the
     strided views of one convolution output as the model hands them

@@ -10,16 +10,19 @@ gradients of x, dt, a, B, C, D and the initial state, at a ragged S,
 strong decay, G = 2, with a cotangent on the final state and a non-zero
 initial state.
 
-``emulate_backward`` repeats the passes of ``csrc/ssd.cu``'s backward in
-float32 at the kernel's chunk lengths: each chunk's state from zero and
-its gradient from a zero end gradient with its decay product, the scans
-that carry both across chunks (dinit the last carry), per chunk a
-forward walk (dC per head, <S_e, dS_out_c>) and a reverse walk (dx and
-dS^T x per head), then a reverse walk over the per-head vectors for dt's
-gradient with the chunk-local decay sums, dB = dt dS^T x, da's and dd's
-per-chunk partials, and each group's heads summed.  It is held to
+``emulate_backward`` runs ``ssd_backward``'s kernel route on the CPU
+with each launch replaced by ``emulate_call``, which repeats the passes
+of ``csrc/ssd.cu``'s backward in float32: sub-chunks of 64 steps (or the
+case's smaller q), the decay's cumulative sums in float64, each
+sub-chunk's state and gradient from zero, the scans that carry both
+across sub-chunks (dinit the last carry), then per sub-chunk the chunked
+form's products in the kernel's order, from the state at its start and
+the gradient at its end, the decay's gradient summed in reverse within
+the sub-chunk, and da's and dd's partials per sub-chunk; the wrapper slices
+P and N wider than 64 and adds the partials pairwise.  It is held to
 float64 autograd of the plain version within 1e-4 of each gradient's
-largest magnitude, the bar the kernel meets on the card.
+largest magnitude, the bar the kernel meets on the card, and its da to
+the float32 plain backward's own distance at S 2,048.
 """
 import jax
 import jax.numpy as jnp
@@ -29,13 +32,11 @@ import torch
 
 from repro.models.config import Mamba2Config
 from repro.models.mamba2 import ssd_chunked as jssd_chunked
-from repro_torch.kernels import _build
 from repro_torch.kernels import ssd as sk
 
 NAMES = ("dx", "ddt", "da", "db", "dc", "dd", "dinit")
 VJP_BAR = 1e-4
 KERNEL_BAR = 1e-4
-L_MAIN = _build.STEPS_PER_CTA
 
 
 def _inputs(seed, b, s, h, p, g, n, decay_scale=1.0, init=True,
@@ -108,99 +109,156 @@ def test_plain_backward_matches_reference_vjp(b, s, h, p, g, n, decay_scale,
     _assert_close(got, want, VJP_BAR)
 
 
-def emulate_backward(x, dt, a, bm, cm, d, init, dy, dstate, steps):
-    """The backward kernels' passes in float32, ``steps`` steps a chunk:
-    (dx, ddt, da, db, dc, dd, dinit)."""
-    x, dt, a, bm, cm, d, dy = (torch.as_tensor(t)
-                               for t in (x, dt, a, bm, cm, d, dy))
+def emulate_call(lib, x, dt, a, bm, cm, d, init, dy, dstate, q=64):
+    """One launch of the backward kernels in float32, ``q`` steps a
+    sub-chunk, with ``ssd._backward_call``'s arguments and outputs: (dx,
+    ddt, db_head, dc_head, dinit, da_part, dd_part), the partials per
+    (batch, head, sub-chunk)."""
     b, s, h, p = x.shape
     g, n = bm.shape[2], bm.shape[3]
     hg = h // g
-    bh, ch = (t.repeat_interleave(hg, dim=2) for t in (bm, cm))
-    e = torch.exp(a * dt)
-    bounds = [(c0, min(s, c0 + steps)) for c0 in range(0, s, steps)]
-    outer = lambda col, row: col[..., :, None] * row[..., None, :]
+    n_sub = -(-s // q)
+    sp = n_sub * q
+
+    def heads(t):  # (b, h, sp, .), zero past S
+        t = torch.cat([t, t.new_zeros((b, sp - s) + t.shape[2:])], dim=1)
+        return t.transpose(1, 2)
+
+    X, DY, DT = heads(x), heads(dy), heads(dt)
+    Bm, Cm = (heads(t.repeat_interleave(hg, dim=2)) for t in (bm, cm))
+    a64 = a.double()[None, :, None]
+    dsk = torch.zeros(h) if d is None else d
+
+    def sub(j):
+        cut = slice(j * q, (j + 1) * q)
+        return X[:, :, cut], DY[:, :, cut], Bm[:, :, cut], Cm[:, :, cut], \
+            DT[:, :, cut]
+
+    def decay(dtj):  # dac in float64; e^dac, w, E as the kernel's expf
+        dac = torch.cumsum(dtj.double() * a64, -1)
+        return (dac, torch.exp(dac.float()),
+                torch.exp((dac[..., -1:] - dac).float()),
+                torch.exp(dac[..., -1].float())[..., None, None])
+
     zero = torch.zeros((b, h, p, n))
-    # pass 1: each chunk's state from zero and its gradient at its start
-    # from a zero end gradient, with the chunk's decay product
+    # pass 1: each sub-chunk's state from zero and its gradient at its
+    # start from a zero end gradient, its decay E
     s_loc, d_loc, dec = [], [], []
-    for c0, c1 in bounds:
-        st, gr, run = zero, zero, torch.ones((b, h))
-        for t in range(c0, c1):
-            st = e[:, t, :, None, None] * st + outer(
-                x[:, t], dt[:, t, :, None] * bh[:, t])
-            run = run * e[:, t]
-            gr = gr + outer(dy[:, t], run[..., None] * ch[:, t])
-        s_loc.append(st)
-        d_loc.append(gr)
-        dec.append(run[..., None, None])
-    # pass 2: S_in_c forward from the initial state, dS_out_c backward
-    # from the final state's gradient; dinit the last carry
-    carry, s_in = zero if init is None else torch.as_tensor(init), []
+    for j in range(n_sub):
+        xj, dyj, bj, cj, dtj = sub(j)
+        _, ex, w, e = decay(dtj)
+        s_loc.append(torch.einsum("bhsn,bhsp->bhpn",
+                                  bj * (dtj * w)[..., None], xj))
+        d_loc.append(torch.einsum("bhtn,bhtp->bhpn", cj * ex[..., None],
+                                  dyj))
+        dec.append(e)
+    # pass 2: S_in of each sub-chunk forward from the initial state,
+    # dS_out backward from the final state's gradient; dinit the last carry
+    carry, s_in = zero if init is None else init, []
     for st, dc_ in zip(s_loc, dec):
         s_in.append(carry)
         carry = dc_ * carry + st
-    carry = zero if dstate is None else torch.as_tensor(dstate)
-    d_out = [None] * len(bounds)
-    for c in reversed(range(len(bounds))):
-        d_out[c] = carry
-        carry = dec[c] * carry + d_loc[c]
+    carry = zero if dstate is None else dstate
+    d_out = [None] * n_sub
+    for j in reversed(range(n_sub)):
+        d_out[j] = carry
+        carry = dec[j] * carry + d_loc[j]
     dinit = None if init is None else carry
-    # pass 3: dC per head and <S_e, dS_out_c>; dx and dS^T x per head
-    dx = torch.zeros_like(x)
-    dc_h, dsx_h = torch.zeros((b, s, h, n)), torch.zeros((b, s, h, n))
-    sds = []
-    for (c0, c1), st, ds in zip(bounds, s_in, d_out):
-        for t in range(c0, c1):
-            st = e[:, t, :, None, None] * st + outer(
-                x[:, t], dt[:, t, :, None] * bh[:, t])
-            dc_h[:, t] = (st * dy[:, t, ..., None]).sum(-2)
-        sds.append((st * ds).sum((-1, -2)))
-        for t in range(c1 - 1, c0 - 1, -1):
-            ds = ds + outer(dy[:, t], ch[:, t])
-            dsx_h[:, t] = (ds * x[:, t, ..., None]).sum(-2)
-            dx[:, t] = (dt[:, t, :, None] * (ds * bh[:, t, :, None, :]).sum(-1)
-                        + d[:, None] * dy[:, t])
-            ds = e[:, t, :, None, None] * ds
-    # pass 4: dt's gradient with the chunk-local sums D_m = <S_e, dS_e> +
-    # sum_{t >= m} (C . dC - B . dB); dB = dt dS^T x; da's and dd's
-    # per-chunk partials
-    ddt = torch.zeros_like(dt)
-    db_h = torch.zeros_like(dsx_h)
-    da_part, dd_part = [], []
-    for (c0, c1), acc in zip(bounds, sds):
-        da_c, dd_c = torch.zeros((b, h)), torch.zeros((b, h))
-        for t in range(c1 - 1, c0 - 1, -1):
-            cdc = (ch[:, t] * dc_h[:, t]).sum(-1)
-            bsx = (bh[:, t] * dsx_h[:, t]).sum(-1)
-            acc = acc + (cdc - dt[:, t] * bsx)
-            ddt[:, t] = a * acc + bsx
-            da_c = da_c + dt[:, t] * acc
-            dd_c = dd_c + (dy[:, t] * x[:, t]).sum(-1)
-            db_h[:, t] = dt[:, t, :, None] * dsx_h[:, t]
-        da_part.append(da_c)
-        dd_part.append(dd_c)
-    da = torch.stack(da_part, dim=1).sum(dim=(0, 1))
-    dd = torch.stack(dd_part, dim=1).sum(dim=(0, 1))
-    db, dc = (t.view(b, s, g, hg, n).sum(3) for t in (db_h, dc_h))
-    return dx, ddt, da, db, dc, dd, dinit
+    # pass 3, per sub-chunk: the products of csrc/ssd.cu from S_in and
+    # dS_out, each in a fresh accumulator
+    dx, ddt = torch.zeros((b, h, sp, p)), torch.zeros((b, h, sp))
+    db_h, dc_h = torch.zeros((b, h, sp, n)), torch.zeros((b, h, sp, n))
+    da_part, dd_part = torch.zeros((b, h, n_sub)), torch.zeros((b, h, n_sub))
+    tri = torch.tril(torch.ones(q, q, dtype=torch.bool))
+    for j in range(n_sub):
+        xj, dyj, bj, cj, dtj = sub(j)
+        dac, ex, w, e = decay(dtj)
+        st, dso, rows = s_in[j], d_out[j], slice(j * q, (j + 1) * q)
+        lm = torch.where(tri, torch.exp(
+            (dac[..., :, None] - dac[..., None, :]).float()), 0.0)
+        m = torch.einsum("bhtn,bhsn->bhts", cj, bj) * lm
+        dm = torch.where(tri, torch.einsum("bhtp,bhsp->bhts", dyj, xj)
+                         * dtj[..., None, :], 0.0)
+        dms, dmm = dm * lm, dm * m
+        u3 = torch.einsum("bhpn,bhtp->bhnt", st, dyj) * ex[..., None, :]
+        goff = (cj.transpose(-1, -2) * u3).sum(-2)
+        u1 = torch.einsum("bhpn,bhsn->bhps", dso, bj) * w[..., None, :]
+        du = torch.einsum("bhtp,bhts->bhps", dyj, m) + u1
+        xt, dyt = xj.transpose(-1, -2), dyj.transpose(-1, -2)
+        dx[:, :, rows] = (dtj[..., None, :] * du
+                          + dsk[None, :, None, None] * dyt
+                          ).transpose(-1, -2)
+        u2 = torch.einsum("bhpn,bhsp->bhns", dso, xj)
+        db_h[:, :, rows] = (torch.einsum("bhtn,bhts->bhns", cj, dms)
+                            + u2 * (w * dtj)[..., None, :]
+                            ).transpose(-1, -2)
+        dc_h[:, :, rows] = (torch.einsum("bhsn,bhts->bhnt", bj, dms)
+                            + u3).transpose(-1, -2)
+        # the decay's gradient and its reverse cumulative sum within the
+        # sub-chunk
+        r = dtj * (xt * u1).sum(-2)
+        gd = dmm.sum(-1) - dmm.sum(-2) + goff - r
+        gd[..., -1] += r.sum(-1) + e[..., 0, 0] * (st * dso).sum((-1, -2))
+        rr = torch.flip(torch.cumsum(torch.flip(gd, [-1]), -1), [-1])
+        ddt[:, :, rows] = (xt * du).sum(-2) + a[None, :, None] * rr
+        da_part[..., j] = (dtj * rr).sum(-1)
+        dd_part[..., j] = (dyt * xt).sum((-1, -2))
+    back = lambda t: t.transpose(1, 2)[:, :s].contiguous()
+    return (back(dx), back(ddt), back(db_h), back(dc_h), dinit, da_part,
+            dd_part)
 
 
-@pytest.mark.parametrize("b,s,h,p,g,n,decay_scale,steps", [
-    (1, L_MAIN + 1, 2, 16, 1, 16, 1.0, L_MAIN),     # two chunks
-    (1, 3 * _build.MIN_STEPS + 5, 4, 8, 2, 16, 1.0, _build.MIN_STEPS),  # G 2
-    (2, 4 * _build.MIN_STEPS + 3, 2, 8, 1, 8, 8.0, _build.MIN_STEPS),   # e = 0
-    (1, 200, 2, 16, 1, 8, 0.05, 17),                # weak decay, P != N
-    (1, 9, 2, 8, 1, 8, 1.0, L_MAIN),
+def emulate_backward(x, dt, a, bm, cm, d, init, dy, dstate, q=64):
+    """``ssd_backward``'s kernel route in float32 on the CPU: the
+    wrapper's own slicing of P and N, its sums of the slices' gradients
+    and its pairwise sums of da's and dd's partials, over
+    :func:`emulate_call` in place of each launch, ``q`` steps a
+    sub-chunk."""
+    from unittest import mock
+    call = lambda lib, *t: emulate_call(lib, *t, q=q)
+    with mock.patch.object(sk, "_backward_call", call), \
+            mock.patch.object(sk, "_lib", lambda: None), \
+            mock.patch.object(sk._build, "route", lambda dev: "cuda"), \
+            mock.patch.object(sk, "SUB", q):
+        return sk.ssd_backward(*_torch((x, dt, a, bm, cm, d, init)),
+                               *_torch((dy, dstate)))
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,decay_scale,q", [
+    (1, 2 * 64 + 1, 2, 16, 1, 16, 1.0, 64),   # three sub-chunks
+    (1, 3 * 16 + 5, 4, 8, 2, 16, 1.0, 16),    # G 2
+    (2, 4 * 16 + 3, 2, 8, 1, 8, 8.0, 16),     # e = 0
+    (1, 200, 2, 16, 1, 8, 0.05, 16),          # weak decay, P != N
+    (1, 9, 2, 8, 1, 8, 1.0, 64),
+    (1, 70, 2, 80, 1, 72, 1.0, 64),   # P, N past one slice of 64
+    (1, 40, 2, 128, 2, 128, 1.0, 32),  # P = N = 128, G 2
 ])
 def test_kernel_emulation_matches_f64_autograd(b, s, h, p, g, n, decay_scale,
-                                               steps):
+                                               q):
     args, dy, ds = _inputs(3 * s + n, b, s, h, p, g, n, decay_scale)
-    got = emulate_backward(*args, dy, ds, steps)
+    got = emulate_backward(*args, dy, ds, q)
     want = sk.ssd_backward_plain(
         *(None if t is None else t.double() for t in _torch(args)),
         torch.as_tensor(dy).double(), torch.as_tensor(ds).double())
     _assert_close(got, want, KERNEL_BAR)
+
+
+@pytest.mark.parametrize("decay_scale", [1.0, 8.0])
+def test_emulated_da_within_the_f32_plain_distance(decay_scale):
+    """da's partials per 64-step sub-chunk: at S 2,048, normal and strong
+    decay, the emulated kernels' da lies no further from float64 autograd
+    (over its largest magnitude) than the float32 plain backward's own,
+    autograd through ``ssd_chunked`` at the config's chunk of 256, as
+    chip_smoke.py's plain version runs it."""
+    args, dy, ds = _inputs(11, 1, 2048, 2, 16, 1, 16, decay_scale)
+    got = emulate_backward(*args, dy, ds)
+    t = _torch(args)
+    want = sk.ssd_backward_plain(*(x.double() for x in t),
+                                 torch.as_tensor(dy).double(),
+                                 torch.as_tensor(ds).double(), chunk=256)
+    f32 = sk.ssd_backward_plain(*t, torch.as_tensor(dy),
+                                torch.as_tensor(ds), chunk=256)
+    assert _rel_to_max(got[2], want[2]) <= _rel_to_max(f32[2], want[2])
 
 
 def test_ssd_function_gradcheck():

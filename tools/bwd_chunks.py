@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
-"""The WKV6 and SSD backward kernels' time by chunk length.
+"""The WKV6 backward kernels' time by chunk length.
 
     python3 tools/bwd_chunks.py
 
-Needs one CUDA card and nvcc.  At the training shapes of rwkv6-1.6b (B 4,
-S 2048, H 32, N 64) and zamba2-1.2b (B 4, S 2048, H 64, P 64, G 1, N 64),
-f32, runs each backward at every chunk length L in (32, 64, 128, 256,
-512) (``_build.steps_for`` replaced for the run, the forward's chunk
-states taken at the same L for WKV6) and times it with CUDA events after
-warm-up, as ``chip_smoke.py`` times; each gradient's largest distance to
-the float64 plain backward, over its largest magnitude, beside it.
-Marks the L the wrappers pick (``_build.chunk_len``).  Prints one JSON
-line per model and writes ``chiprun_out/bwd_chunks.json`` with the
-card's ``nvidia-smi`` name and power limit.
+Needs one CUDA card and nvcc.  At rwkv6-1.6b's training shape (B 4, S
+2048, H 32, N 64), f32, runs the backward at every chunk length L in
+(32, 64, 128, 256, 512) (``_build.steps_for`` replaced for the run, the
+forward's chunk states taken at the same L) and times it with CUDA
+events after warm-up, as ``chip_smoke.py`` times; each gradient's
+largest distance to the float64 plain backward, over its largest
+magnitude, beside it, and one call's device ms by kernel from
+``torch.profiler``.  Marks the L the wrapper picks
+(``_build.chunk_len``).  Prints one JSON line and writes
+``chiprun_out/bwd_chunks.json`` with the card's ``nvidia-smi`` name and
+power limit.  The SSD backward has no chunk length to choose (one
+sub-chunk of 64 steps an item): ``tools/ssd_bwd_breakdown.py`` times it.
 """
 from __future__ import annotations
 
@@ -31,6 +33,22 @@ def rel_errs(got, want) -> dict:
             for i, (g, w) in enumerate(zip(got, want)) if w is not None}
 
 
+def device_split(torch, fn, names) -> dict:
+    """Device ms of one call of ``fn`` by kernel, from ``torch.profiler``
+    (device activity only): each of ``names`` (the kernels whose name
+    holds it) and ``other`` (the wrappers' sums and copies)."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    split = dict.fromkeys(names, 0.0)
+    split["other"] = 0.0
+    for e in prof.key_averages():
+        key = next((n for n in names if n in e.key), "other")
+        split[key] += e.device_time_total / 1e3
+    return split
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -39,7 +57,6 @@ def main() -> int:
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
     from chip_smoke import cuda_ms
     from repro_torch.kernels import _build
-    from repro_torch.kernels import ssd as sk
     from repro_torch.kernels import wkv6 as wk
     OUT.mkdir(exist_ok=True)
     card = subprocess.run(
@@ -66,34 +83,16 @@ def main() -> int:
         cs = wk._launch(r, k, v, lw, u, steps)[2]
         run = lambda: wk.wkv6_backward(r, k, v, lw, u, cs, do, ds)
         rows[steps] = dict(errs=rel_errs(run(), want),
-                           ms=cuda_ms(torch, run, iters=10)["ms"])
+                           ms=cuda_ms(torch, run, iters=10)["ms"],
+                           by_kernel_ms=device_split(torch, run, (
+                               "wkv6_bwd_local", "wkv6_bwd_scan",
+                               "wkv6_bwd_chunk")))
         del cs
     _build.steps_for = picked
     results["rwkv6-1.6b"] = dict(
         shape=dict(B=b, S=s, H=h, N=n),
         wrapper_steps=_build.chunk_len(b * h, s, n_sms), by_steps=rows)
     print(json.dumps({"rwkv6-1.6b": results["rwkv6-1.6b"]}), flush=True)
-    del r, k, v, do, lw, want
-
-    b, s, h, p, g_, n = 4, 2048, 64, 64, 1, 64
-    x, dy = rn(b, s, h, p), rn(b, s, h, p)
-    dt = torch.nn.functional.softplus(rn(b, s, h))
-    a = -torch.exp(rn(h))
-    bm, cm = rn(b, s, g_, n), rn(b, s, g_, n)
-    d = torch.linspace(0.5, 1.5, h, device=dev)
-    args = (x, dt, a, bm, cm, d, rn(b, h, p, n), dy, rn(b, h, p, n))
-    want = sk.ssd_backward_plain(*(t.double() for t in args))
-    rows = {}
-    for steps in STEPS:
-        _build.steps_for = lambda t, steps=steps: steps
-        run = lambda: sk.ssd_backward(*args)
-        rows[steps] = dict(errs=rel_errs(run(), want),
-                           ms=cuda_ms(torch, run, iters=10)["ms"])
-    _build.steps_for = picked
-    results["zamba2-1.2b"] = dict(
-        shape=dict(B=b, S=s, H=h, P=p, G=g_, N=n),
-        wrapper_steps=_build.chunk_len(b * h, s, n_sms), by_steps=rows)
-    print(json.dumps({"zamba2-1.2b": results["zamba2-1.2b"]}), flush=True)
     (OUT / "bwd_chunks.json").write_text(json.dumps(results, indent=1))
     print(card)
     return 0

@@ -59,6 +59,11 @@ def variant_source(text: str) -> str:
         if line not in text:
             raise SystemExit(f"ssd_breakdown: marker not found: {line!r}")
         text = text.replace(line, f"#ifndef {macro}\n{line}\n#endif", 1)
+    return text
+
+
+def variant_header(text: str) -> str:
+    """The shared header with split() behind FREE_SPLIT."""
     if SPLIT[0] not in text:
         raise SystemExit("ssd_breakdown: split() not found")
     return text.replace(SPLIT[0], SPLIT[1], 1)
@@ -77,6 +82,9 @@ def main() -> int:
     work.mkdir(parents=True, exist_ok=True)
     src = work / "ssd_variants.cu"
     src.write_text(variant_source((_build.CSRC / "ssd.cu").read_text()))
+    # found before csrc/'s: the including file's directory comes first
+    (work / "hopper.cuh").write_text(
+        variant_header((_build.CSRC / "hopper.cuh").read_text()))
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
 
     def build(item):
@@ -84,7 +92,8 @@ def main() -> int:
         lib = work / f"ssd_variant{i}.so"
         proc = subprocess.run(
             [_build.nvcc_path(), *flags, *(f"-D{m}" for m in macros),
-             "-o", str(lib), str(src)], capture_output=True, text=True)
+             "-I", str(_build.CSRC), "-o", str(lib), str(src)],
+            capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {name}:\n{proc.stderr}")
         return name, lib
